@@ -8,20 +8,30 @@ Phases, in order; any failure raises and the process exits non-zero:
   2. build    - ops/csrc/*.cu compiled with nvcc for sm_90a into
                 build/torch_kernels/ (first use) and loaded.
   3. kernels  - every kernel held EXACTLY against its plain PyTorch version on
-                CUDA tensors, over the CPU tests' grid plus the main-path shape
-                (2^23 rows, packed 16-bit key, 2406 groups, count + int_sum)
-                and the shared-memory limits (8192 groups); then the
-                main-path shape timed with CUDA events (median of 20
-                launches, L2 flushed before each): kernel, plain version,
-                and one torch.Tensor.index_add_ per entry as the library
-                yardstick (never called by the port).
+                CUDA tensors: the CPU tests' grid, every instantiation (key
+                mode x value mode, and the global-atomic path), unaligned
+                views, shared and distinct masks, E = 16 and 17, G = 1 and
+                8, out-of-table codes; then 4 shapes timed with CUDA events
+                (median of 20 calls, L2 flushed before each): the main path
+                (2^23 rows, packed 16-bit key, 2406 groups, count + int_sum),
+                query (c)'s raw computed key (550 groups), G = 8, and
+                G = 8192 with 4 sums (global path).  Each: the wrapper call,
+                the plain version, and one torch.Tensor.index_add_ per entry
+                as the library yardstick (never called by the port).  Also
+                printed: ptxas's registers/shared memory/spills of each
+                instantiation and the atomic instructions in the SASS.
   4. main path - SSB lineorder, --segments x --rows-per-segment rows (default
                 8 x 2^23 = 67,108,864, just above SSB scale factor 10) from
                 --seed, registered in QueryEngine() on CUDA; three queries
                 checked EXACTLY against numpy golden results, with the
                 kernels' launch counts read around that one run; then each
                 query's warm median wall time over 5 runs.
-  5. summary  - one {"kernels": [...]} JSON line, the card's nvidia-smi line,
+  5. profile  - after the main path (a profiler session leaves tracing set up
+                in the process): each timed shape's kernel device time
+                (scan_ms) and the device time of a streaming read of the same
+                bytes (read_ms), from torch.profiler; the cluster merge of
+                the block tables on and off.
+  6. summary  - one {"kernels": [...]} JSON line, the card's nvidia-smi line,
                 and last the {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
@@ -42,6 +52,8 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 # CUDA-event-timed launches per kernel measurement, after warm-up
 TIMED_ITERS = 20
+# profiled launches per scan_ms measurement
+PROFILED_ITERS = 10
 
 CONFIG2 = (
     "SELECT lo_orderdate, SUM(lo_revenue), COUNT(*) FROM lineorder "
@@ -81,17 +93,26 @@ def _pack(codes: np.ndarray, bits: int) -> np.ndarray:
 
 def _variants(rng):
     """(label, entries, codes, num_groups, kwargs) in numpy; entries are
-    (kind, values, mask, limb_plan)."""
-    def entries(n, kinds=("count", "i8", "i32", "i64")):
-        m = lambda: rng.random(n) < 0.8  # noqa: E731
+    (kind, values, mask, limb_plan).  kwargs may hold "offsets": the element
+    offset at which each kind of operand ("key", "mask", "values") starts
+    inside a larger buffer, so that the kernel sees unaligned views."""
+    def entries(n, kinds=("count", "i8", "i32", "i64"), shared_mask=False):
+        one = rng.random(n) < 0.8
+        m = (lambda: one) if shared_mask else (lambda: rng.random(n) < 0.8)  # noqa: E731
         make = {
             "count": lambda: ("count", None, m(), None),
             "i8": lambda: ("int_sum", rng.integers(-120, 120, n).astype(np.int8), m(), (1, True)),
+            "i16": lambda: ("int_sum", rng.integers(-30000, 30000, n).astype(np.int16), m(), (2, True)),
+            "u16": lambda: ("int_sum", rng.integers(0, 65536, n).astype(np.uint16), m(), (2, False)),
             "i32": lambda: ("int_sum", rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32), m(), (4, True)),
             "i64": lambda: ("int64_sum", rng.integers(-(2**39), 2**39, n).astype(np.int64), m(), None),
+            "i64p5": lambda: ("int64_sum", rng.integers(-(2**39), 2**39, n).astype(np.int64), m(), 5),
             "u32": lambda: ("int_sum", rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32), m(), None),
         }
         return [make[k]() for k in kinds]
+
+    def words(n):
+        return np.packbits((rng.random(n) < 0.5).reshape(-1, 32), axis=1, bitorder="little").view(np.uint32).reshape(-1)
 
     out = []
     for n in (32, 4096, 4096 * 2 + 32, 1000):
@@ -99,9 +120,8 @@ def _variants(rng):
             out.append((f"grid n={n} G={g}", entries(n), rng.integers(0, g, n).astype(np.int32), g, {}))
     n = 4096 * 3 + 32
     codes = rng.integers(0, 50, n).astype(np.int32)
-    words = np.packbits((rng.random(n) < 0.5).reshape(-1, 32), axis=1, bitorder="little").view(np.uint32).reshape(-1)
     out.append(("mask_words+code_pred", entries(n), codes, 50,
-                {"mask_words": words, "code_pred": (codes.astype(np.uint8), 10, 40)}))
+                {"mask_words": words(n), "code_pred": (codes.astype(np.uint8), 10, 40)}))
     for bits in (4, 8, 16):
         n = 4096 + 32
         g = min(1 << bits, 300)
@@ -111,26 +131,85 @@ def _variants(rng):
                 rng.integers(0, 7, 1000).astype(np.int32), 7, {}))
     out.append(("G=8192, 3 entries (shared-memory limit)", entries(1 << 20, ("count", "i8", "i32")),
                 rng.integers(0, 8192, 1 << 20).astype(np.int32), 8192, {}))
-    out.append(("G=8192, 4 entries (global-atomic path)", entries(1 << 20),
+    out.append(("G=8192, count + 3 sums (224 KB of shared tables)", entries(1 << 20),
                 rng.integers(0, 8192, 1 << 20).astype(np.int32), 8192, {}))
+    out.append(("G=8192, 4 sums (global-atomic path)", entries(1 << 20, ("i8", "i32", "i64", "i16")),
+                rng.integers(0, 8192, 1 << 20).astype(np.int32), 8192, {}))
+
+    # every instantiation: key mode x value mode, with negative and >= G
+    # codes where the key can hold them, on row counts that leave a tail
+    # after the vector tiles (packed keys need whole words)
+    value_sets = {"i32": ("count", "i32", "u32"), "i64": ("count", "i64", "i64p5"),
+                  "any": ("count", "i8", "i16", "u16", "i32", "i64")}
+    n_raw, n_packed = 512 * 5 + 37, 512 * 5 + 48
+    for vm, kinds in value_sets.items():
+        c = rng.integers(-3, 303, n_raw).astype(np.int32)
+        out.append((f"int32 key, {vm} values, codes in [-3, 303) of G=300", entries(n_raw, kinds), c, 300, {}))
+        c = np.where(rng.random(n_raw) < 0.9, rng.integers(0, 300, n_raw),
+                     rng.integers(-(2**40), 2**40, n_raw)).astype(np.int64)
+        out.append((f"int64 key (generic), {vm} values, wide codes", entries(n_raw, kinds), c, 300, {}))
+        for bits in (4, 8, 16):
+            g = {4: 12, 8: 200, 16: 2406}[bits]
+            c = rng.integers(0, min(1 << bits, g + 40), n_packed).astype(np.int32)  # lanes >= G drop
+            out.append((f"packed {bits}-bit key, {vm} values, G={g}", entries(n_packed, kinds), c, g,
+                        {"codes_packed": (_pack(c, bits), bits)}))
+    c = rng.integers(-128, 128, n_raw).astype(np.int8)
+    out.append(("int8 key (generic), negative codes", entries(n_raw, ("count", "i32")), c, 100, {}))
+    c = rng.integers(0, 4, n_packed).astype(np.int32)
+    out.append(("packed 2-bit key (generic)", entries(n_packed, ("count", "i32")), c, 3,
+                {"codes_packed": (_pack(c, 2), 2)}))
+
+    # unaligned views, masks shared or not, chunked entry lists, hot slots
+    n = 512 * 4 + 64
+    c = rng.integers(0, 300, n).astype(np.int32)
+    out.append(("views at offset 1 (common aligned head), mask_words+code_pred",
+                entries(n, ("count", "i8", "i32", "i64")), c, 300,
+                {"offsets": {"key": 1, "mask": 1, "values": 1}, "mask_words": words(n),
+                 "code_pred": (c.astype(np.int16), 20, 250)}))
+    for off in ((1, 2, 3), (3, 1, 2), (2, 3, 1)):
+        out.append((f"views at offsets key/mask/values {off} (no common head: scalar loads)",
+                    entries(n + 13, ("count", "i32", "i64")), rng.integers(0, 300, n + 13).astype(np.int32), 300,
+                    {"offsets": dict(zip(("key", "mask", "values"), off))}))
+    c = rng.integers(0, 2406, n).astype(np.int32)
+    out.append(("packed 16-bit key, views at offsets 1 word / 2 / 2 (head of 2 rows)", entries(n, ("count", "i32")),
+                c, 2406, {"codes_packed": (_pack(c, 16), 16), "offsets": {"key": 1, "mask": 2, "values": 2}}))
+    out.append(("one mask shared by 4 entries", entries(n, ("count", "i8", "i32", "i64"), shared_mask=True),
+                rng.integers(0, 300, n).astype(np.int32), 300, {}))
+    out.append(("E=16 (one launch)", entries(n, ("count", "i32", "i64", "i8") * 4),
+                rng.integers(0, 50, n).astype(np.int32), 50, {}))
+    out.append(("E=17 (two launches)", entries(n, ("count", "i32", "i64", "i8") * 4 + ("count",)),
+                rng.integers(0, 50, n).astype(np.int32), 50, {}))
+    for g in (1, 8):
+        out.append((f"G={g} hot slots, n=2^20", entries(1 << 20, ("count", "i32"), shared_mask=True),
+                    rng.integers(0, g, 1 << 20).astype(np.int32), g, {}))
     return out
 
 
 def _to_cuda(entries, codes, kwargs, dev):
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    """CUDA copies; a numpy array used twice (a shared mask) stays one
+    tensor, and kwargs["offsets"] places operands inside larger buffers."""
+    offsets = kwargs.get("offsets", {})
+    memo = {}  # id -> (array, tensor): the array stays alive, so ids stay unique
 
-    ents = [(k, None if v is None else t(v), t(m), lp) for k, v, m, lp in entries]
+    def t(a, kind):
+        if id(a) not in memo:
+            off = offsets.get(kind, 0)
+            buf = torch.zeros(len(a) + off, dtype=torch.from_numpy(a[:0]).dtype, device=dev)
+            buf[off:] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            memo[id(a)] = (a, buf[off:])
+        return memo[id(a)][1]
+
+    ents = [(k, None if v is None else t(v, "values"), t(m, "mask"), lp) for k, v, m, lp in entries]
     kw = {}
     if "mask_words" in kwargs:
         kw["mask_words"] = torch.from_numpy(kwargs["mask_words"].view(np.int32)).to(dev)
     if "code_pred" in kwargs:
         pc, lo, hi = kwargs["code_pred"]
-        kw["code_pred"] = (t(pc), lo, hi)
+        kw["code_pred"] = (t(pc, "pred"), lo, hi)
     if "codes_packed" in kwargs:
         w, bits = kwargs["codes_packed"]
-        kw["codes_packed"] = (torch.from_numpy(w.view(np.int32)).to(dev), bits)
-    return ents, t(codes), kw
+        kw["codes_packed"] = (t(w.view(np.int32), "key"), bits)
+    return ents, t(codes, "key"), kw
 
 
 def _max_abs_err(got, ref) -> float:
@@ -154,69 +233,241 @@ def _time_cuda(fn, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def phase_kernels(rng, dev):
-    from pinot_tpu_torch.ops import fused_scan, segmented
+def _device_ms(fn, flush: torch.Tensor, kernel: str):
+    """Mean device ms a call spends in kernels whose name holds `kernel`,
+    over PROFILED_ITERS calls under torch.profiler (L2 flushed as above)."""
+    from torch.profiler import ProfilerActivity, profile
 
-    worst = 0.0
-    for label, entries, codes, g, kwargs in _variants(rng):
-        ents, c, kw = _to_cuda(entries, codes, kwargs, dev)
-        key = None if "codes_packed" in kw else c
-        got = fused_scan.fused_group_tables(ents, key, g, **kw)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_ITERS):
+            flush.zero_()
+            fn()
         torch.cuda.synchronize()
+    total_us = 0.0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            us = getattr(e, "self_device_time_total", None)
+            total_us += us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
+    return total_us / PROFILED_ITERS / 1e3 if total_us else "not measured"
+
+
+def _bound(ents, key_in, g):
+    """Least time for the same work: each input byte read once (the key,
+    each distinct mask, the values where their mask holds), each table
+    written once; one 64-bit add per counted row and entry."""
+    masks = list({m.data_ptr(): m for _k, _v, m, _lp in ents}.values())
+    counted = [int(m.sum()) for _k, _v, m, _lp in ents]
+    read_bytes = key_in.numel() * key_in.element_size() + sum(m.numel() for m in masks) + sum(
+        c * v.element_size() for (_k, v, _m, _lp), c in zip(ents, counted) if v is not None)
+    write_bytes = len(ents) * g * 8
+    bytes_ms = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = sum(counted) / SCALAR_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_moved": read_bytes + write_bytes}
+
+
+def _key_input(ents, key, kw):
+    """The key tensor the kernel reads, and its codes as int64."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    if "codes_packed" in kw:
+        words, bits = kw["codes_packed"]
+        return words, fused_scan.lane_unpack(words, bits, int(ents[0][2].shape[0])).to(torch.int64)
+    return key, key.to(torch.int64)
+
+
+def _timed_shape(label, ents, key, g, kw, flush):
+    """kernel_ms (the wrapper call), plain_ms, library_ms (one index_add_ per
+    entry on pre-masked int64 values, never called by the port), all with
+    CUDA events; host_ms (the host time of a wrapper call, from the idle
+    device to its return) and the bound."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    before = dict(fused_scan.VARIANT_LAUNCHES)
+    kernel_ms = _time_cuda(lambda: fused_scan.fused_group_tables(ents, key, g, **kw), flush)
+    variants = sorted(k for k, v in fused_scan.VARIANT_LAUNCHES.items() if v != before.get(k, 0))
+    host = []
+    for _ in range(TIMED_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused_scan.fused_group_tables(ents, key, g, **kw)
+        host.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(host)
+    plain_ms = _time_cuda(lambda: fused_scan.fused_group_tables_reference(ents, key, g, **kw), flush)
+    key_in, key64 = _key_input(ents, key, kw)
+    zero = torch.zeros((), dtype=torch.int64, device=key64.device)
+    adds = [torch.where(m, m.to(torch.int64) if k == "count" else fused_scan._entry_values(k, v, lp), zero)
+            for k, v, m, lp in ents]
+
+    def library():
+        for a in adds:
+            torch.zeros(g, dtype=torch.int64, device=key64.device).index_add_(0, key64, a)
+
+    library_ms = _time_cuda(library, flush)
+    timing = {"shape": label, "variant": variants, "kernel_ms": kernel_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, **_bound(ents, key_in, g)}
+    log("kernel_timing", iters=TIMED_ITERS, bound_divisor=f"{HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3 peak)", **timing)
+    if not (kernel_ms <= library_ms):
+        raise AssertionError(f"fused scan slower than its index_add_ yardstick at {label}: {timing}")
+    return timing
+
+
+def _timed_shapes(seed: int, dev):
+    """The 4 timed shapes, each held exactly against the plain version and
+    timed with CUDA events."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    worst, timings = 0.0, []
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    for label, ents, key, g, kw in _shapes(seed, dev):
+        got = fused_scan.fused_group_tables(ents, key, g, **kw)
         ref = fused_scan.fused_group_tables_reference(ents, key, g, **kw)
         err = _max_abs_err(got, ref)
         worst = max(worst, err)
         log("kernel_check", variant=label, max_abs_err=err)
         if err != 0.0:
-            raise AssertionError(f"fused scan differs from its plain version on {label}: {err}")
+            raise AssertionError(f"fused scan differs from its plain version at {label}: {err}")
+        timings.append(_timed_shape(label, ents, key, g, kw, flush))
+    return worst, timings
 
+
+def phase_kernel_profile(seed: int, dev, timings) -> None:
+    """Device times from torch.profiler, after the main path (a profiler
+    session leaves tracing set up in the process, which would tax the main
+    path's launches): for each timed shape, rebuilt from the same seed,
+    scan_ms (the kernel's own device time) and read_ms (the device time of
+    one int64 torch.sum over each input's bytes: a streaming read of the
+    same bytes after the same flush); then the cluster merge on and off."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    shapes = _shapes(seed, dev)
+    for timing, (label, ents, key, g, kw) in zip(timings, shapes):
+        key_in, _ = _key_input(ents, key, kw)
+        inputs = [key_in, *{m.data_ptr(): m for _k, _v, m, _lp in ents}.values(),
+                  *[v for _k, v, _m, _lp in ents if v is not None]]
+        words = [x.view(torch.int64) if x.numel() * x.element_size() % 8 == 0 else x for x in inputs]
+        timing["scan_ms"] = _device_ms(lambda: fused_scan.fused_group_tables(ents, key, g, **kw), flush,
+                                       "fused_scan_kernel")
+        timing["read_ms"] = _device_ms(lambda: [w.sum() for w in words], flush, "reduce_kernel")
+        log("kernel_profile", shape=label, scan_ms=timing["scan_ms"], read_ms=timing["read_ms"],
+            iters=PROFILED_ITERS)
+
+    # the cluster merge on and off, on a small table (the main path's) and a
+    # large one (G=8192, count + 2 sums): the kernel's device time each way
+    main, e4, k8192 = shapes[0], shapes[3][1], shapes[3][2]
+    e3 = [main[1][0], e4[0], e4[1]]
+    merge = {}
+    for label, ents, key, g, kw in (main, ("G=8192 count + 2 sums", e3, k8192, 8192, {})):
+        for on in (False, True):
+            saved = fused_scan.CLUSTER_MIN_TABLE_BYTES
+            fused_scan.CLUSTER_MIN_TABLE_BYTES = 0 if on else 1 << 40
+            try:
+                ms = _device_ms(lambda: fused_scan.fused_group_tables(ents, key, g, **kw), flush, "fused_scan_kernel")
+            finally:
+                fused_scan.CLUSTER_MIN_TABLE_BYTES = saved
+            merge[f"{label.split(':')[0]}: cluster of {fused_scan.CLUSTER_BLOCKS if on else 1}"] = ms
+    log("cluster_merge", table_bytes_threshold=fused_scan.CLUSTER_MIN_TABLE_BYTES, scan_ms=merge)
+
+
+def _compile_report():
+    """ptxas's registers, shared memory and spills of each instantiation, and
+    the atomic instructions in the compiled kernels (cuobjdump -sass)."""
+    import re
+    from pathlib import Path
+
+    from pinot_tpu_torch.ops import _build, fused_scan
+
+    rows = []
+    for r in _build.ptxas_report():
+        m = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", r["kernel"])
+        name = (f"{fused_scan.KEY_MODES[int(m.group(1))]}/{fused_scan.VALUE_MODES[int(m.group(2))]}/"
+                f"{'shared' if m.group(3) == '1' else 'global'}") if m else r["kernel"]
+        rows.append({"variant": name, **{k: v for k, v in r.items() if k != "kernel"}})
+    log("ptxas", kernels=rows)
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    objs = sorted(_build.BUILD_DIR.glob("*.o"))
+    if not cuobjdump.exists() or not objs:
+        log("sass_atomics", atomics="not measured (no cuobjdump or object file)")
+        return
+    counts = {}
+    for o in objs:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(o)], capture_output=True, text=True, check=True).stdout
+        for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)(?:\.[A-Z0-9_]+)*)", sass):
+            counts[op] = counts.get(op, 0) + 1
+    log("sass_atomics", atomics=counts)
+
+
+def _shapes(seed: int, dev):
+    """(label, entries, key, num_groups, kwargs) of the 4 timed shapes, on
+    the card, made from the seed."""
+    from pinot_tpu_torch.ops import segmented
+
+    rng = np.random.default_rng(seed)
     # main-path shape: 2^23 rows, packed 16-bit key, 2406 groups, the shared
     # presence/COUNT(*) entry and SUM over int32 revenue (plan from stats)
     n, g = 1 << 23, 2406
     od = rng.integers(0, g, n).astype(np.int32)
     mask = torch.from_numpy(rng.random(n) < 0.48).to(dev)
-    rev_np = rng.integers(100, 1_000_000, n).astype(np.int32)
-    rev = torch.from_numpy(rev_np).to(dev)
+    rev = torch.from_numpy(rng.integers(100, 1_000_000, n).astype(np.int32)).to(dev)
     words = torch.from_numpy(_pack(od, 16).view(np.int32)).to(dev)
     plan = segmented.sum_limb_plan(100, 999_999)
-    ents = [("count", None, mask, None), ("int_sum", rev, mask, plan)]
-    got = fused_scan.fused_group_tables(ents, None, g, codes_packed=(words, 16))
-    ref = fused_scan.fused_group_tables_reference(ents, None, g, codes_packed=(words, 16))
-    err = _max_abs_err(got, ref)
-    worst = max(worst, err)
-    log("kernel_check", variant="main path n=2^23 G=2406 packed16 count+int_sum", max_abs_err=err)
-    if err != 0.0:
-        raise AssertionError(f"fused scan differs from its plain version at the main-path shape: {err}")
+    main = [("count", None, mask, None), ("int_sum", rev, mask, plan)]
+    # query (c)'s shape: the computed key discount * 50 + quantity - 1 as raw
+    # int32 codes, 550 groups, no filter (one all-true mask)
+    kc = torch.from_numpy((rng.integers(0, 11, n) * 50 + rng.integers(0, 50, n)).astype(np.int32)).to(dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    qc = [("count", None, ones, None), ("int_sum", rev, ones, plan)]
+    k8 = torch.from_numpy(rng.integers(0, 8, n).astype(np.int32)).to(dev)
+    k8192 = torch.from_numpy(rng.integers(0, 8192, n).astype(np.int32)).to(dev)
 
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    key64 = fused_scan.lane_unpack(words, 16, n).to(torch.int64)
-    count_v = mask.to(torch.int64)
-    sum_v = torch.where(mask, rev.to(torch.int64), torch.zeros((), dtype=torch.int64, device=dev))
+    def col(a):
+        return torch.from_numpy(a).to(dev)
 
-    def library():
-        torch.zeros(g, dtype=torch.int64, device=dev).index_add_(0, key64, count_v)
-        torch.zeros(g, dtype=torch.int64, device=dev).index_add_(0, key64, sum_v)
+    e4 = [
+        ("int_sum", col(rng.integers(-120, 120, n).astype(np.int8)), col(rng.random(n) < 0.8), (1, True)),
+        ("int_sum", col(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)), col(rng.random(n) < 0.8), (4, True)),
+        ("int64_sum", col(rng.integers(-(2**39), 2**39, n).astype(np.int64)), col(rng.random(n) < 0.8), None),
+        ("int_sum", col(rng.integers(100, 1_000_000, n).astype(np.int32)), col(rng.random(n) < 0.8), plan),
+    ]
+    return [
+        ("main path: n=2^23 packed16 G=2406 E=2, shared mask", main, None, g, {"codes_packed": (words, 16)}),
+        ("query (c): n=2^23 int32 key G=550 E=2, all-true mask", qc, kc, 550, {}),
+        ("hot slots: n=2^23 int32 key G=8 E=2, shared mask", main, k8, 8, {}),
+        ("global path: n=2^23 int32 key G=8192 E=4 sums", e4, k8192, 8192, {}),
+    ]
 
-    before = fused_scan.LAUNCHES
-    kernel_ms = _time_cuda(lambda: fused_scan.fused_group_tables(ents, None, g, codes_packed=(words, 16)), flush)
-    timing_launches = fused_scan.LAUNCHES - before
-    plain_ms = _time_cuda(lambda: fused_scan.fused_group_tables_reference(ents, None, g, codes_packed=(words, 16)), flush)
-    library_ms = _time_cuda(library, flush)
-    # least time for the same work: each input byte read once (key words,
-    # the shared mask, revenue where the mask holds), each output written once
-    n_true = int(mask.sum())
-    read_bytes = words.numel() * 4 + n + n_true * 4
-    write_bytes = len(ents) * g * 8
-    bytes_ms = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = (n + n_true) / SCALAR_OPS_PER_S * 1e3  # one int64 add per counted row and entry
-    timing = {
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bytes_moved": read_bytes + write_bytes, "timing_launches": timing_launches,
-    }
-    log("kernel_timing", shape="n=2^23 packed16 G=2406 E=2", iters=TIMED_ITERS,
-        bound_divisor=f"{HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3 peak)", **timing)
-    return worst, timing
+
+def phase_kernels(rng, dev):
+    """The variant grid, each case held exactly against the plain version;
+    the worst error."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    worst = 0.0
+    fused_scan.VARIANT_LAUNCHES.clear()
+    for label, entries, codes, g, kwargs in _variants(rng):
+        ents, c, kw = _to_cuda(entries, codes, kwargs, dev)
+        key = None if "codes_packed" in kw else c
+        before, seen = fused_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES)
+        got = fused_scan.fused_group_tables(ents, key, g, **kw)
+        torch.cuda.synchronize()
+        launches = fused_scan.LAUNCHES - before
+        ref = fused_scan.fused_group_tables_reference(ents, key, g, **kw)
+        err = _max_abs_err(got, ref)
+        worst = max(worst, err)
+        ran = sorted(k for k, v in fused_scan.VARIANT_LAUNCHES.items() if v != seen.get(k, 0))
+        log("kernel_check", variant=label, max_abs_err=err, launches=launches, instantiations=ran)
+        if err != 0.0:
+            raise AssertionError(f"fused scan differs from its plain version on {label}: {err}")
+        if launches != -(-len(ents) // fused_scan.MAX_ENTRIES):
+            raise AssertionError(f"{label}: {launches} launches for {len(ents)} entries")
+    want = {f"{k}/{v}/shared" for k in fused_scan.KEY_MODES for v in fused_scan.VALUE_MODES} | {"any/any/global"}
+    missing = want - set(fused_scan.VARIANT_LAUNCHES)
+    if missing:
+        raise AssertionError(f"the variant grid reached no launch of {sorted(missing)}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +547,7 @@ def phase_main_path(args, dev):
 
     # the counted run: counts set to 0 just before, read just after
     fused_scan.LAUNCHES = 0
+    fused_scan.VARIANT_LAUNCHES.clear()
     res_a = engine.query(CONFIG2)
     launches_a = fused_scan.LAUNCHES
     res_b = engine.query(QUERY_B)
@@ -304,6 +556,7 @@ def phase_main_path(args, dev):
     launches_c = fused_scan.LAUNCHES - launches_a - launches_b
     torch.cuda.synchronize()
     main_launches = fused_scan.LAUNCHES
+    main_variants = dict(fused_scan.VARIANT_LAUNCHES)
 
     if sorted(res_a.rows) != want_a:
         raise AssertionError("query (a) differs from the numpy golden")
@@ -318,7 +571,7 @@ def phase_main_path(args, dev):
             f"the fused scan did not run on every segment: (a) {launches_a}, (c) {launches_c} launches"
         )
     log("main_path_check", exact=True, launches_a=launches_a, launches_b=launches_b, launches_c=launches_c,
-        groups_a=len(res_a.rows))
+        groups_a=len(res_a.rows), instantiations=main_variants)
 
     torch.cuda.reset_peak_memory_stats()
     timings = {}
@@ -334,7 +587,7 @@ def phase_main_path(args, dev):
     log("main_path_timing", rows=total_rows, max_memory_allocated=torch.cuda.max_memory_allocated(), **timings)
     for name, sql in (("a_config2", CONFIG2), ("b_filtered_agg", QUERY_B), ("c_two_dim_groupby", QUERY_C)):
         log("main_path_profile", query=name, **profile_query(engine, sql))
-    return main_launches
+    return main_launches, main_variants
 
 
 def profile_query(engine, sql: str) -> dict:
@@ -394,15 +647,21 @@ def main() -> int:
     _build.load()
     log("build", library=f"build/torch_kernels/{_build.LIB_NAME}", nvcc_s=_build.last_build_seconds,
         build_and_load_s=time.perf_counter() - t0)
+    _compile_report()
 
     # 3. kernels vs plain versions
-    rng = np.random.default_rng(args.seed)
-    worst, timing = phase_kernels(rng, dev)
+    worst = phase_kernels(np.random.default_rng(args.seed), dev)
+    shape_worst, timings = _timed_shapes(args.seed + 1, dev)
+    worst = max(worst, shape_worst)
+    timing = timings[0]  # the main path's shape
 
     # 4. main path
-    main_launches = phase_main_path(args, dev)
+    main_launches, main_variants = phase_main_path(args, dev)
 
-    # 5. summary
+    # 5. profile
+    phase_kernel_profile(args.seed + 1, dev, timings)
+
+    # 6. summary
     kernels = [{
         "name": "fused_scan",
         "route": "cuda",
@@ -419,6 +678,9 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+        "scan_ms": timing["scan_ms"],
+        "instantiations_on_main_path": main_variants,
+        "shapes": timings,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,8 +29,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libpinot_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# what ptxas said of each kernel (registers, shared memory, spills), kept
+# beside the library; ptxas_report() reads it
+PTXAS_LOG = "ptxas.log"
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -82,13 +86,15 @@ def build() -> Path:
         ))
         for s, o in zip(sources, objs)
     ]
-    failed = []
+    failed, logs = [], []
     for s, p in procs:
         out, _ = p.communicate()
         if p.returncode != 0:
             failed.append(f"{s.name}:\n{out}")
+        logs.append(out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    (BUILD_DIR / PTXAS_LOG).write_text("\n".join(logs))
     tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
     link = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)],
@@ -111,9 +117,38 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             lib.pinot_fused_scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
             lib.pinot_fused_scan.restype = ctypes.c_int
+            lib.pinot_device_smem_optin.argtypes = [ctypes.c_void_p]
+            lib.pinot_device_smem_optin.restype = ctypes.c_int
             lib.pinot_fused_scan_params_size.argtypes = []
             lib.pinot_fused_scan_params_size.restype = ctypes.c_int
             lib.pinot_cuda_error_string.argtypes = [ctypes.c_int]
             lib.pinot_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
+
+
+def ptxas_report() -> List[dict]:
+    """Per kernel of the last build: its mangled name, registers, shared
+    memory (bytes, static), stack frame and spill bytes, from ptxas -v."""
+    path = BUILD_DIR / PTXAS_LOG
+    if not path.exists():
+        return []
+    out: List[dict] = []
+    cur: Optional[dict] = None
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return out

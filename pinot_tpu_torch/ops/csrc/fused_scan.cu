@@ -8,193 +8,616 @@
 // optional range-index bitmap words and the optional code range lo <= c < hi.
 //
 // What bounds it on this card: the bytes of key, masks, values and bitmap
-// words, each read once, against 3.35 TB/s of HBM (a few bytes a row); and,
-// at small group counts, contention of the shared-memory atomics on the few
-// hot group slots.
+// words, each read once, against 3.35 TB/s of HBM (a few bytes a row); then
+// the shared-memory atomics (one or two a counted row and entry), and the
+// merge of the block tables into the global table.
 //
-// What the design does about that: the TPU kernel's 8-bit limbs, one-hot MXU
-// matmuls and int32 super-tiles exist because the TPU lacks fast scatter and
-// 64-bit integer ALUs.  An H100 has both, so each thread walks rows in a
-// grid-stride loop (coalesced reads of every operand), decodes the key in
-// registers (raw code, or lane (w >> bits*l) & mask of a packed word), and
-// adds an exact int64 into a block-private [E, G] table in dynamic shared
-// memory; rows a mask drops issue no atomic at all.  Each block then flushes
-// its non-zero slots into the global int64 table with one atomic each.  When
-// E*G*8 bytes exceed the block's shared memory the rows add straight into the
-// global table.  The wrapper (ops/fused_scan.py) converts int64 to f64.
+// What the design does about that:
+// - Compile-time specialisation.  The row loop is a template on the key mode
+//   (int32 codes, or 4/8/16-bit lanes of packed words, decoded with constant
+//   shifts and masks) and on the value mode (every sum entry int32, or every
+//   one int64), so no per-row type switch and no 64-bit division runs.  One
+//   generic instantiation per value mode takes any other key (any integer
+//   type, any lane width), and one generic instantiation the global path.
+// - Row tiles.  Each thread takes 16 rows a step, as 4 quads of 4
+//   consecutive rows; in a vector tile the 32 lanes of a warp interleave
+//   quad by quad over 512 rows, so every load instruction of the warp reads
+//   one contiguous run (128 bytes of mask, 256 of 16-bit key words, 512 of
+//   int32 values).  The wrapper finds a head row from which every operand
+//   is aligned for those loads (views may start at any element); the head,
+//   the ragged tail and operands with no common alignment take the same
+//   tile code with scalar loads over 16 consecutive rows.
+// - One read per distinct mask.  Entries arrive sorted by their mask index;
+//   a mask is read once a tile and its bits serve every entry that shares it.
+//   A tile whose rows are all masked out reads no values.
+// - Cheap tables.  A block keeps an [E, G] table in shared memory: 32-bit
+//   counters for counts (a block counts fewer than 2^31 rows) and a lo/hi
+//   pair of 32-bit words for sums, added with 32-bit atomics and an exact
+//   carry into the high word.  A 64-bit shared atomicAdd compiles to a CAS
+//   spin loop (ATOMS.CAST.SPIN.64) on sm_90a; these compile to ATOMS.ADD and,
+//   for counts, ATOMS.POPC.INC.32.
+// - Few, large blocks: one persistent block of 1024 threads a streaming
+//   multiprocessor, so 132 tables flush, not 528.  Blocks whose tables are
+//   large launch in clusters (the wrapper asks for 2 from 64 KB of tables):
+//   each block sums a share of the slots over the cluster's tables through
+//   distributed shared memory and issues one global atomic per non-zero
+//   slot for the cluster.  On small tables the merge costs more than the
+//   atomics it saves, and clusters stay at one block.
+// - No per-launch attribute calls: the dynamic shared-memory opt-in of each
+//   instantiation, and the occupancy of each instantiation, shared-memory
+//   size and cluster size, are set and computed once and cached.
+// Past the shared-memory opt-in (e.g. G = 8192 with 4 sum entries) the rows
+// add straight into the global int64 table.  The wrapper (ops/fused_scan.py)
+// picks the instantiation and converts int64 to f64.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*, and
 // pinot_fused_scan returns the cudaError_t of the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+namespace cg = cooperative_groups;
+
 #define PINOT_MAX_ENTRIES 16
-#define PINOT_BLOCK 256
-#define PINOT_MAX_BLOCKS_PER_SM 4
+#define PINOT_BLOCK 1024
+#define PINOT_MIN_BLOCKS_PER_SM 1
+#define PINOT_TILE 16
+#define PINOT_WARP_ROWS (32 * PINOT_TILE)
+#define PINOT_MAX_CLUSTER 8
 
 // element type codes shared with ops/fused_scan.py (_DTYPE_CODES)
-enum ElemType {
-  T_U8 = 0,
-  T_I8 = 1,
-  T_I16 = 2,
-  T_U16 = 3,
-  T_I32 = 4,
-  T_U32 = 5,
-  T_I64 = 6,
-};
-
+enum ElemType { T_U8 = 0, T_I8 = 1, T_I16 = 2, T_U16 = 3, T_I32 = 4, T_U32 = 5, T_I64 = 6 };
 enum EntryKind { K_COUNT = 0, K_INT_SUM = 1, K_INT64_SUM = 2 };
+// instantiation codes shared with ops/fused_scan.py (KEY_MODES, VALUE_MODES)
+enum KeyMode { KM_ANY = 0, KM_I32 = 1, KM_P4 = 2, KM_P8 = 3, KM_P16 = 4 };
+enum ValMode { VM_ANY = 0, VM_I32 = 1, VM_I64 = 2 };
 
 struct ScanEntry {
-  const void* mask;    // bool[n]
   const void* values;  // [n] of vtype; null for count
   int32_t kind;        // EntryKind
   int32_t vtype;       // ElemType of values
   int32_t n_limbs;     // int_sum: limbs of the plan (1..4); int64_sum: 1..8
   int32_t is_signed;   // int_sum: the plan's sign limb
+  int32_t mask_idx;    // index into ScanParams.masks; entries are sorted by it
+  int32_t smem_off;    // first 32-bit word of the entry's shared table
 };
 
 struct ScanParams {
   const void* key;         // codes [n] of key_type, or packed words when key_bits > 0
   const void* mask_words;  // optional uint32[n / 32] filter bitmap
   const void* pred;        // optional codes [n] of pred_type for lo <= c < hi
+  const void* masks[PINOT_MAX_ENTRIES];  // distinct bool[n] masks
   int64_t n;
+  int64_t head;   // rows [head, head + PINOT_WARP_ROWS * tiles) are aligned
+  int64_t tiles;  // for vector loads, in tiles of PINOT_WARP_ROWS rows
   int32_t key_type;
-  int32_t key_bits;        // 0: raw codes; 4 / 8 / 16: lanes in uint32 words
+  int32_t key_bits;  // 0: raw codes; else lanes of key_bits in uint32 words
   int32_t pred_type;
   int32_t pred_lo;
   int32_t pred_hi;
   int32_t num_groups;
   int32_t num_entries;
+  int32_t num_masks;
+  int32_t key_mode;    // KeyMode
+  int32_t val_mode;    // ValMode
+  int32_t shared;      // 1: block tables in shared memory; 0: global table
+  int32_t smem_words;  // 32-bit words of the shared tables
+  int32_t cluster;     // blocks per cluster asked for (shared path)
   int32_t pad_;
   ScanEntry e[PINOT_MAX_ENTRIES];
 };
 
-__device__ __forceinline__ int64_t load_int(const void* p, int t, int64_t r) {
+// A thread's tile is 16 rows in 4 quads of 4 consecutive rows; quad q
+// starts QS rows after quad q - 1.  Vector tiles (QS = 128) interleave the
+// 32 lanes of a warp quad by quad, so each load instruction of the warp
+// reads one contiguous run (512 bytes of int32 values, 128 of mask);
+// scalar tiles (QS = 4) are 16 consecutive rows, of which cnt are real.
+template <bool VEC>
+struct Quads {
+  static constexpr int QS = VEC ? 32 * 4 : 4;
+  __device__ __forceinline__ static int64_t row(int64_t r0, int i) {
+    return r0 + (i >> 2) * QS + (i & 3);
+  }
+};
+
+// the tile's rows of an integer column of runtime type t; the type switch
+// runs once a tile, not once a row
+template <bool VEC>
+__device__ __forceinline__ void load_ints(const void* p, int t, int64_t r0, int cnt,
+                                          int64_t (&x)[PINOT_TILE]) {
+#define PINOT_LOAD_AS(T)                                                          \
+  {                                                                               \
+    const T* q = (const T*)p;                                                     \
+    _Pragma("unroll") for (int i = 0; i < PINOT_TILE; ++i) x[i] =                 \
+        i < cnt ? (int64_t)q[Quads<VEC>::row(r0, i)] : 0;                         \
+  }                                                                               \
+  break;
   switch (t) {
-    case T_U8: return ((const uint8_t*)p)[r];
-    case T_I8: return ((const int8_t*)p)[r];
-    case T_I16: return ((const int16_t*)p)[r];
-    case T_U16: return ((const uint16_t*)p)[r];
-    case T_I32: return ((const int32_t*)p)[r];
-    case T_U32: return ((const uint32_t*)p)[r];
-    default: return ((const int64_t*)p)[r];
+    case T_U8: PINOT_LOAD_AS(uint8_t)
+    case T_I8: PINOT_LOAD_AS(int8_t)
+    case T_I16: PINOT_LOAD_AS(int16_t)
+    case T_U16: PINOT_LOAD_AS(uint16_t)
+    case T_I32: PINOT_LOAD_AS(int32_t)
+    case T_U32: PINOT_LOAD_AS(uint32_t)
+    default: PINOT_LOAD_AS(int64_t)
+  }
+#undef PINOT_LOAD_AS
+}
+
+// bit k set when byte k of w is non-zero
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  const uint32_t t = ((((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) >> 7) & 0x01010101u;
+  return (t * 0x10204080u) >> 28;
+}
+
+// ---------------------------------------------------------------------------
+// one tile: keys, filter bits, masks, values, adds
+// ---------------------------------------------------------------------------
+
+// group code of each row of the tile, -1 where the row is past cnt or its
+// code lies outside [0, G) (out-of-table codes drop, as in the TPU kernel)
+template <int KM, bool VEC>
+__device__ __forceinline__ void tile_keys(const ScanParams& p, int64_t r0, int cnt,
+                                          int (&code)[PINOT_TILE]) {
+  constexpr int QS = Quads<VEC>::QS;
+  const int G = p.num_groups;
+  if constexpr (KM == KM_I32) {
+    const int32_t* k = (const int32_t*)p.key + r0;
+    if constexpr (VEC) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int4 v = __ldg((const int4*)(k + q * QS));
+        code[4 * q] = v.x, code[4 * q + 1] = v.y, code[4 * q + 2] = v.z, code[4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < PINOT_TILE; ++i) code[i] = i < cnt ? k[i] : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < PINOT_TILE; ++i) code[i] = (code[i] >= 0 && code[i] < G) ? code[i] : -1;
+  } else if constexpr (KM == KM_P4 || KM == KM_P8 || KM == KM_P16) {
+    constexpr int BITS = KM == KM_P4 ? 4 : (KM == KM_P8 ? 8 : 16);
+    constexpr int LANES = 32 / BITS;
+    constexpr uint32_t MASK = (1u << BITS) - 1u;
+    const uint32_t* w = (const uint32_t*)p.key;
+    if constexpr (VEC) {
+      // a quad is 4 lanes: 2 words, 1 word or a half word, starting on one
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint64_t r = (uint64_t)(r0 + q * QS);
+        uint32_t lo, hi = 0;
+        if constexpr (BITS == 16) {
+          const uint2 v = __ldg((const uint2*)(w + r / 2));
+          lo = v.x, hi = v.y;
+        } else if constexpr (BITS == 8) {
+          lo = __ldg(w + r / 4);
+        } else {
+          lo = __ldg((const uint16_t*)w + r / 4);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t word = BITS == 16 && j >= 2 ? hi : lo;
+          code[4 * q + j] = (int)((word >> (BITS * (j % (BITS == 16 ? 2 : 4)))) & MASK);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < PINOT_TILE; ++i) {
+        if (i < cnt) {
+          const uint64_t r = (uint64_t)(r0 + i);
+          code[i] = (int)((__ldg(w + r / LANES) >> (BITS * (int)(r % LANES))) & MASK);
+        } else {
+          code[i] = G;  // dropped below
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PINOT_TILE; ++i) code[i] = code[i] < G ? code[i] : -1;
+  } else {
+    if (p.key_bits > 0) {
+      const uint32_t* w = (const uint32_t*)p.key;
+      const int bits = p.key_bits;
+      const int shift = __ffs(32 / bits) - 1;  // log2 of the lanes a word
+      const int lane_mask = (32 / bits) - 1;
+      const uint32_t m = (1u << bits) - 1u;
+#pragma unroll
+      for (int i = 0; i < PINOT_TILE; ++i) {
+        if (i < cnt) {
+          const int64_t r = Quads<VEC>::row(r0, i);
+          const uint32_t c = (__ldg(w + (r >> shift)) >> (bits * (int)(r & lane_mask))) & m;
+          code[i] = c < (uint32_t)G ? (int)c : -1;
+        } else {
+          code[i] = -1;
+        }
+      }
+    } else {
+      int64_t x[PINOT_TILE];
+      load_ints<VEC>(p.key, p.key_type, r0, cnt, x);
+#pragma unroll
+      for (int i = 0; i < PINOT_TILE; ++i) code[i] = (i < cnt && x[i] >= 0 && x[i] < G) ? (int)x[i] : -1;
+    }
   }
 }
 
-// The value an entry adds for row r, exactly as the Pallas kernel's limbs
-// recombine it: int_sum reads the value as int32 (so uint32 wraps), keeps the
-// low 8*n_limbs bits of its two's-complement pattern and, with a sign limb,
+// bits of the tile's rows that the range-index bitmap words keep
+template <bool VEC>
+__device__ __forceinline__ uint32_t word_bits(const ScanParams& p, int64_t r0, int cnt) {
+  const uint32_t* w = (const uint32_t*)p.mask_words;
+  uint32_t b = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (4 * q >= cnt) break;
+    const int64_t r = r0 + q * Quads<VEC>::QS;
+    const int s = (int)(r & 31);
+    uint64_t both = __ldg(w + (r >> 5));
+    // the quad runs into the next word only where a row of the tile is there
+    if (s > 28 && 4 * q + 32 - s < cnt) both |= (uint64_t)__ldg(w + (r >> 5) + 1) << 32;
+    b |= (uint32_t)((both >> s) & 0xFu) << (4 * q);
+  }
+  return b;
+}
+
+// bits of the tile's rows whose predicate code lies in [lo, hi)
+template <bool VEC>
+__device__ __forceinline__ uint32_t pred_bits(const ScanParams& p, int64_t r0, int cnt) {
+  int64_t x[PINOT_TILE];
+  load_ints<VEC>(p.pred, p.pred_type, r0, cnt, x);
+  uint32_t b = 0;
+#pragma unroll
+  for (int i = 0; i < PINOT_TILE; ++i) b |= (uint32_t)(x[i] >= p.pred_lo && x[i] < p.pred_hi) << i;
+  return b;
+}
+
+template <bool VEC>
+__device__ __forceinline__ uint32_t mask_bits(const uint8_t* m, int cnt) {
+  if constexpr (VEC) {
+    uint32_t b = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) b |= nonzero_bytes(__ldg((const uint32_t*)(m + q * Quads<VEC>::QS))) << (4 * q);
+    return b;
+  } else {
+    uint32_t b = 0;
+#pragma unroll
+    for (int i = 0; i < PINOT_TILE; ++i) b |= (uint32_t)(i < cnt && m[i] != 0) << i;
+    return b;
+  }
+}
+
+// The value an entry adds, exactly as the Pallas kernel's limbs recombine
+// it: int_sum reads the value as int32 (so uint32 wraps), keeps the low
+// 8*n_limbs bits of its two's-complement pattern and, with a sign limb,
 // subtracts 2^(8*n_limbs) for negatives; int64_sum keeps the low 8*n_limbs
 // bits of |v| and puts the sign back.  Inside the plan's value range both
 // equal v.
-__device__ __forceinline__ uint64_t entry_value(const ScanEntry& en, int64_t r) {
-  if (en.kind == K_COUNT) return 1ull;
-  if (en.kind == K_INT_SUM) {
-    const int32_t x = (int32_t)load_int(en.values, en.vtype, r);
-    uint32_t u = (uint32_t)x;
-    if (en.n_limbs < 4) u &= (1u << (8 * en.n_limbs)) - 1u;
-    int64_t v = (int64_t)u;
-    if (en.is_signed && x < 0) v -= (int64_t)1 << (8 * en.n_limbs);
-    return (uint64_t)v;
+struct IntSumPlan {
+  uint32_t keep;  // low bits of the pattern the plan keeps
+  int64_t sub;    // subtracted for negatives (0 without a sign limb)
+  __device__ __forceinline__ explicit IntSumPlan(const ScanEntry& en)
+      : keep(en.n_limbs < 4 ? (1u << (8 * en.n_limbs)) - 1u : 0xFFFFFFFFu),
+        sub(en.is_signed ? (int64_t)1 << (8 * en.n_limbs) : 0) {}
+  __device__ __forceinline__ uint64_t operator()(int32_t x) const {
+    return (uint64_t)((int64_t)((uint32_t)x & keep) - (x < 0 ? sub : 0));
   }
-  const int64_t x = ((const int64_t*)en.values)[r];
+};
+
+__device__ __forceinline__ uint64_t int64_sum_value(int64_t x, int n_limbs) {
   const bool neg = x < 0;
   uint64_t a = neg ? 0ull - (uint64_t)x : (uint64_t)x;
-  if (en.n_limbs < 8) a &= (1ull << (8 * en.n_limbs)) - 1ull;
+  if (n_limbs < 8) a &= (1ull << (8 * n_limbs)) - 1ull;
   return neg ? 0ull - a : a;
 }
 
+// exact 64-bit add into a lo/hi pair of 32-bit shared words: the carry out
+// of the low word is seen by exactly the add that wraps it
+__device__ __forceinline__ void shared_add64(uint32_t* lo, uint32_t* hi, uint64_t v) {
+  const uint32_t l = (uint32_t)v;
+  uint32_t h = (uint32_t)(v >> 32);
+  if (l) {
+    const uint32_t old = atomicAdd(lo, l);
+    h += (uint32_t)(old + l < old);
+  }
+  if (h) atomicAdd(hi, h);
+}
+
 template <bool SHARED>
-__global__ void __launch_bounds__(PINOT_BLOCK)
-fused_scan_kernel(const ScanParams p, unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned long long smem[];
-  const int G = p.num_groups;
-  const int E = p.num_entries;
-  unsigned long long* tab = SHARED ? smem : out;
-  if (SHARED) {
-    for (int i = threadIdx.x; i < E * G; i += blockDim.x) smem[i] = 0ull;
-    __syncthreads();
+__device__ __forceinline__ void add_value(const ScanParams& p, const ScanEntry& en, int e,
+                                          uint32_t* smem, unsigned long long* out, int g,
+                                          uint64_t v) {
+  if (v == 0ull) return;
+  if constexpr (SHARED) {
+    uint32_t* lo = smem + en.smem_off;
+    shared_add64(lo + g, lo + p.num_groups + g, v);
+  } else {
+    atomicAdd(out + (int64_t)e * p.num_groups + g, (unsigned long long)v);
   }
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int lanes = p.key_bits > 0 ? 32 / p.key_bits : 1;
-  const uint32_t lane_mask = p.key_bits > 0 ? (1u << p.key_bits) - 1u : 0u;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < p.n; r += stride) {
-    int64_t code;
-    if (p.key_bits > 0) {
-      const uint32_t w = ((const uint32_t*)p.key)[r / lanes];
-      code = (w >> (p.key_bits * (int)(r % lanes))) & lane_mask;
-    } else {
-      code = load_int(p.key, p.key_type, r);
-    }
-    if (code < 0 || code >= G) continue;  // out-of-table codes drop, as in the TPU kernel
-    if (p.mask_words != nullptr &&
-        !((((const uint32_t*)p.mask_words)[r >> 5] >> (r & 31)) & 1u))
-      continue;
-    if (p.pred != nullptr) {
-      const int64_t pc = load_int(p.pred, p.pred_type, r);
-      if (pc < p.pred_lo || pc >= p.pred_hi) continue;
-    }
+}
+
+template <int KM, int VM, bool SHARED, bool VEC>
+__device__ __forceinline__ void scan_tile(const ScanParams& p, int64_t r0, int cnt, uint32_t* smem,
+                                          unsigned long long* out) {
+  int code[PINOT_TILE];
+  tile_keys<KM, VEC>(p, r0, cnt, code);
+  uint32_t valid = 0;
 #pragma unroll
-    for (int e = 0; e < PINOT_MAX_ENTRIES; ++e) {
-      if (e >= E) break;
-      if (!((const uint8_t*)p.e[e].mask)[r]) continue;
-      const uint64_t v = entry_value(p.e[e], r);
-      if (v != 0ull) atomicAdd(&tab[(int64_t)e * G + code], (unsigned long long)v);
+  for (int i = 0; i < PINOT_TILE; ++i) valid |= (uint32_t)(code[i] >= 0) << i;
+  if (p.mask_words != nullptr) valid &= word_bits<VEC>(p, r0, cnt);
+  if (p.pred != nullptr) valid &= pred_bits<VEC>(p, r0, cnt);
+  if (!valid) return;
+  const int E = p.num_entries;
+  int e = 0;
+  for (int m = 0; m < p.num_masks; ++m) {
+    const uint32_t bits = valid & mask_bits<VEC>((const uint8_t*)p.masks[m] + r0, cnt);
+    for (; e < E && p.e[e].mask_idx == m; ++e) {
+      if (!bits) continue;
+      const ScanEntry& en = p.e[e];
+      if (en.kind == K_COUNT) {
+#pragma unroll
+        for (int i = 0; i < PINOT_TILE; ++i) {
+          if (!((bits >> i) & 1u)) continue;
+          if constexpr (SHARED) {
+            atomicAdd(smem + en.smem_off + code[i], 1u);
+          } else {
+            atomicAdd(out + (int64_t)e * p.num_groups + code[i], 1ull);
+          }
+        }
+      } else if constexpr (VM == VM_I32) {
+        // every sum entry is int_sum over 4-byte values
+        int32_t x[PINOT_TILE];
+        const int32_t* src = (const int32_t*)en.values + r0;
+        if constexpr (VEC) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int4 v = __ldg((const int4*)(src + q * Quads<VEC>::QS));
+            x[4 * q] = v.x, x[4 * q + 1] = v.y, x[4 * q + 2] = v.z, x[4 * q + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < PINOT_TILE; ++i) x[i] = ((bits >> i) & 1u) ? src[i] : 0;
+        }
+        const IntSumPlan plan(en);
+#pragma unroll
+        for (int i = 0; i < PINOT_TILE; ++i)
+          if ((bits >> i) & 1u) add_value<SHARED>(p, en, e, smem, out, code[i], plan(x[i]));
+      } else if constexpr (VM == VM_I64) {
+        // every sum entry is int64_sum over int64 values
+        int64_t x[PINOT_TILE];
+        const int64_t* src = (const int64_t*)en.values + r0;
+        if constexpr (VEC) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const longlong2 v0 = __ldg((const longlong2*)(src + q * Quads<VEC>::QS));
+            const longlong2 v1 = __ldg((const longlong2*)(src + q * Quads<VEC>::QS) + 1);
+            x[4 * q] = v0.x, x[4 * q + 1] = v0.y, x[4 * q + 2] = v1.x, x[4 * q + 3] = v1.y;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < PINOT_TILE; ++i) x[i] = ((bits >> i) & 1u) ? src[i] : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < PINOT_TILE; ++i)
+          if ((bits >> i) & 1u)
+            add_value<SHARED>(p, en, e, smem, out, code[i], int64_sum_value(x[i], en.n_limbs));
+      } else {
+        int64_t x[PINOT_TILE];
+        load_ints<VEC>(en.values, en.vtype, r0, cnt, x);
+        if (en.kind == K_INT_SUM) {
+          const IntSumPlan plan(en);
+#pragma unroll
+          for (int i = 0; i < PINOT_TILE; ++i)
+            if ((bits >> i) & 1u) add_value<SHARED>(p, en, e, smem, out, code[i], plan((int32_t)x[i]));
+        } else {
+#pragma unroll
+          for (int i = 0; i < PINOT_TILE; ++i)
+            if ((bits >> i) & 1u)
+              add_value<SHARED>(p, en, e, smem, out, code[i], int64_sum_value(x[i], en.n_limbs));
+        }
+      }
     }
   }
-  if (SHARED) {
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+// slot s of the [E, G] table summed over the cluster's shared tables
+__device__ __forceinline__ uint64_t cluster_slot(const ScanParams& p, cg::cluster_group& cl,
+                                                 uint32_t* smem, int s, unsigned C) {
+  const int G = p.num_groups;
+  const int e = s / G;
+  const int g = s - e * G;
+  const ScanEntry& en = p.e[e];
+  uint64_t tot = 0;
+  for (unsigned q = 0; q < C; ++q) {
+    const uint32_t* t = C > 1 ? cl.map_shared_rank(smem, q) + en.smem_off : smem + en.smem_off;
+    tot += en.kind == K_COUNT ? (uint64_t)t[g] : ((uint64_t)t[G + g] << 32 | t[g]);
+  }
+  return tot;
+}
+
+template <int KM, int VM, bool SHARED>
+__global__ void __launch_bounds__(PINOT_BLOCK, PINOT_MIN_BLOCKS_PER_SM)
+fused_scan_kernel(const __grid_constant__ ScanParams p, unsigned long long* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  if constexpr (SHARED) {
+    for (int i = threadIdx.x; i < p.smem_words; i += blockDim.x) smem[i] = 0u;
     __syncthreads();
-    for (int i = threadIdx.x; i < E * G; i += blockDim.x) {
-      const unsigned long long v = smem[i];
-      if (v != 0ull) atomicAdd(&out[i], v);
+  }
+  const int64_t nthreads = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  // vector tiles: a warp takes PINOT_WARP_ROWS rows a step
+  for (int64_t t = tid >> 5; t < p.tiles; t += nthreads >> 5)
+    scan_tile<KM, VM, SHARED, true>(p, p.head + t * PINOT_WARP_ROWS + (threadIdx.x & 31) * 4,
+                                    PINOT_TILE, smem, out);
+  // scalar tiles: t == 0 is the head [0, head), then the tail in 16s
+  const int64_t tail0 = p.head + p.tiles * PINOT_WARP_ROWS;
+  const int64_t scalar_tiles = 1 + (p.n - tail0 + PINOT_TILE - 1) / PINOT_TILE;
+  for (int64_t t = nthreads - 1 - tid; t < scalar_tiles; t += nthreads) {
+    const int64_t r0 = t == 0 ? 0 : tail0 + (t - 1) * PINOT_TILE;
+    const int64_t left = t == 0 ? p.head : p.n - r0;
+    const int cnt = (int)(left < PINOT_TILE ? left : PINOT_TILE);
+    if (cnt > 0) scan_tile<KM, VM, SHARED, false>(p, r0, cnt, smem, out);
+  }
+  if constexpr (SHARED) {
+    cg::cluster_group cl = cg::this_cluster();
+    const unsigned C = p.cluster > 1 ? cl.num_blocks() : 1u;
+    const unsigned rank = C > 1 ? cl.block_rank() : 0u;
+    if (C > 1) cl.sync(); else __syncthreads();
+    const int slots = p.num_entries * p.num_groups;
+    for (int s = rank * blockDim.x + threadIdx.x; s < slots; s += C * blockDim.x) {
+      const uint64_t v = cluster_slot(p, cl, smem, s, C);
+      if (v != 0ull) atomicAdd(out + s, (unsigned long long)v);
+    }
+    if (C > 1) cl.sync();  // keep this block's table alive while the cluster reads it
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+typedef void (*ScanKernel)(const ScanParams, unsigned long long*);
+
+template <int KM>
+static ScanKernel pick_val(int vm) {
+  switch (vm) {
+    case VM_I32: return fused_scan_kernel<KM, VM_I32, true>;
+    case VM_I64: return fused_scan_kernel<KM, VM_I64, true>;
+    case VM_ANY: return fused_scan_kernel<KM, VM_ANY, true>;
+    default: return nullptr;
+  }
+}
+
+static ScanKernel pick_kernel(int km, int vm, int shared) {
+  if (!shared) return (km == KM_ANY && vm == VM_ANY) ? fused_scan_kernel<KM_ANY, VM_ANY, false> : nullptr;
+  switch (km) {
+    case KM_ANY: return pick_val<KM_ANY>(vm);
+    case KM_I32: return pick_val<KM_I32>(vm);
+    case KM_P4: return pick_val<KM_P4>(vm);
+    case KM_P8: return pick_val<KM_P8>(vm);
+    case KM_P16: return pick_val<KM_P16>(vm);
+    default: return nullptr;
+  }
+}
+
+// what a launch of one instantiation may use, computed once
+struct LaunchPlan {
+  int dev;
+  ScanKernel fn;
+  int smem;
+  int cluster_ask;
+  int cluster;     // blocks per cluster it launches with
+  int max_blocks;  // co-resident blocks on the card
+};
+
+static std::mutex g_mu;
+static LaunchPlan g_plans[256];
+static int g_num_plans = 0;
+
+static cudaError_t launch_plan(int dev, ScanKernel fn, int smem, int cluster_ask, LaunchPlan* out) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  for (int i = 0; i < g_num_plans; ++i) {
+    const LaunchPlan& c = g_plans[i];
+    if (c.dev == dev && c.fn == fn && c.smem == smem && c.cluster_ask == cluster_ask) {
+      *out = c;
+      return cudaSuccess;
     }
   }
+  int sms = 0, optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > optin) return cudaErrorInvalidValue;
+  // the attribute belongs to the function, not to this plan: set it to the
+  // opt-in once, so that no plan lowers it under another plan's size
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err != cudaSuccess) return err;
+  LaunchPlan c = {dev, fn, smem, cluster_ask, 1, 0};
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, PINOT_BLOCK, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  c.max_blocks = sms * per_sm;
+  // the largest cluster, up to the one asked for, of which some fit at once
+  for (int k = cluster_ask; k > 1; k /= 2) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = k, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(k);
+    cfg.blockDim = dim3(PINOT_BLOCK);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters > 0) {
+      c.cluster = k;
+      c.max_blocks = clusters * k;
+      break;
+    }
+  }
+  if (g_num_plans < (int)(sizeof(g_plans) / sizeof(g_plans[0]))) g_plans[g_num_plans++] = c;
+  *out = c;
+  return cudaSuccess;
 }
 
 extern "C" {
 
 // out: zeroed int64[num_entries, num_groups] on the current device.
 int pinot_fused_scan(const ScanParams* p, void* out, void* stream) {
-  if (p->num_entries < 1 || p->num_entries > PINOT_MAX_ENTRIES || p->num_groups < 1 || p->n < 0)
+  if (p->num_entries < 1 || p->num_entries > PINOT_MAX_ENTRIES || p->num_groups < 1 || p->n < 0 ||
+      p->num_masks < 1 || p->num_masks > p->num_entries || p->head < 0 || p->tiles < 0 ||
+      p->head + p->tiles * PINOT_WARP_ROWS > p->n || p->cluster < 1 || p->cluster > PINOT_MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
+  const ScanKernel fn = pick_kernel(p->key_mode, p->val_mode, p->shared);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (p->n == 0) return (int)cudaSuccess;
-  int dev = 0, sms = 0, smem_optin = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t smem = (size_t)p->num_entries * (size_t)p->num_groups * sizeof(unsigned long long);
-  const bool shared = smem <= (size_t)smem_optin;
-  int per_sm = PINOT_MAX_BLOCKS_PER_SM;
-  if (shared) {
-    err = cudaFuncSetAttribute(fused_scan_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    int fit = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, fused_scan_kernel<true>,
-                                                        PINOT_BLOCK, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (fit < per_sm) per_sm = fit;
-    if (per_sm < 1) per_sm = 1;
-  }
-  const int64_t need = (p->n + PINOT_BLOCK - 1) / PINOT_BLOCK;
-  int64_t grid = (int64_t)sms * per_sm;
-  if (grid > need) grid = need;
-  if (grid < 1) grid = 1;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (shared) {
-    fused_scan_kernel<true><<<(unsigned)grid, PINOT_BLOCK, smem, s>>>(
-        *p, (unsigned long long*)out);
-  } else {
-    fused_scan_kernel<false><<<(unsigned)grid, PINOT_BLOCK, 0, s>>>(
-        *p, (unsigned long long*)out);
-  }
+  const int smem = p->shared ? p->smem_words * (int)sizeof(uint32_t) : 0;
+  LaunchPlan plan;
+  err = launch_plan(dev, fn, smem, p->shared ? p->cluster : 1, &plan);
+  if (err != cudaSuccess) return (int)err;
+  // threads needed: a warp a vector tile, a thread a scalar tile
+  const int64_t threads =
+      p->tiles * 32 + 2 + (p->n - p->head - p->tiles * PINOT_WARP_ROWS) / PINOT_TILE;
+  int64_t grid = (threads + PINOT_BLOCK - 1) / PINOT_BLOCK;
+  if (grid > plan.max_blocks) grid = plan.max_blocks;
+  grid = (grid + plan.cluster - 1) / plan.cluster * plan.cluster;
+  // a block's 32-bit counters hold fewer than 2^32 rows (2^31 leaves room
+  // for the uneven split of tiles between blocks)
+  if (p->shared && p->n / grid >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = plan.cluster, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(PINOT_BLOCK);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = plan.cluster > 1 ? 1 : 0;
+  ScanParams q = *p;
+  q.cluster = plan.cluster;
+  err = cudaLaunchKernelEx(&cfg, fn, q, (unsigned long long*)out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 int pinot_fused_scan_params_size(void) { return (int)sizeof(ScanParams); }
+
+int pinot_device_smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
 
 const char* pinot_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -8,24 +8,32 @@ eligibility (``kernel_supported`` = ``pallas_supported``), same errors and
 the same ``f64[num_groups]`` table per entry.
 
 What bounds it on an H100: the bytes of key, masks, values and bitmap words,
-each read once, against 3.35 TB/s; at small group counts, contention of the
-shared-memory atomics on the hot group slots.  What the design does about
-it: the TPU's 8-bit limbs, one-hot MXU matmuls and int32 super-tiles are
-dropped (they exist because the TPU lacks scatter and 64-bit integer ALUs).
-Each thread decodes the key in registers and adds an exact int64 into a
-block-private ``[E, G]`` shared-memory table; blocks flush with one atomic
-per non-zero slot into a global int64 table, converted to f64 here.  Past
-the block's shared memory the rows add straight into the global table.
+each read once, against 3.35 TB/s; then the shared-memory atomics and the
+merge of the block tables.  What the design does about it (the ``.cu``
+header has the detail): the TPU's 8-bit limbs, one-hot MXU matmuls and
+int32 super-tiles are dropped (they exist because the TPU lacks scatter and
+64-bit integer ALUs).  The kernel is a template on the key mode and the
+value mode; each thread takes 16-row tiles, which a warp reads in coalesced
+quads of 4 rows; a mask that several entries share is read once; blocks add
+into 32-bit shared-memory words and merge large tables across a
+thread-block cluster before one global atomic per slot.  This module picks the instantiation
+(``key_mode``, ``value_mode``, ``table_layout`` against the card's
+shared-memory opt-in), deduplicates the masks (``dedup_masks``) and finds
+the first row from which every operand is aligned for the vector loads
+(``tile_head``), all in ``build_params``; past the opt-in the rows add
+straight into the global table.  The int64 tables convert to f64 here.
 
 ``fused_group_tables_reference`` is the plain PyTorch version with the same
 signature (an int64 ``index_add_`` per entry).  ``fused_group_tables`` takes
 it only for tensors on the CPU; on a CUDA tensor it launches the kernel or
-raises.  ``LAUNCHES`` counts kernel launches and nothing else.
+raises.  ``LAUNCHES`` counts kernel launches and nothing else;
+``VARIANT_LAUNCHES`` splits them by instantiation.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,9 +43,25 @@ MAX_GROUPS = 8192
 # entries per launch (PINOT_MAX_ENTRIES in csrc/fused_scan.cu); longer entry
 # lists launch once per chunk
 MAX_ENTRIES = 16
+# rows a thread takes a step (PINOT_TILE in csrc/fused_scan.cu), in quads of
+# QUAD_ROWS consecutive rows; a warp's vector tile is WARP_TILE_ROWS rows
+TILE_ROWS = 16
+QUAD_ROWS = 4
+WARP_TILE_ROWS = 32 * TILE_ROWS
+# blocks of a cluster that merges its tables before the global flush, asked
+# for when a block's tables reach CLUSTER_MIN_TABLE_BYTES (below it the merge
+# costs more than the global atomics it saves); the kernel library halves
+# the size until clusters of it fit the card
+CLUSTER_BLOCKS = 2
+CLUSTER_MIN_TABLE_BYTES = 64 << 10
+# instantiation codes of csrc/fused_scan.cu (KeyMode, ValMode)
+KEY_MODES = ("any", "i32", "p4", "p8", "p16")
+VALUE_MODES = ("any", "i32", "i64")
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets it),
+# in all and by instantiation ("<key mode>/<value mode>/<shared|global>")
 LAUNCHES = 0
+VARIANT_LAUNCHES: Dict[str, int] = {}
 
 _INT_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.uint16, torch.int32, torch.uint32, torch.int64)
 # ElemType codes of csrc/fused_scan.cu
@@ -155,12 +179,13 @@ def fused_group_tables_reference(
 
 class _ScanEntry(ctypes.Structure):
     _fields_ = [
-        ("mask", ctypes.c_void_p),
         ("values", ctypes.c_void_p),
         ("kind", ctypes.c_int32),
         ("vtype", ctypes.c_int32),
         ("n_limbs", ctypes.c_int32),
         ("is_signed", ctypes.c_int32),
+        ("mask_idx", ctypes.c_int32),
+        ("smem_off", ctypes.c_int32),
     ]
 
 
@@ -169,7 +194,10 @@ class _ScanParams(ctypes.Structure):
         ("key", ctypes.c_void_p),
         ("mask_words", ctypes.c_void_p),
         ("pred", ctypes.c_void_p),
+        ("masks", ctypes.c_void_p * MAX_ENTRIES),
         ("n", ctypes.c_int64),
+        ("head", ctypes.c_int64),
+        ("tiles", ctypes.c_int64),
         ("key_type", ctypes.c_int32),
         ("key_bits", ctypes.c_int32),
         ("pred_type", ctypes.c_int32),
@@ -177,9 +205,84 @@ class _ScanParams(ctypes.Structure):
         ("pred_hi", ctypes.c_int32),
         ("num_groups", ctypes.c_int32),
         ("num_entries", ctypes.c_int32),
+        ("num_masks", ctypes.c_int32),
+        ("key_mode", ctypes.c_int32),
+        ("val_mode", ctypes.c_int32),
+        ("shared", ctypes.c_int32),
+        ("smem_words", ctypes.c_int32),
+        ("cluster", ctypes.c_int32),
         ("pad_", ctypes.c_int32),
         ("e", _ScanEntry * MAX_ENTRIES),
     ]
+
+
+def dedup_masks(masks: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], List[int]]:
+    """The distinct masks in first-use order, and each entry's index into
+    them.  Masks are contiguous bool[n] on one device, so one address is one
+    mask: the kernel reads it once a tile for every entry that shares it."""
+    distinct: List[torch.Tensor] = []
+    where: Dict[int, int] = {}
+    idx = []
+    for m in masks:
+        i = where.setdefault(m.data_ptr(), len(distinct))
+        if i == len(distinct):
+            distinct.append(m)
+        idx.append(i)
+    return distinct, idx
+
+
+def key_mode(key_dtype: torch.dtype, key_bits: int) -> str:
+    """The key instantiation: lanes of 4/8/16 bits, raw int32 codes, or the
+    generic one (any other key type or lane width)."""
+    if key_bits:
+        return {4: "p4", 8: "p8", 16: "p16"}.get(int(key_bits), "any")
+    return "i32" if key_dtype == torch.int32 else "any"
+
+
+def value_mode(entries: Sequence[Entry]) -> str:
+    """The value instantiation: "i32" when every sum entry is an int_sum over
+    4-byte values (or there is none), "i64" when every one is an int64_sum,
+    else the generic "any"."""
+    sums = [(kind, values.dtype) for kind, values, _m, _lp in entries if kind != "count"]
+    if all(k == "int_sum" and dt in (torch.int32, torch.uint32) for k, dt in sums):
+        return "i32"
+    if all(k == "int64_sum" for k, _dt in sums):
+        return "i64"
+    return "any"
+
+
+def tile_head(streams: Sequence[Tuple[int, int, bool]]) -> Optional[int]:
+    """First row h < TILE_ROWS from which every stream is aligned for the
+    kernel's vector loads, or None when no row is (the kernel then reads
+    every row with scalar loads).
+
+    streams: (address, bits a row, packed).  The vector loads read quads of
+    4 rows (QUAD_ROWS): 4 * bits / 8 bytes, in pieces of up to 16 bytes, so
+    a quad must start aligned to min(16, its bytes); a packed quad must also
+    start on a word, or on a half word for 4-bit lanes."""
+    for h in range(TILE_ROWS):
+        ok = True
+        for addr, bits, packed in streams:
+            if packed and h % min(QUAD_ROWS, 32 // bits):
+                ok = False
+                break
+            if (addr + h * bits // 8) % max(1, min(16, QUAD_ROWS * bits // 8)):
+                ok = False
+                break
+        if ok:
+            return h
+    return None
+
+
+def table_layout(entries: Sequence[Entry], num_groups: int) -> Tuple[List[int], int]:
+    """Each entry's first 32-bit word in a block's shared tables, and the
+    words in all: a count takes num_groups 32-bit counters, a sum a low and
+    a high word per group."""
+    offs, words = [], 0
+    for kind, _v, _m, _lp in entries:
+        offs.append(words)
+        words += num_groups * (1 if kind == "count" else 2)
+    return offs, words
 
 
 def _operand(t: torch.Tensor, n: int, what: str, device: torch.device) -> int:
@@ -194,28 +297,30 @@ def _operand(t: torch.Tensor, n: int, what: str, device: torch.device) -> int:
     return t.data_ptr()
 
 
-def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> List[torch.Tensor]:
-    global LAUNCHES
-    from pinot_tpu_torch.ops import _build
-
-    lib = _build.load()
-    if lib.pinot_fused_scan_params_size() != ctypes.sizeof(_ScanParams):
-        raise RuntimeError("csrc/fused_scan.cu ScanParams layout differs from the ctypes mirror")
+def build_params(entries, key_t, key_bits, n, num_groups, mask_words, code_pred, smem_optin: int):
+    """The kernel's ScanParams for one launch (at most MAX_ENTRIES entries),
+    built and checked without touching the library.  Returns (params,
+    order, variant): the kernel's table row j is entries[order[j]] (entries
+    sorted stably by their mask's index), and variant names the
+    instantiation, "<key mode>/<value mode>/<shared|global>"."""
     device = key_t.device
     p = _ScanParams()
     p.n = n
     p.num_groups = num_groups
+    streams = []  # what the vector loads read: (address, bits a row, packed)
     if key_bits:
         words = key_t.view(torch.int32) if key_t.dtype == torch.uint32 else key_t
         if words.dtype != torch.int32:
             raise ValueError(f"packed key words must be int32/uint32, got {key_t.dtype}")
         p.key = _operand(words, int(words.shape[0]), "codes_packed words", device)
         p.key_bits = int(key_bits)
+        streams.append((p.key, int(key_bits), True))
     else:
         if key_t.dtype == torch.bool:
             raise ValueError("codes must be an integer tensor")
         p.key = _operand(key_t, n, "codes", device)
         p.key_type = _DTYPE_CODES[key_t.dtype]
+        streams.append((p.key, 8 * key_t.element_size(), False))
     if mask_words is not None:
         mw = mask_words.view(torch.int32) if mask_words.dtype == torch.uint32 else mask_words
         if mw.dtype != torch.int32:
@@ -226,29 +331,98 @@ def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> L
         p.pred = _operand(pc, n, "code_pred codes", device)
         p.pred_type = _DTYPE_CODES[pc.dtype]
         p.pred_lo, p.pred_hi = int(lo), int(hi)
-    p.num_entries = len(entries)
-    for i, (kind, values, mask, limb_plan) in enumerate(entries):
+    for i, (kind, values, mask, _lp) in enumerate(entries):
         if mask.dtype != torch.bool:
             raise ValueError(f"entry {i} mask must be bool, got {mask.dtype}")
-        ent = p.e[i]
-        ent.mask = _operand(mask, n, f"entry {i} mask", device)
+        _operand(mask, n, f"entry {i} mask", device)
+        if kind != "count":
+            _operand(values, n, f"entry {i} values", device)
+            streams.append((values.data_ptr(), 8 * values.element_size(), False))
+    masks, mask_idx = dedup_masks([mask for _k, _v, mask, _lp in entries])
+    for j, m in enumerate(masks):
+        p.masks[j] = m.data_ptr()
+        streams.append((m.data_ptr(), 8, False))
+    order = sorted(range(len(entries)), key=lambda i: mask_idx[i])
+    ordered = [entries[i] for i in order]
+    offs, words = table_layout(ordered, num_groups)
+    shared = 4 * words <= smem_optin
+    km = key_mode(key_t.dtype, key_bits) if shared else "any"
+    vm = value_mode(ordered) if shared else "any"
+    p.num_entries, p.num_masks = len(entries), len(masks)
+    p.key_mode, p.val_mode = KEY_MODES.index(km), VALUE_MODES.index(vm)
+    p.shared, p.smem_words = int(shared), words if shared else 0
+    p.cluster = CLUSTER_BLOCKS if shared and 4 * words >= CLUSTER_MIN_TABLE_BYTES else 1
+    head = tile_head(streams)
+    if head is not None and n > head:
+        p.head, p.tiles = head, (n - head) // WARP_TILE_ROWS
+    for j, ((kind, values, _mask, limb_plan), i) in enumerate(zip(ordered, order)):
+        ent = p.e[j]
         ent.kind = _KIND_CODES[kind]
+        ent.mask_idx = mask_idx[i]
+        ent.smem_off = offs[j]
         if kind == "int_sum":
             n_limbs, signed = limb_plan if limb_plan is not None else (4, True)
             ent.n_limbs, ent.is_signed = int(n_limbs), int(bool(signed))
         elif kind == "int64_sum":
             ent.n_limbs = int(limb_plan if limb_plan is not None else 8)
         if kind != "count":
-            ent.values = _operand(values, n, f"entry {i} values", device)
+            ent.values = values.data_ptr()
             ent.vtype = _DTYPE_CODES[values.dtype]
+    return p, order, f"{km}/{vm}/{'shared' if shared else 'global'}"
+
+
+# the kernel library once its ScanParams layout was checked, and the
+# shared-memory opt-in of each device index
+_LIB = None
+_SMEM_OPTIN: Dict[int, int] = {}
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        from pinot_tpu_torch.ops import _build
+
+        lib = _build.load()
+        if lib.pinot_fused_scan_params_size() != ctypes.sizeof(_ScanParams):
+            raise RuntimeError("csrc/fused_scan.cu ScanParams layout differs from the ctypes mirror")
+        _LIB = lib
+    return _LIB
+
+
+def _smem_optin(lib, index: int) -> int:
+    """Bytes of dynamic shared memory a block may opt into on the current
+    device (whose index is given)."""
+    if index not in _SMEM_OPTIN:
+        got = ctypes.c_int(0)
+        err = lib.pinot_device_smem_optin(ctypes.byref(got))
+        if err != 0:
+            raise RuntimeError(f"shared-memory query failed: {lib.pinot_cuda_error_string(err).decode()}")
+        _SMEM_OPTIN[index] = got.value
+    return _SMEM_OPTIN[index]
+
+
+def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> List[torch.Tensor]:
+    global LAUNCHES
+    lib = _library()
+    device = key_t.device
     out = torch.zeros((len(entries), num_groups), dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.pinot_fused_scan(ctypes.byref(p), out.data_ptr(), stream)
+    # the library launches on the current device: make it the key's
+    current = torch.cuda.current_device()
+    with torch.cuda.device(device) if device.index not in (None, current) else contextlib.nullcontext():
+        p, order, variant = build_params(
+            entries, key_t, key_bits, n, num_groups, mask_words, code_pred,
+            _smem_optin(lib, torch.cuda.current_device()),
+        )
+        err = lib.pinot_fused_scan(ctypes.byref(p), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused scan launch failed: {lib.pinot_cuda_error_string(err).decode()}")
     LAUNCHES += 1
-    return list(out.to(torch.float64).unbind(0))
+    VARIANT_LAUNCHES[variant] = VARIANT_LAUNCHES.get(variant, 0) + 1
+    rows = out.to(torch.float64).unbind(0)
+    tables: List[Optional[torch.Tensor]] = [None] * len(entries)
+    for j, i in enumerate(order):
+        tables[i] = rows[j]
+    return tables
 
 
 def fused_group_tables(

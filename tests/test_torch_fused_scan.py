@@ -200,3 +200,233 @@ def test_resolve_device(monkeypatch):
     with pytest.raises(RuntimeError):
         port_device.resolve_device("cuda")
     assert port_device.resolve_device("cpu") == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# Host-side launch planning of the CUDA kernel (no card needed): mask dedup,
+# the choice of instantiation, alignment of operand views, the ScanParams
+# layout.  The kernel itself is held against the plain version on the card.
+# ---------------------------------------------------------------------------
+SMEM_OPTIN = 232448  # an H100's dynamic shared-memory opt-in per block
+
+
+def _views(n, dtype, offset):
+    """A contiguous [n] view starting `offset` elements into a larger buffer."""
+    return torch.zeros(n + offset, dtype=dtype)[offset:]
+
+
+@pytest.mark.parametrize(
+    "layout,want_distinct,want_idx",
+    [
+        ("one", 1, [0]),
+        ("same tensor twice", 1, [0, 0]),
+        ("same storage, another view object", 1, [0, 0]),
+        ("two distinct", 2, [0, 1]),
+        ("a, b, a, b", 2, [0, 1, 0, 1]),
+        ("same buffer, other offset", 2, [0, 1]),
+    ],
+)
+def test_dedup_masks(layout, want_distinct, want_idx):
+    buf = torch.ones(80, dtype=torch.bool)
+    a, b = buf[:64], torch.ones(64, dtype=torch.bool)
+    masks = {
+        "one": [a],
+        "same tensor twice": [a, a],
+        "same storage, another view object": [a, buf[:64]],
+        "two distinct": [a, b],
+        "a, b, a, b": [a, b, a, b],
+        "same buffer, other offset": [a, buf[16:80]],
+    }[layout]
+    distinct, idx = fused_scan.dedup_masks(masks)
+    assert len(distinct) == want_distinct and idx == want_idx
+    for m, i in zip(masks, idx):
+        assert distinct[i].data_ptr() == m.data_ptr()
+
+
+@pytest.mark.parametrize(
+    "dtype,bits,want",
+    [
+        (torch.int32, 0, "i32"), (torch.int64, 0, "any"), (torch.int8, 0, "any"), (torch.uint32, 0, "any"),
+        (torch.int32, 4, "p4"), (torch.int32, 8, "p8"), (torch.int32, 16, "p16"), (torch.int32, 2, "any"),
+    ],
+)
+def test_key_mode(dtype, bits, want):
+    assert fused_scan.key_mode(dtype, bits) == want
+
+
+@pytest.mark.parametrize(
+    "kinds,want",
+    [
+        ((), "i32"),
+        (("count",), "i32"),
+        (("count", "int_sum:int32"), "i32"),
+        (("int_sum:uint32", "int_sum:int32"), "i32"),
+        (("count", "int64_sum:int64"), "i64"),
+        (("int64_sum:int64", "int64_sum:int64"), "i64"),
+        (("count", "int_sum:int8"), "any"),
+        (("int_sum:int16", "int_sum:int32"), "any"),
+        (("int_sum:uint16",), "any"),
+        (("int_sum:int32", "int64_sum:int64"), "any"),
+    ],
+)
+def test_value_mode(kinds, want):
+    n = 64
+    entries = []
+    for k in kinds:
+        kind, _, dt = k.partition(":")
+        values = torch.zeros(n, dtype=getattr(torch, dt)) if dt else None
+        entries.append((kind, values, torch.ones(n, dtype=torch.bool), None))
+    assert fused_scan.value_mode(entries) == want
+
+
+@pytest.mark.parametrize(
+    "streams,want",
+    [
+        ([(0, 32, False), (0, 8, False)], 0),
+        ([(4, 32, False), (1, 8, False)], 3),  # int32 one element in, mask one byte in
+        ([(8, 64, False), (1, 8, False)], 3),  # int64 one element in: any odd row
+        ([(0, 32, False), (1, 8, False)], None),  # int32 aligned, mask one byte in
+        ([(0, 16, True), (1, 8, False)], None),  # packed lanes need an even row
+        ([(0, 16, True), (2, 8, False)], None),  # the mask wants rows 2, 6, ...: word pairs at 4 mod 8
+        ([(4, 16, True), (2, 8, False)], 2),  # words one word in: row 2 starts a word pair on 8 bytes
+        ([(0, 8, True), (2, 8, False)], None),  # 8-bit lanes start quads on a word: rows 0, 4, ...
+        ([(2, 4, True)], 0),  # 4-bit lanes: a quad is a half word
+        ([(0, 4, True), (3, 8, False)], None),  # quads of 4-bit lanes start on rows 0, 4, ...
+        ([(0, 1, True)], 0),
+        ([(1, 16, False)], None),  # int16 one byte in: never aligned
+    ],
+)
+def test_tile_head(streams, want):
+    assert fused_scan.tile_head(streams) == want
+
+
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 3, 3), (1, 2, 3), (2, 1, 0), (0, 3, 0)])
+def test_build_params_aligns_views(offsets):
+    """Views at element offsets 0-3: the head is the first row where every
+    operand is aligned for the vector loads, the tiles cover whole 512-row
+    warp tiles after it, and operands with no common head get no vector
+    tiles (every row takes the scalar loads)."""
+    n = 512 * 3 + 37
+    ko, mo, vo = offsets
+    key = _views(n, torch.int32, ko)
+    mask = _views(n, torch.bool, mo)
+    vals = _views(n, torch.int32, vo)
+    entries = [("count", None, mask, None), ("int_sum", vals, mask, (4, True))]
+    p, order, variant = fused_scan.build_params(entries, key, 0, n, 300, None, None, SMEM_OPTIN)
+    assert variant == "i32/i32/shared" and order == [0, 1]
+    head = fused_scan.tile_head([(key.data_ptr(), 32, False), (vals.data_ptr(), 32, False), (mask.data_ptr(), 8, False)])
+    if head is None:
+        assert (p.head, p.tiles) == (0, 0)
+    else:
+        assert p.head == head and p.tiles == (n - head) // fused_scan.WARP_TILE_ROWS
+        for t, size in ((key, 4), (vals, 4)):
+            assert (t.data_ptr() + head * size) % 16 == 0
+        assert (mask.data_ptr() + head) % 4 == 0
+    same_misalignment = ko == vo and (mo - ko) % 4 == 0
+    assert (head is not None) == same_misalignment
+
+
+def test_build_params_main_path_shape():
+    """The main path: packed 16-bit key, one mask shared by COUNT(*) and
+    SUM(int32), 2406 groups -> one mask read, the specialised instantiation,
+    a count table of 32-bit counters and a lo/hi table for the sum."""
+    n, g = 4096, 2406
+    words = torch.zeros(n // 2, dtype=torch.int32)
+    mask = torch.ones(n, dtype=torch.bool)
+    rev = torch.zeros(n, dtype=torch.int32)
+    entries = [("count", None, mask, None), ("int_sum", rev, mask, (3, False))]
+    p, order, variant = fused_scan.build_params(entries, words, 16, n, g, None, None, SMEM_OPTIN)
+    assert variant == "p16/i32/shared"
+    assert (p.num_entries, p.num_masks, p.key_bits, p.n) == (2, 1, 16, n)
+    assert p.masks[0] == mask.data_ptr() and not p.masks[1]
+    assert [p.e[j].mask_idx for j in range(2)] == [0, 0]
+    assert [p.e[j].smem_off for j in range(2)] == [0, g]
+    assert p.smem_words == 3 * g and p.shared == 1 and p.cluster == 1
+    assert (p.head, p.tiles) == (0, n // fused_scan.WARP_TILE_ROWS)
+    assert (p.e[1].kind, p.e[1].vtype, p.e[1].n_limbs, p.e[1].is_signed) == (1, 4, 3, 0)
+    assert fused_scan.KEY_MODES[p.key_mode] == "p16" and fused_scan.VALUE_MODES[p.val_mode] == "i32"
+
+
+@pytest.mark.parametrize(
+    "mask_of,want_order,want_idx",
+    [
+        ("aab", [0, 1, 2], [0, 0, 1]),
+        ("aba", [0, 2, 1], [0, 0, 1]),
+        ("bab", [0, 2, 1], [0, 0, 1]),
+        ("abc", [0, 1, 2], [0, 1, 2]),
+        ("cbab", [0, 1, 3, 2], [0, 1, 1, 2]),
+    ],
+)
+def test_build_params_sorts_entries_by_mask(mask_of, want_order, want_idx):
+    """Entries reach the kernel grouped by their mask's index (a stable sort),
+    each table row j belongs to entries[order[j]], and the shared tables are
+    laid out in that order."""
+    n = 640
+    masks = {c: torch.ones(n, dtype=torch.bool) for c in "abc"}
+    entries = [("int_sum" if i % 2 else "count", torch.zeros(n, dtype=torch.int32) if i % 2 else None, masks[c], None)
+               for i, c in enumerate(mask_of)]
+    p, order, _ = fused_scan.build_params(entries, torch.zeros(n, dtype=torch.int32), 0, n, 10, None, None, SMEM_OPTIN)
+    assert order == want_order
+    assert [p.e[j].mask_idx for j in range(len(entries))] == want_idx
+    offs, words = fused_scan.table_layout([entries[i] for i in order], 10)
+    assert [p.e[j].smem_off for j in range(len(entries))] == offs and p.smem_words == words
+    for j, i in enumerate(order):
+        assert p.masks[p.e[j].mask_idx] == entries[i][2].data_ptr()
+
+
+@pytest.mark.parametrize(
+    "kinds,num_groups,want_variant,want_cluster",
+    [
+        (("count", "i32"), 2406, "i32/i32/shared", 1),  # 28.9 KB of tables
+        (("count", "i8", "i32"), 8192, "i32/any/shared", 2),  # 160 KB: merged across a cluster
+        (("count", "i8", "i32", "i64"), 8192, "i32/any/shared", 2),  # 224 KB: still fits
+        (("i8", "i32", "i64", "i16"), 8192, "any/any/global", 1),  # 256 KB: the global-atomic path
+        (("count",) * 7, 8192, "i32/i32/shared", 2),  # 7 count tables of 32-bit counters: 224 KB
+        (("count",) * 16, 8192, "any/any/global", 1),  # 512 KB
+    ],
+)
+def test_build_params_path_and_cluster(kinds, num_groups, want_variant, want_cluster):
+    n = 1024
+    make = {
+        "count": lambda: ("count", None),
+        "i8": lambda: ("int_sum", torch.zeros(n, dtype=torch.int8)),
+        "i16": lambda: ("int_sum", torch.zeros(n, dtype=torch.int16)),
+        "i32": lambda: ("int_sum", torch.zeros(n, dtype=torch.int32)),
+        "i64": lambda: ("int64_sum", torch.zeros(n, dtype=torch.int64)),
+    }
+    mask = torch.ones(n, dtype=torch.bool)
+    entries = [(*make[k](), mask, None) for k in kinds]
+    p, _order, variant = fused_scan.build_params(
+        entries, torch.zeros(n, dtype=torch.int32), 0, n, num_groups, None, None, SMEM_OPTIN)
+    _offs, words = fused_scan.table_layout(entries, num_groups)
+    assert variant == want_variant and p.cluster == want_cluster
+    assert p.shared == (4 * words <= SMEM_OPTIN)
+    assert p.smem_words == (words if p.shared else 0)
+
+
+def test_scan_params_ctypes_layout():
+    """The ctypes mirror has the C struct's layout on an LP64 host: three
+    pointers, 16 mask pointers, three int64, fourteen int32, then 16 entries
+    of one pointer and six int32.  The library checks the total size at
+    load; the offsets are checked here without it."""
+    import ctypes
+
+    P, E = fused_scan._ScanParams, fused_scan._ScanEntry
+    assert ctypes.sizeof(E) == 32
+    assert (E.values.offset, E.kind.offset, E.mask_idx.offset, E.smem_off.offset) == (0, 8, 24, 28)
+    assert (P.masks.offset, P.n.offset, P.head.offset, P.tiles.offset, P.key_type.offset) == (24, 152, 160, 168, 176)
+    assert (P.cluster.offset, P.pad_.offset, P.e.offset) == (224, 228, 232)
+    assert ctypes.sizeof(P) == 232 + 16 * 32
+
+
+def test_build_params_rejects_like_the_kernel_wrapper():
+    n = 64
+    mask = torch.ones(n, dtype=torch.bool)
+    key = torch.zeros(n, dtype=torch.int32)
+    with pytest.raises(ValueError, match="mask must be bool"):
+        fused_scan.build_params([("count", None, mask.to(torch.uint8), None)], key, 0, n, 4, None, None, SMEM_OPTIN)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_scan.build_params([("count", None, torch.ones(2 * n, dtype=torch.bool)[::2], None)], key, 0, n, 4,
+                                None, None, SMEM_OPTIN)
+    with pytest.raises(ValueError, match="shape"):
+        fused_scan.build_params([("count", None, mask, None)], key[:-1], 0, n, 4, None, None, SMEM_OPTIN)
