@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the process exits non-zero:
   2. build    - ops/csrc/*.cu compiled with nvcc for sm_90a into
                 build/torch_kernels/ (first use) and loaded.
   3. kernels  - every kernel held EXACTLY against its plain PyTorch version on
-                CUDA tensors: the CPU tests' grid, every instantiation (key
-                mode x value mode, and the global-atomic path), unaligned
+                CUDA tensors: the CPU tests' grid, every instantiation (the
+                two specialised ones, the generic one, the global-atomic
+                path), unaligned
                 views, shared and distinct masks, E = 16 and 17, G = 1 and
                 8, out-of-table codes; then 4 shapes timed with CUDA events
                 (median of 20 calls, L2 flushed before each): the main path
@@ -28,9 +29,11 @@ Phases, in order; any failure raises and the process exits non-zero:
                 query's warm median wall time over 5 runs.
   5. profile  - after the main path (a profiler session leaves tracing set up
                 in the process): each timed shape's kernel device time
-                (scan_ms) and the device time of a streaming read of the same
-                bytes (read_ms), from torch.profiler; the cluster merge of
-                the block tables on and off.
+                (scan_ms, torch.profiler); at the main path's and query (c)'s
+                shapes the same for the generic instantiation; at the main
+                path's shape, after a write flush and after a read flush,
+                scan_ms beside a float32 sum and a device copy of the same
+                input bytes.
   6. summary  - one {"kernels": [...]} JSON line, the card's nvidia-smi line,
                 and last the {"ok": true, "device": {...}} line.
 """
@@ -216,14 +219,22 @@ def _max_abs_err(got, ref) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(got, ref)) if got else 0.0
 
 
-def _time_cuda(fn, flush: torch.Tensor) -> float:
+def _flushes(dev):
+    """Two ways to evict the L2 cache before a timed call: a 256 MiB write
+    (the default; it leaves the L2 full of dirty lines, which the next
+    kernel's reads first write back) and a 256 MiB read (clean lines)."""
+    buf = torch.zeros(64 << 20, dtype=torch.float32, device=dev)
+    return {"write": buf.zero_, "read": buf.sum}
+
+
+def _time_cuda(fn, flush) -> float:
     """Median ms of TIMED_ITERS calls, each bracketed by its own CUDA events,
-    with the L2 cache flushed (a 256 MiB write) before each call."""
+    with flush() called before each (a write flush, unless said)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(TIMED_ITERS):
-        flush.zero_()
+        flush()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -233,16 +244,16 @@ def _time_cuda(fn, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, flush: torch.Tensor, kernel: str):
+def _device_ms(fn, flush, kernel: str):
     """Mean device ms a call spends in kernels whose name holds `kernel`,
-    over PROFILED_ITERS calls under torch.profiler (L2 flushed as above)."""
+    over PROFILED_ITERS calls under torch.profiler (flush() before each)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED_ITERS):
-            flush.zero_()
+            flush()
             fn()
         torch.cuda.synchronize()
     total_us = 0.0
@@ -320,7 +331,7 @@ def _timed_shapes(seed: int, dev):
     from pinot_tpu_torch.ops import fused_scan
 
     worst, timings = 0.0, []
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = _flushes(dev)["write"]
     for label, ents, key, g, kw in _shapes(seed, dev):
         got = fused_scan.fused_group_tables(ents, key, g, **kw)
         ref = fused_scan.fused_group_tables_reference(ents, key, g, **kw)
@@ -333,43 +344,76 @@ def _timed_shapes(seed: int, dev):
     return worst, timings
 
 
-def phase_kernel_profile(seed: int, dev, timings) -> None:
+def _generic_scan(ents, key, g, kw):
+    """The shape's scan through the generic shared instantiation: the
+    wrapper's launch parameters with the key and value modes set to "any",
+    launched straight through the library.  A comparison launch: no counter
+    moves."""
+    import ctypes
+
+    from pinot_tpu_torch.ops import fused_scan
+
+    lib = fused_scan._library()
+    key_t, bits = kw["codes_packed"] if "codes_packed" in kw else (key, 0)
+    p, order, _variant = fused_scan.build_params(
+        ents, key_t, bits, int(ents[0][2].shape[0]), g, None, None,
+        fused_scan._smem_optin(lib, torch.cuda.current_device()))
+    p.key_mode = p.val_mode = 0
+    out = torch.zeros((len(ents), g), dtype=torch.int64, device=key_t.device)
+    err = lib.pinot_fused_scan(ctypes.byref(p), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"generic fused scan launch failed: {lib.pinot_cuda_error_string(err).decode()}")
+    return [out[j].to(torch.float64) for j in sorted(range(len(order)), key=order.__getitem__)]
+
+
+def phase_kernel_profile(seed: int, dev, timings):
     """Device times from torch.profiler, after the main path (a profiler
     session leaves tracing set up in the process, which would tax the main
     path's launches): for each timed shape, rebuilt from the same seed,
-    scan_ms (the kernel's own device time) and read_ms (the device time of
-    one int64 torch.sum over each input's bytes: a streaming read of the
-    same bytes after the same flush); then the cluster merge on and off."""
+    scan_ms (the kernel's own device time); the specialised instantiation
+    against the generic one at the two shapes the SQL path launches; and,
+    at the main path's shape, what a write flush and a read flush each
+    leave a streaming read of the inputs' bytes."""
     from pinot_tpu_torch.ops import fused_scan
 
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flushes = _flushes(dev)
     shapes = _shapes(seed, dev)
     for timing, (label, ents, key, g, kw) in zip(timings, shapes):
-        key_in, _ = _key_input(ents, key, kw)
-        inputs = [key_in, *{m.data_ptr(): m for _k, _v, m, _lp in ents}.values(),
-                  *[v for _k, v, _m, _lp in ents if v is not None]]
-        words = [x.view(torch.int64) if x.numel() * x.element_size() % 8 == 0 else x for x in inputs]
-        timing["scan_ms"] = _device_ms(lambda: fused_scan.fused_group_tables(ents, key, g, **kw), flush,
-                                       "fused_scan_kernel")
-        timing["read_ms"] = _device_ms(lambda: [w.sum() for w in words], flush, "reduce_kernel")
-        log("kernel_profile", shape=label, scan_ms=timing["scan_ms"], read_ms=timing["read_ms"],
-            iters=PROFILED_ITERS)
+        timing["scan_ms"] = _device_ms(lambda: fused_scan.fused_group_tables(ents, key, g, **kw),
+                                       flushes["write"], "fused_scan_kernel")
+        log("kernel_profile", shape=label, scan_ms=timing["scan_ms"], iters=PROFILED_ITERS)
 
-    # the cluster merge on and off, on a small table (the main path's) and a
-    # large one (G=8192, count + 2 sums): the kernel's device time each way
-    main, e4, k8192 = shapes[0], shapes[3][1], shapes[3][2]
-    e3 = [main[1][0], e4[0], e4[1]]
-    merge = {}
-    for label, ents, key, g, kw in (main, ("G=8192 count + 2 sums", e3, k8192, 8192, {})):
-        for on in (False, True):
-            saved = fused_scan.CLUSTER_MIN_TABLE_BYTES
-            fused_scan.CLUSTER_MIN_TABLE_BYTES = 0 if on else 1 << 40
-            try:
-                ms = _device_ms(lambda: fused_scan.fused_group_tables(ents, key, g, **kw), flush, "fused_scan_kernel")
-            finally:
-                fused_scan.CLUSTER_MIN_TABLE_BYTES = saved
-            merge[f"{label.split(':')[0]}: cluster of {fused_scan.CLUSTER_BLOCKS if on else 1}"] = ms
-    log("cluster_merge", table_bytes_threshold=fused_scan.CLUSTER_MIN_TABLE_BYTES, scan_ms=merge)
+    generic = {}
+    for timing, (label, ents, key, g, kw) in zip(timings[:2], shapes[:2]):
+        err = _max_abs_err(_generic_scan(ents, key, g, kw), fused_scan.fused_group_tables_reference(ents, key, g, **kw))
+        if err != 0.0:
+            raise AssertionError(f"the generic instantiation differs from the plain version at {label}: {err}")
+        generic[label] = {"specialised": timing["variant"], "scan_ms": timing["scan_ms"], "generic_max_abs_err": err,
+                          "generic_scan_ms": _device_ms(lambda: _generic_scan(ents, key, g, kw), flushes["write"],
+                                                        "fused_scan_kernel")}
+    log("specialised_vs_generic", iters=PROFILED_ITERS, shapes=generic)
+
+    # the main path's inputs, read in full (every revenue sector holds a
+    # masked-in row), as one buffer of the same bytes: a float32 sum reads
+    # it, a device copy reads and writes it
+    label, ents, key, g, kw = shapes[0]
+    key_in, _ = _key_input(ents, key, kw)
+    nbytes = key_in.numel() * key_in.element_size() + sum(
+        x.numel() * x.element_size() for x in [ents[0][2], *[v for _k, v, _m, _lp in ents if v is not None]])
+    blob = torch.zeros(nbytes // 4, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(blob)
+    check = {"shape": label, "input_bytes": nbytes}
+    for name, flush in flushes.items():
+        scan_ms = _device_ms(lambda: fused_scan.fused_group_tables(ents, key, g, **kw), flush, "fused_scan_kernel")
+        sum_ms = _time_cuda(blob.sum, flush)
+        copy_ms = _time_cuda(lambda: dst.copy_(blob), flush)
+        check[f"{name}_flush"] = {
+            "scan_ms": scan_ms, "sum_ms": sum_ms, "copy_ms": copy_ms,
+            "scan_TBps": nbytes / scan_ms / 1e9 if isinstance(scan_ms, float) else "not measured",
+            "sum_TBps": nbytes / sum_ms / 1e9, "copy_TBps": 2 * nbytes / copy_ms / 1e9,
+        }
+    log("flush_check", **check)
+    return generic, check
 
 
 def _compile_report():
@@ -463,8 +507,7 @@ def phase_kernels(rng, dev):
             raise AssertionError(f"fused scan differs from its plain version on {label}: {err}")
         if launches != -(-len(ents) // fused_scan.MAX_ENTRIES):
             raise AssertionError(f"{label}: {launches} launches for {len(ents)} entries")
-    want = {f"{k}/{v}/shared" for k in fused_scan.KEY_MODES for v in fused_scan.VALUE_MODES} | {"any/any/global"}
-    missing = want - set(fused_scan.VARIANT_LAUNCHES)
+    missing = set(fused_scan.INSTANTIATIONS) - set(fused_scan.VARIANT_LAUNCHES)
     if missing:
         raise AssertionError(f"the variant grid reached no launch of {sorted(missing)}")
     return worst
@@ -659,7 +702,7 @@ def main() -> int:
     main_launches, main_variants = phase_main_path(args, dev)
 
     # 5. profile
-    phase_kernel_profile(args.seed + 1, dev, timings)
+    generic, flush_check = phase_kernel_profile(args.seed + 1, dev, timings)
 
     # 6. summary
     kernels = [{
@@ -681,6 +724,8 @@ def main() -> int:
         "scan_ms": timing["scan_ms"],
         "instantiations_on_main_path": main_variants,
         "shapes": timings,
+        "specialised_vs_generic": generic,
+        "flush_check": flush_check,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

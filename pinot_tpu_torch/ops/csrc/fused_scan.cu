@@ -14,11 +14,12 @@
 //
 // What the design does about that:
 // - Compile-time specialisation.  The row loop is a template on the key mode
-//   (int32 codes, or 4/8/16-bit lanes of packed words, decoded with constant
-//   shifts and masks) and on the value mode (every sum entry int32, or every
-//   one int64), so no per-row type switch and no 64-bit division runs.  One
-//   generic instantiation per value mode takes any other key (any integer
-//   type, any lane width), and one generic instantiation the global path.
+//   and the value mode.  The two instantiations the SQL path launches (raw
+//   int32 codes or 16-bit lanes of packed words, decoded with constant
+//   shifts and masks, with every sum entry over int32) run no per-row type
+//   switch and no 64-bit division.  One generic instantiation takes every
+//   other key (any integer type, any lane width) and value type, and one
+//   generic instantiation the global path.
 // - Row tiles.  Each thread takes 16 rows a step, as 4 quads of 4
 //   consecutive rows; in a vector tile the 32 lanes of a warp interleave
 //   quad by quad over 512 rows, so every load instruction of the warp reads
@@ -37,15 +38,11 @@
 //   spin loop (ATOMS.CAST.SPIN.64) on sm_90a; these compile to ATOMS.ADD and,
 //   for counts, ATOMS.POPC.INC.32.
 // - Few, large blocks: one persistent block of 1024 threads a streaming
-//   multiprocessor, so 132 tables flush, not 528.  Blocks whose tables are
-//   large launch in clusters (the wrapper asks for 2 from 64 KB of tables):
-//   each block sums a share of the slots over the cluster's tables through
-//   distributed shared memory and issues one global atomic per non-zero
-//   slot for the cluster.  On small tables the merge costs more than the
-//   atomics it saves, and clusters stay at one block.
+//   multiprocessor, so 132 tables flush, not 528, with one global atomic per
+//   non-zero slot of each.
 // - No per-launch attribute calls: the dynamic shared-memory opt-in of each
-//   instantiation, and the occupancy of each instantiation, shared-memory
-//   size and cluster size, are set and computed once and cached.
+//   instantiation, and the occupancy of each instantiation and
+//   shared-memory size, are set and computed once and cached.
 // Past the shared-memory opt-in (e.g. G = 8192 with 4 sum entries) the rows
 // add straight into the global int64 table.  The wrapper (ops/fused_scan.py)
 // picks the instantiation and converts int64 to f64.
@@ -53,27 +50,23 @@
 // Plain C interface for ctypes: every pointer and the stream are void*, and
 // pinot_fused_scan returns the cudaError_t of the launch.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
-
-namespace cg = cooperative_groups;
 
 #define PINOT_MAX_ENTRIES 16
 #define PINOT_BLOCK 1024
 #define PINOT_MIN_BLOCKS_PER_SM 1
 #define PINOT_TILE 16
 #define PINOT_WARP_ROWS (32 * PINOT_TILE)
-#define PINOT_MAX_CLUSTER 8
 
 // element type codes shared with ops/fused_scan.py (_DTYPE_CODES)
 enum ElemType { T_U8 = 0, T_I8 = 1, T_I16 = 2, T_U16 = 3, T_I32 = 4, T_U32 = 5, T_I64 = 6 };
 enum EntryKind { K_COUNT = 0, K_INT_SUM = 1, K_INT64_SUM = 2 };
 // instantiation codes shared with ops/fused_scan.py (KEY_MODES, VALUE_MODES)
-enum KeyMode { KM_ANY = 0, KM_I32 = 1, KM_P4 = 2, KM_P8 = 3, KM_P16 = 4 };
-enum ValMode { VM_ANY = 0, VM_I32 = 1, VM_I64 = 2 };
+enum KeyMode { KM_ANY = 0, KM_I32 = 1, KM_P16 = 2 };
+enum ValMode { VM_ANY = 0, VM_I32 = 1 };
 
 struct ScanEntry {
   const void* values;  // [n] of vtype; null for count
@@ -105,8 +98,6 @@ struct ScanParams {
   int32_t val_mode;    // ValMode
   int32_t shared;      // 1: block tables in shared memory; 0: global table
   int32_t smem_words;  // 32-bit words of the shared tables
-  int32_t cluster;     // blocks per cluster asked for (shared path)
-  int32_t pad_;
   ScanEntry e[PINOT_MAX_ENTRIES];
 };
 
@@ -178,37 +169,22 @@ __device__ __forceinline__ void tile_keys(const ScanParams& p, int64_t r0, int c
     }
 #pragma unroll
     for (int i = 0; i < PINOT_TILE; ++i) code[i] = (code[i] >= 0 && code[i] < G) ? code[i] : -1;
-  } else if constexpr (KM == KM_P4 || KM == KM_P8 || KM == KM_P16) {
-    constexpr int BITS = KM == KM_P4 ? 4 : (KM == KM_P8 ? 8 : 16);
-    constexpr int LANES = 32 / BITS;
-    constexpr uint32_t MASK = (1u << BITS) - 1u;
+  } else if constexpr (KM == KM_P16) {
     const uint32_t* w = (const uint32_t*)p.key;
     if constexpr (VEC) {
-      // a quad is 4 lanes: 2 words, 1 word or a half word, starting on one
+      // a quad is 4 lanes: a pair of words, starting on an even word
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const uint64_t r = (uint64_t)(r0 + q * QS);
-        uint32_t lo, hi = 0;
-        if constexpr (BITS == 16) {
-          const uint2 v = __ldg((const uint2*)(w + r / 2));
-          lo = v.x, hi = v.y;
-        } else if constexpr (BITS == 8) {
-          lo = __ldg(w + r / 4);
-        } else {
-          lo = __ldg((const uint16_t*)w + r / 4);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t word = BITS == 16 && j >= 2 ? hi : lo;
-          code[4 * q + j] = (int)((word >> (BITS * (j % (BITS == 16 ? 2 : 4)))) & MASK);
-        }
+        const uint2 v = __ldg((const uint2*)(w + ((uint64_t)(r0 + q * QS) >> 1)));
+        code[4 * q] = (int)(v.x & 0xFFFFu), code[4 * q + 1] = (int)(v.x >> 16);
+        code[4 * q + 2] = (int)(v.y & 0xFFFFu), code[4 * q + 3] = (int)(v.y >> 16);
       }
     } else {
 #pragma unroll
       for (int i = 0; i < PINOT_TILE; ++i) {
         if (i < cnt) {
           const uint64_t r = (uint64_t)(r0 + i);
-          code[i] = (int)((__ldg(w + r / LANES) >> (BITS * (int)(r % LANES))) & MASK);
+          code[i] = (int)((__ldg(w + (r >> 1)) >> (16 * (int)(r & 1))) & 0xFFFFu);
         } else {
           code[i] = G;  // dropped below
         }
@@ -381,25 +357,6 @@ __device__ __forceinline__ void scan_tile(const ScanParams& p, int64_t r0, int c
 #pragma unroll
         for (int i = 0; i < PINOT_TILE; ++i)
           if ((bits >> i) & 1u) add_value<SHARED>(p, en, e, smem, out, code[i], plan(x[i]));
-      } else if constexpr (VM == VM_I64) {
-        // every sum entry is int64_sum over int64 values
-        int64_t x[PINOT_TILE];
-        const int64_t* src = (const int64_t*)en.values + r0;
-        if constexpr (VEC) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const longlong2 v0 = __ldg((const longlong2*)(src + q * Quads<VEC>::QS));
-            const longlong2 v1 = __ldg((const longlong2*)(src + q * Quads<VEC>::QS) + 1);
-            x[4 * q] = v0.x, x[4 * q + 1] = v0.y, x[4 * q + 2] = v1.x, x[4 * q + 3] = v1.y;
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < PINOT_TILE; ++i) x[i] = ((bits >> i) & 1u) ? src[i] : 0;
-        }
-#pragma unroll
-        for (int i = 0; i < PINOT_TILE; ++i)
-          if ((bits >> i) & 1u)
-            add_value<SHARED>(p, en, e, smem, out, code[i], int64_sum_value(x[i], en.n_limbs));
       } else {
         int64_t x[PINOT_TILE];
         load_ints<VEC>(en.values, en.vtype, r0, cnt, x);
@@ -422,21 +379,6 @@ __device__ __forceinline__ void scan_tile(const ScanParams& p, int64_t r0, int c
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
-
-// slot s of the [E, G] table summed over the cluster's shared tables
-__device__ __forceinline__ uint64_t cluster_slot(const ScanParams& p, cg::cluster_group& cl,
-                                                 uint32_t* smem, int s, unsigned C) {
-  const int G = p.num_groups;
-  const int e = s / G;
-  const int g = s - e * G;
-  const ScanEntry& en = p.e[e];
-  uint64_t tot = 0;
-  for (unsigned q = 0; q < C; ++q) {
-    const uint32_t* t = C > 1 ? cl.map_shared_rank(smem, q) + en.smem_off : smem + en.smem_off;
-    tot += en.kind == K_COUNT ? (uint64_t)t[g] : ((uint64_t)t[G + g] << 32 | t[g]);
-  }
-  return tot;
-}
 
 template <int KM, int VM, bool SHARED>
 __global__ void __launch_bounds__(PINOT_BLOCK, PINOT_MIN_BLOCKS_PER_SM)
@@ -462,16 +404,17 @@ fused_scan_kernel(const __grid_constant__ ScanParams p, unsigned long long* __re
     if (cnt > 0) scan_tile<KM, VM, SHARED, false>(p, r0, cnt, smem, out);
   }
   if constexpr (SHARED) {
-    cg::cluster_group cl = cg::this_cluster();
-    const unsigned C = p.cluster > 1 ? cl.num_blocks() : 1u;
-    const unsigned rank = C > 1 ? cl.block_rank() : 0u;
-    if (C > 1) cl.sync(); else __syncthreads();
-    const int slots = p.num_entries * p.num_groups;
-    for (int s = rank * blockDim.x + threadIdx.x; s < slots; s += C * blockDim.x) {
-      const uint64_t v = cluster_slot(p, cl, smem, s, C);
-      if (v != 0ull) atomicAdd(out + s, (unsigned long long)v);
+    // one global atomic per non-zero slot of the block's tables
+    __syncthreads();
+    const int G = p.num_groups;
+    for (int e = 0; e < p.num_entries; ++e) {
+      const ScanEntry& en = p.e[e];
+      const uint32_t* t = smem + en.smem_off;
+      for (int g = threadIdx.x; g < G; g += blockDim.x) {
+        const uint64_t v = en.kind == K_COUNT ? (uint64_t)t[g] : ((uint64_t)t[G + g] << 32 | t[g]);
+        if (v != 0ull) atomicAdd(out + (int64_t)e * G + g, (unsigned long long)v);
+      }
     }
-    if (C > 1) cl.sync();  // keep this block's table alive while the cluster reads it
   }
 }
 
@@ -480,26 +423,14 @@ fused_scan_kernel(const __grid_constant__ ScanParams p, unsigned long long* __re
 // ---------------------------------------------------------------------------
 typedef void (*ScanKernel)(const ScanParams, unsigned long long*);
 
-template <int KM>
-static ScanKernel pick_val(int vm) {
-  switch (vm) {
-    case VM_I32: return fused_scan_kernel<KM, VM_I32, true>;
-    case VM_I64: return fused_scan_kernel<KM, VM_I64, true>;
-    case VM_ANY: return fused_scan_kernel<KM, VM_ANY, true>;
-    default: return nullptr;
-  }
-}
-
+// the four instantiations (ops/fused_scan.py: INSTANTIATIONS)
 static ScanKernel pick_kernel(int km, int vm, int shared) {
-  if (!shared) return (km == KM_ANY && vm == VM_ANY) ? fused_scan_kernel<KM_ANY, VM_ANY, false> : nullptr;
-  switch (km) {
-    case KM_ANY: return pick_val<KM_ANY>(vm);
-    case KM_I32: return pick_val<KM_I32>(vm);
-    case KM_P4: return pick_val<KM_P4>(vm);
-    case KM_P8: return pick_val<KM_P8>(vm);
-    case KM_P16: return pick_val<KM_P16>(vm);
-    default: return nullptr;
-  }
+  if (km == KM_ANY && vm == VM_ANY) return shared ? fused_scan_kernel<KM_ANY, VM_ANY, true>
+                                                  : fused_scan_kernel<KM_ANY, VM_ANY, false>;
+  if (!shared || vm != VM_I32) return nullptr;
+  if (km == KM_I32) return fused_scan_kernel<KM_I32, VM_I32, true>;
+  if (km == KM_P16) return fused_scan_kernel<KM_P16, VM_I32, true>;
+  return nullptr;
 }
 
 // what a launch of one instantiation may use, computed once
@@ -507,8 +438,6 @@ struct LaunchPlan {
   int dev;
   ScanKernel fn;
   int smem;
-  int cluster_ask;
-  int cluster;     // blocks per cluster it launches with
   int max_blocks;  // co-resident blocks on the card
 };
 
@@ -516,11 +445,11 @@ static std::mutex g_mu;
 static LaunchPlan g_plans[256];
 static int g_num_plans = 0;
 
-static cudaError_t launch_plan(int dev, ScanKernel fn, int smem, int cluster_ask, LaunchPlan* out) {
+static cudaError_t launch_plan(int dev, ScanKernel fn, int smem, LaunchPlan* out) {
   std::lock_guard<std::mutex> lock(g_mu);
   for (int i = 0; i < g_num_plans; ++i) {
     const LaunchPlan& c = g_plans[i];
-    if (c.dev == dev && c.fn == fn && c.smem == smem && c.cluster_ask == cluster_ask) {
+    if (c.dev == dev && c.fn == fn && c.smem == smem) {
       *out = c;
       return cudaSuccess;
     }
@@ -535,32 +464,11 @@ static cudaError_t launch_plan(int dev, ScanKernel fn, int smem, int cluster_ask
   // opt-in once, so that no plan lowers it under another plan's size
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err != cudaSuccess) return err;
-  LaunchPlan c = {dev, fn, smem, cluster_ask, 1, 0};
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, PINOT_BLOCK, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  c.max_blocks = sms * per_sm;
-  // the largest cluster, up to the one asked for, of which some fit at once
-  for (int k = cluster_ask; k > 1; k /= 2) {
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = k, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
-    cfg.gridDim = dim3(k);
-    cfg.blockDim = dim3(PINOT_BLOCK);
-    cfg.dynamicSmemBytes = smem;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
-    if (err != cudaSuccess) return err;
-    if (clusters > 0) {
-      c.cluster = k;
-      c.max_blocks = clusters * k;
-      break;
-    }
-  }
+  const LaunchPlan c = {dev, fn, smem, sms * per_sm};
   if (g_num_plans < (int)(sizeof(g_plans) / sizeof(g_plans[0]))) g_plans[g_num_plans++] = c;
   *out = c;
   return cudaSuccess;
@@ -572,7 +480,7 @@ extern "C" {
 int pinot_fused_scan(const ScanParams* p, void* out, void* stream) {
   if (p->num_entries < 1 || p->num_entries > PINOT_MAX_ENTRIES || p->num_groups < 1 || p->n < 0 ||
       p->num_masks < 1 || p->num_masks > p->num_entries || p->head < 0 || p->tiles < 0 ||
-      p->head + p->tiles * PINOT_WARP_ROWS > p->n || p->cluster < 1 || p->cluster > PINOT_MAX_CLUSTER)
+      p->head + p->tiles * PINOT_WARP_ROWS > p->n)
     return (int)cudaErrorInvalidValue;
   const ScanKernel fn = pick_kernel(p->key_mode, p->val_mode, p->shared);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
@@ -582,31 +490,17 @@ int pinot_fused_scan(const ScanParams* p, void* out, void* stream) {
   if (err != cudaSuccess) return (int)err;
   const int smem = p->shared ? p->smem_words * (int)sizeof(uint32_t) : 0;
   LaunchPlan plan;
-  err = launch_plan(dev, fn, smem, p->shared ? p->cluster : 1, &plan);
+  err = launch_plan(dev, fn, smem, &plan);
   if (err != cudaSuccess) return (int)err;
   // threads needed: a warp a vector tile, a thread a scalar tile
   const int64_t threads =
       p->tiles * 32 + 2 + (p->n - p->head - p->tiles * PINOT_WARP_ROWS) / PINOT_TILE;
   int64_t grid = (threads + PINOT_BLOCK - 1) / PINOT_BLOCK;
   if (grid > plan.max_blocks) grid = plan.max_blocks;
-  grid = (grid + plan.cluster - 1) / plan.cluster * plan.cluster;
   // a block's 32-bit counters hold fewer than 2^32 rows (2^31 leaves room
   // for the uneven split of tiles between blocks)
   if (p->shared && p->n / grid >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = plan.cluster, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
-  cfg.gridDim = dim3((unsigned)grid);
-  cfg.blockDim = dim3(PINOT_BLOCK);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = plan.cluster > 1 ? 1 : 0;
-  ScanParams q = *p;
-  q.cluster = plan.cluster;
-  err = cudaLaunchKernelEx(&cfg, fn, q, (unsigned long long*)out);
-  if (err != cudaSuccess) return (int)err;
+  fn<<<(unsigned)grid, PINOT_BLOCK, smem, (cudaStream_t)stream>>>(*p, (unsigned long long*)out);
   return (int)cudaGetLastError();
 }
 

@@ -13,12 +13,13 @@ merge of the block tables.  What the design does about it (the ``.cu``
 header has the detail): the TPU's 8-bit limbs, one-hot MXU matmuls and
 int32 super-tiles are dropped (they exist because the TPU lacks scatter and
 64-bit integer ALUs).  The kernel is a template on the key mode and the
-value mode; each thread takes 16-row tiles, which a warp reads in coalesced
-quads of 4 rows; a mask that several entries share is read once; blocks add
-into 32-bit shared-memory words and merge large tables across a
-thread-block cluster before one global atomic per slot.  This module picks the instantiation
-(``key_mode``, ``value_mode``, ``table_layout`` against the card's
-shared-memory opt-in), deduplicates the masks (``dedup_masks``) and finds
+value mode, specialised for the two shapes the SQL path launches and
+generic otherwise; each thread takes 16-row tiles, which a warp reads in
+coalesced quads of 4 rows; a mask that several entries share is read once;
+one persistent block a multiprocessor adds into 32-bit shared-memory words
+and flushes with one global atomic per slot.  This module picks the
+instantiation (``key_mode``, ``value_mode``, ``table_layout`` against the
+card's shared-memory opt-in), deduplicates the masks (``dedup_masks``) and finds
 the first row from which every operand is aligned for the vector loads
 (``tile_head``), all in ``build_params``; past the opt-in the rows add
 straight into the global table.  The int64 tables convert to f64 here.
@@ -48,15 +49,15 @@ MAX_ENTRIES = 16
 TILE_ROWS = 16
 QUAD_ROWS = 4
 WARP_TILE_ROWS = 32 * TILE_ROWS
-# blocks of a cluster that merges its tables before the global flush, asked
-# for when a block's tables reach CLUSTER_MIN_TABLE_BYTES (below it the merge
-# costs more than the global atomics it saves); the kernel library halves
-# the size until clusters of it fit the card
-CLUSTER_BLOCKS = 2
-CLUSTER_MIN_TABLE_BYTES = 64 << 10
-# instantiation codes of csrc/fused_scan.cu (KeyMode, ValMode)
-KEY_MODES = ("any", "i32", "p4", "p8", "p16")
-VALUE_MODES = ("any", "i32", "i64")
+# instantiation codes of csrc/fused_scan.cu (KeyMode, ValMode), and the
+# instantiations it has: the specialised (key mode, value mode) pairs of the
+# SQL path's two fused scans (a packed dictionary key and a computed int32
+# key, each with int32 sums), and the generic one that takes any other
+# shape; the global-atomic path is generic only
+KEY_MODES = ("any", "i32", "p16")
+VALUE_MODES = ("any", "i32")
+SPECIALISED = (("p16", "i32"), ("i32", "i32"))
+INSTANTIATIONS = tuple(f"{k}/{v}/shared" for k, v in SPECIALISED) + ("any/any/shared", "any/any/global")
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it),
 # in all and by instantiation ("<key mode>/<value mode>/<shared|global>")
@@ -210,8 +211,6 @@ class _ScanParams(ctypes.Structure):
         ("val_mode", ctypes.c_int32),
         ("shared", ctypes.c_int32),
         ("smem_words", ctypes.c_int32),
-        ("cluster", ctypes.c_int32),
-        ("pad_", ctypes.c_int32),
         ("e", _ScanEntry * MAX_ENTRIES),
     ]
 
@@ -232,23 +231,27 @@ def dedup_masks(masks: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], List
 
 
 def key_mode(key_dtype: torch.dtype, key_bits: int) -> str:
-    """The key instantiation: lanes of 4/8/16 bits, raw int32 codes, or the
-    generic one (any other key type or lane width)."""
+    """The key's specialised mode: 16-bit lanes, raw int32 codes, or "any"
+    (every other key type or lane width)."""
     if key_bits:
-        return {4: "p4", 8: "p8", 16: "p16"}.get(int(key_bits), "any")
+        return "p16" if int(key_bits) == 16 else "any"
     return "i32" if key_dtype == torch.int32 else "any"
 
 
 def value_mode(entries: Sequence[Entry]) -> str:
-    """The value instantiation: "i32" when every sum entry is an int_sum over
-    4-byte values (or there is none), "i64" when every one is an int64_sum,
-    else the generic "any"."""
+    """"i32" when every sum entry is an int_sum over 4-byte values (or there
+    is none), else "any"."""
     sums = [(kind, values.dtype) for kind, values, _m, _lp in entries if kind != "count"]
     if all(k == "int_sum" and dt in (torch.int32, torch.uint32) for k, dt in sums):
         return "i32"
-    if all(k == "int64_sum" for k, _dt in sums):
-        return "i64"
     return "any"
+
+
+def instantiation(key_dtype: torch.dtype, key_bits: int, entries: Sequence[Entry], shared: bool) -> Tuple[str, str]:
+    """The (key mode, value mode) of the kernel that runs: a SPECIALISED
+    pair where the shape is one, else the generic ("any", "any")."""
+    pair = (key_mode(key_dtype, key_bits), value_mode(entries))
+    return pair if shared and pair in SPECIALISED else ("any", "any")
 
 
 def tile_head(streams: Sequence[Tuple[int, int, bool]]) -> Optional[int]:
@@ -346,12 +349,10 @@ def build_params(entries, key_t, key_bits, n, num_groups, mask_words, code_pred,
     ordered = [entries[i] for i in order]
     offs, words = table_layout(ordered, num_groups)
     shared = 4 * words <= smem_optin
-    km = key_mode(key_t.dtype, key_bits) if shared else "any"
-    vm = value_mode(ordered) if shared else "any"
+    km, vm = instantiation(key_t.dtype, key_bits, ordered, shared)
     p.num_entries, p.num_masks = len(entries), len(masks)
     p.key_mode, p.val_mode = KEY_MODES.index(km), VALUE_MODES.index(vm)
     p.shared, p.smem_words = int(shared), words if shared else 0
-    p.cluster = CLUSTER_BLOCKS if shared and 4 * words >= CLUSTER_MIN_TABLE_BYTES else 1
     head = tile_head(streams)
     if head is not None and n > head:
         p.head, p.tiles = head, (n - head) // WARP_TILE_ROWS

@@ -247,7 +247,7 @@ def test_dedup_masks(layout, want_distinct, want_idx):
     "dtype,bits,want",
     [
         (torch.int32, 0, "i32"), (torch.int64, 0, "any"), (torch.int8, 0, "any"), (torch.uint32, 0, "any"),
-        (torch.int32, 4, "p4"), (torch.int32, 8, "p8"), (torch.int32, 16, "p16"), (torch.int32, 2, "any"),
+        (torch.int32, 4, "any"), (torch.int32, 8, "any"), (torch.int32, 16, "p16"), (torch.int32, 2, "any"),
     ],
 )
 def test_key_mode(dtype, bits, want):
@@ -261,8 +261,8 @@ def test_key_mode(dtype, bits, want):
         (("count",), "i32"),
         (("count", "int_sum:int32"), "i32"),
         (("int_sum:uint32", "int_sum:int32"), "i32"),
-        (("count", "int64_sum:int64"), "i64"),
-        (("int64_sum:int64", "int64_sum:int64"), "i64"),
+        (("count", "int64_sum:int64"), "any"),
+        (("int64_sum:int64", "int64_sum:int64"), "any"),
         (("count", "int_sum:int8"), "any"),
         (("int_sum:int16", "int_sum:int32"), "any"),
         (("int_sum:uint16",), "any"),
@@ -270,13 +270,38 @@ def test_key_mode(dtype, bits, want):
     ],
 )
 def test_value_mode(kinds, want):
-    n = 64
+    assert fused_scan.value_mode(_entries_of(kinds)) == want
+
+
+def _entries_of(kinds, n=64):
     entries = []
     for k in kinds:
         kind, _, dt = k.partition(":")
         values = torch.zeros(n, dtype=getattr(torch, dt)) if dt else None
         entries.append((kind, values, torch.ones(n, dtype=torch.bool), None))
-    assert fused_scan.value_mode(entries) == want
+    return entries
+
+
+@pytest.mark.parametrize(
+    "key_dtype,bits,kinds,shared,want",
+    [
+        (torch.int32, 16, ("count", "int_sum:int32"), True, ("p16", "i32")),  # query (a)
+        (torch.int32, 0, ("count", "int_sum:int32"), True, ("i32", "i32")),  # query (c)
+        (torch.int32, 0, ("count",), True, ("i32", "i32")),
+        (torch.int32, 16, ("count", "int_sum:int8"), True, ("any", "any")),
+        (torch.int32, 8, ("count", "int_sum:int32"), True, ("any", "any")),
+        (torch.int64, 0, ("count", "int_sum:int32"), True, ("any", "any")),
+        (torch.int32, 0, ("int64_sum:int64",), True, ("any", "any")),
+        (torch.int32, 0, ("count", "int_sum:int32"), False, ("any", "any")),  # global path: generic only
+        (torch.int32, 16, ("count",), False, ("any", "any")),
+    ],
+)
+def test_instantiation(key_dtype, bits, kinds, shared, want):
+    """A specialised pair only where the shape is one; every instantiation
+    the wrapper can pick is one the kernel library has."""
+    got = fused_scan.instantiation(key_dtype, bits, _entries_of(kinds), shared)
+    assert got == want
+    assert f"{got[0]}/{got[1]}/{'shared' if shared else 'global'}" in fused_scan.INSTANTIATIONS
 
 
 @pytest.mark.parametrize(
@@ -341,7 +366,7 @@ def test_build_params_main_path_shape():
     assert p.masks[0] == mask.data_ptr() and not p.masks[1]
     assert [p.e[j].mask_idx for j in range(2)] == [0, 0]
     assert [p.e[j].smem_off for j in range(2)] == [0, g]
-    assert p.smem_words == 3 * g and p.shared == 1 and p.cluster == 1
+    assert p.smem_words == 3 * g and p.shared == 1
     assert (p.head, p.tiles) == (0, n // fused_scan.WARP_TILE_ROWS)
     assert (p.e[1].kind, p.e[1].vtype, p.e[1].n_limbs, p.e[1].is_signed) == (1, 4, 3, 0)
     assert fused_scan.KEY_MODES[p.key_mode] == "p16" and fused_scan.VALUE_MODES[p.val_mode] == "i32"
@@ -375,17 +400,17 @@ def test_build_params_sorts_entries_by_mask(mask_of, want_order, want_idx):
 
 
 @pytest.mark.parametrize(
-    "kinds,num_groups,want_variant,want_cluster",
+    "kinds,num_groups,want_variant",
     [
-        (("count", "i32"), 2406, "i32/i32/shared", 1),  # 28.9 KB of tables
-        (("count", "i8", "i32"), 8192, "i32/any/shared", 2),  # 160 KB: merged across a cluster
-        (("count", "i8", "i32", "i64"), 8192, "i32/any/shared", 2),  # 224 KB: still fits
-        (("i8", "i32", "i64", "i16"), 8192, "any/any/global", 1),  # 256 KB: the global-atomic path
-        (("count",) * 7, 8192, "i32/i32/shared", 2),  # 7 count tables of 32-bit counters: 224 KB
-        (("count",) * 16, 8192, "any/any/global", 1),  # 512 KB
+        (("count", "i32"), 2406, "i32/i32/shared"),  # 28.9 KB of tables
+        (("count", "i8", "i32"), 8192, "any/any/shared"),  # 160 KB
+        (("count", "i8", "i32", "i64"), 8192, "any/any/shared"),  # 224 KB: still fits
+        (("i8", "i32", "i64", "i16"), 8192, "any/any/global"),  # 256 KB: the global-atomic path
+        (("count",) * 7, 8192, "i32/i32/shared"),  # 7 count tables of 32-bit counters: 224 KB
+        (("count",) * 16, 8192, "any/any/global"),  # 512 KB
     ],
 )
-def test_build_params_path_and_cluster(kinds, num_groups, want_variant, want_cluster):
+def test_build_params_path(kinds, num_groups, want_variant):
     n = 1024
     make = {
         "count": lambda: ("count", None),
@@ -399,14 +424,14 @@ def test_build_params_path_and_cluster(kinds, num_groups, want_variant, want_clu
     p, _order, variant = fused_scan.build_params(
         entries, torch.zeros(n, dtype=torch.int32), 0, n, num_groups, None, None, SMEM_OPTIN)
     _offs, words = fused_scan.table_layout(entries, num_groups)
-    assert variant == want_variant and p.cluster == want_cluster
+    assert variant == want_variant
     assert p.shared == (4 * words <= SMEM_OPTIN)
     assert p.smem_words == (words if p.shared else 0)
 
 
 def test_scan_params_ctypes_layout():
     """The ctypes mirror has the C struct's layout on an LP64 host: three
-    pointers, 16 mask pointers, three int64, fourteen int32, then 16 entries
+    pointers, 16 mask pointers, three int64, twelve int32, then 16 entries
     of one pointer and six int32.  The library checks the total size at
     load; the offsets are checked here without it."""
     import ctypes
@@ -415,8 +440,8 @@ def test_scan_params_ctypes_layout():
     assert ctypes.sizeof(E) == 32
     assert (E.values.offset, E.kind.offset, E.mask_idx.offset, E.smem_off.offset) == (0, 8, 24, 28)
     assert (P.masks.offset, P.n.offset, P.head.offset, P.tiles.offset, P.key_type.offset) == (24, 152, 160, 168, 176)
-    assert (P.cluster.offset, P.pad_.offset, P.e.offset) == (224, 228, 232)
-    assert ctypes.sizeof(P) == 232 + 16 * 32
+    assert (P.smem_words.offset, P.e.offset) == (220, 224)
+    assert ctypes.sizeof(P) == 224 + 16 * 32
 
 
 def test_build_params_rejects_like_the_kernel_wrapper():
