@@ -12,9 +12,11 @@ Phases, in order; any failure raises and the process exits non-zero:
                 two specialised ones, the generic one, the global-atomic
                 path), unaligned
                 views, shared and distinct masks, E = 16 and 17, G = 1 and
-                8, out-of-table codes; then 4 shapes timed with CUDA events
-                (median of 20 calls, L2 flushed before each): the main path
-                (2^23 rows, packed 16-bit key, 2406 groups, count + int_sum),
+                8, out-of-table codes; then 5 shapes timed with CUDA events
+                (median of 20 calls, L2 flushed before each): the
+                distributed main path's launch (2^27 rows, packed 16-bit
+                key, mask_words, an all-true entry mask, 2406 groups, count
+                + int_sum), the segment main path's (2^23 rows, one mask),
                 query (c)'s raw computed key (550 groups), G = 8, and
                 G = 8192 with 4 sums (global path).  Each: the wrapper call,
                 the plain version, and one torch.Tensor.index_add_ per entry
@@ -26,14 +28,27 @@ Phases, in order; any failure raises and the process exits non-zero:
                 --seed, registered in QueryEngine() on CUDA; three queries
                 checked EXACTLY against numpy golden results, with the
                 kernels' launch counts read around that one run; then each
-                query's warm median wall time over 5 runs.
-  5. profile  - after the main path (a profiler session leaves tracing set up
-                in the process): each timed shape's kernel device time
-                (scan_ms, torch.profiler); at the main path's and query (c)'s
-                shapes the same for the generic instantiation; at the main
-                path's shape, after a write flush and after a read flush,
-                scan_ms beside a float32 sum and a device copy of the same
-                input bytes.
+                query's warm median wall time over 5 runs and a profile.
+ 4b. dist_main_path - bench.py main()'s table: 2^27 = 134,217,728 rows from
+                --seed in StackedTable.build(num_shards=1) with a range index
+                on lo_quantity, queried through DistributedEngine() on CUDA
+                at one launch and at three (launch_bytes 384 MiB): (a) the
+                bench query (word-fused: the range-index words go to the
+                fused scan as mask_words), (b) a two-predicate scalar
+                aggregation, (c) a dense group-by with MIN/MAX (the words
+                unpacked), (d) a sparse group-by over 1,323,300 keys with
+                the device merge.  Every result EXACTLY equal to a numpy
+                golden at both batchings, the route of each query checked
+                from the counters around one counted run per engine; the
+                20-literal sweep plans once; warm medians of 5, the host ms
+                of the words and their copy, then a profile of each query.
+  5. profile  - after the main paths (a profiler session leaves tracing set
+                up in the process): each timed shape's kernel device time
+                (scan_ms, torch.profiler); at the segment main path's and
+                query (c)'s shapes the same for the generic instantiation; at
+                the segment main path's shape, after a write flush and after
+                a read flush, scan_ms beside a float32 sum and a device copy
+                of the same input bytes.
   6. summary  - one {"kernels": [...]} JSON line, the card's nvidia-smi line,
                 and last the {"ok": true, "device": {...}} line.
 """
@@ -245,8 +260,9 @@ def _time_cuda(fn, flush) -> float:
 
 
 def _device_ms(fn, flush, kernel: str):
-    """Mean device ms a call spends in kernels whose name holds `kernel`,
-    over PROFILED_ITERS calls under torch.profiler (flush() before each)."""
+    """Mean device ms of one launch of the kernels whose name holds
+    `kernel`, over PROFILED_ITERS calls (one launch each) under
+    torch.profiler (flush() before each)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -256,27 +272,46 @@ def _device_ms(fn, flush, kernel: str):
             flush()
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, calls = 0.0, 0
     for e in prof.key_averages():
         if kernel in e.key:
             us = getattr(e, "self_device_time_total", None)
             total_us += us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
-    return total_us / PROFILED_ITERS / 1e3 if total_us else "not measured"
+            calls += e.count
+    # per launch captured: a session can lose events (see profile_query)
+    return total_us / calls / 1e3 if calls else "not measured"
 
 
-def _bound(ents, key_in, g):
+def _effective_masks(ents, kw):
+    """Each entry's mask ANDed with the filter words where the call has them
+    (the rows the entry really counts)."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    if "mask_words" not in kw:
+        return [m for _k, _v, m, _lp in ents]
+    words = fused_scan.lane_unpack(kw["mask_words"], 1, int(ents[0][2].shape[0])) != 0
+    return [m & words for _k, _v, m, _lp in ents]
+
+
+def _bound(ents, key_in, g, kw):
     """Least time for the same work: each input byte read once (the key,
-    each distinct mask, the values where their mask holds), each table
-    written once; one 64-bit add per counted row and entry."""
+    the filter words, each distinct mask, the values where their row is
+    counted), each table written once; one 64-bit add per counted row and
+    entry.  bound_ms_no_true_mask leaves out the bytes of masks that are
+    all true (a kernel told "all rows" would not read them)."""
     masks = list({m.data_ptr(): m for _k, _v, m, _lp in ents}.values())
-    counted = [int(m.sum()) for _k, _v, m, _lp in ents]
-    read_bytes = key_in.numel() * key_in.element_size() + sum(m.numel() for m in masks) + sum(
+    counted = [int(m.sum()) for m in _effective_masks(ents, kw)]
+    words = kw["mask_words"].numel() * 4 if "mask_words" in kw else 0
+    read_bytes = key_in.numel() * key_in.element_size() + words + sum(m.numel() for m in masks) + sum(
         c * v.element_size() for (_k, v, _m, _lp), c in zip(ents, counted) if v is not None)
+    true_mask_bytes = sum(m.numel() for m in masks if bool(m.all()))
     write_bytes = len(ents) * g * 8
     bytes_ms = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = sum(counted) / SCALAR_OPS_PER_S * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes_moved": read_bytes + write_bytes}
+            "bytes_moved": read_bytes + write_bytes,
+            "bound_ms_no_true_mask": max((read_bytes - true_mask_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3,
+                                         ops_ms)}
 
 
 def _key_input(ents, key, kw):
@@ -310,7 +345,7 @@ def _timed_shape(label, ents, key, g, kw, flush):
     key_in, key64 = _key_input(ents, key, kw)
     zero = torch.zeros((), dtype=torch.int64, device=key64.device)
     adds = [torch.where(m, m.to(torch.int64) if k == "count" else fused_scan._entry_values(k, v, lp), zero)
-            for k, v, m, lp in ents]
+            for (k, v, _m, lp), m in zip(ents, _effective_masks(ents, kw))]
 
     def library():
         for a in adds:
@@ -318,7 +353,7 @@ def _timed_shape(label, ents, key, g, kw, flush):
 
     library_ms = _time_cuda(library, flush)
     timing = {"shape": label, "variant": variants, "kernel_ms": kernel_ms, "host_ms": host_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, **_bound(ents, key_in, g)}
+              "library_ms": library_ms, **_bound(ents, key_in, g, kw)}
     log("kernel_timing", iters=TIMED_ITERS, bound_divisor=f"{HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3 peak)", **timing)
     if not (kernel_ms <= library_ms):
         raise AssertionError(f"fused scan slower than its index_add_ yardstick at {label}: {timing}")
@@ -326,7 +361,7 @@ def _timed_shape(label, ents, key, g, kw, flush):
 
 
 def _timed_shapes(seed: int, dev):
-    """The 4 timed shapes, each held exactly against the plain version and
+    """The 5 timed shapes, each held exactly against the plain version and
     timed with CUDA events."""
     from pinot_tpu_torch.ops import fused_scan
 
@@ -384,7 +419,7 @@ def phase_kernel_profile(seed: int, dev, timings):
         log("kernel_profile", shape=label, scan_ms=timing["scan_ms"], iters=PROFILED_ITERS)
 
     generic = {}
-    for timing, (label, ents, key, g, kw) in zip(timings[:2], shapes[:2]):
+    for timing, (label, ents, key, g, kw) in zip(timings[1:3], shapes[1:3]):
         err = _max_abs_err(_generic_scan(ents, key, g, kw), fused_scan.fused_group_tables_reference(ents, key, g, **kw))
         if err != 0.0:
             raise AssertionError(f"the generic instantiation differs from the plain version at {label}: {err}")
@@ -396,7 +431,7 @@ def phase_kernel_profile(seed: int, dev, timings):
     # the main path's inputs, read in full (every revenue sector holds a
     # masked-in row), as one buffer of the same bytes: a float32 sum reads
     # it, a device copy reads and writes it
-    label, ents, key, g, kw = shapes[0]
+    label, ents, key, g, kw = shapes[1]
     key_in, _ = _key_input(ents, key, kw)
     nbytes = key_in.numel() * key_in.element_size() + sum(
         x.numel() * x.element_size() for x in [ents[0][2], *[v for _k, v, _m, _lp in ents if v is not None]])
@@ -445,7 +480,7 @@ def _compile_report():
 
 
 def _shapes(seed: int, dev):
-    """(label, entries, key, num_groups, kwargs) of the 4 timed shapes, on
+    """(label, entries, key, num_groups, kwargs) of the 5 timed shapes, on
     the card, made from the seed."""
     from pinot_tpu_torch.ops import segmented
 
@@ -476,7 +511,18 @@ def _shapes(seed: int, dev):
         ("int64_sum", col(rng.integers(-(2**39), 2**39, n).astype(np.int64)), col(rng.random(n) < 0.8), None),
         ("int_sum", col(rng.integers(100, 1_000_000, n).astype(np.int32)), col(rng.random(n) < 0.8), plan),
     ]
+    # the distributed main path's launch: 2^27 rows, the packed 16-bit key,
+    # the range-index words of lo_quantity < 25 (48% of rows) as mask_words,
+    # the all-true entry mask (no padding, one batch) and int32 revenue
+    n2 = 1 << 27
+    words2 = torch.from_numpy(_pack(rng.integers(0, g, n2).astype(np.int32), 16).view(np.int32)).to(dev)
+    qbits = np.packbits((rng.random(n2) < 0.48).reshape(-1, 32), axis=1, bitorder="little").view(np.int32)
+    ones2 = torch.ones(n2, dtype=torch.bool, device=dev)
+    rev2 = torch.from_numpy(rng.integers(100, 1_000_000, n2).astype(np.int32)).to(dev)
+    dist = [("count", None, ones2, None), ("int_sum", rev2, ones2, plan)]
     return [
+        ("dist main path: n=2^27 packed16 G=2406 E=2, mask_words, all-true mask", dist, None, g,
+         {"codes_packed": (words2, 16), "mask_words": torch.from_numpy(qbits.reshape(-1)).to(dev)}),
         ("main path: n=2^23 packed16 G=2406 E=2, shared mask", main, None, g, {"codes_packed": (words, 16)}),
         ("query (c): n=2^23 int32 key G=550 E=2, all-true mask", qc, kc, 550, {}),
         ("hot slots: n=2^23 int32 key G=8 E=2, shared mask", main, k8, 8, {}),
@@ -633,13 +679,14 @@ def phase_main_path(args, dev):
     return main_launches, main_variants
 
 
-def profile_query(engine, sql: str) -> dict:
-    """One warm run under torch.profiler: device time by kernel and the
-    device's busy share of the (profiled) wall time."""
+def _profile_once(engine, sql: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from pinot_tpu_torch.ops import fused_scan
+
     torch.cuda.synchronize()
+    before = fused_scan.LAUNCHES
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.query(sql)
@@ -654,15 +701,265 @@ def profile_query(engine, sql: str) -> dict:
             us = getattr(e, "self_cuda_time_total", 0.0)
         rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    if not rows:
-        return {"profiled_wall_ms": wall_ms, "device_busy_ms": "not measured"}
-    return {
+    out = {
         "profiled_wall_ms": wall_ms,
-        "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_busy_ms": sum(r[0] for r in rows) if rows else "not measured",
+        "scan_launches": {"made": fused_scan.LAUNCHES - before,
+                          "captured": sum(n for _ms, n, k in rows if "fused_scan_kernel" in k)},
         "top_device_ops": [{"ms": ms, "calls": n, "name": k[:90]} for ms, n, k in rows[:8]],
     }
+    if rows:
+        out["device_idle_share"] = 1.0 - out["device_busy_ms"] / wall_ms
+    return out
+
+
+def profile_query(engine, sql: str, sessions: int = 3) -> dict:
+    """Warm runs under torch.profiler, one session each: device time by
+    kernel and the device's busy share of the (profiled) wall time.  On the
+    card a session can lose device events (pageable host-to-device copies
+    most often; after the earlier phases kernels too), never invent them.
+    A session whose captured fused-scan launches fall short of the launches
+    the query made is incomplete; the complete session with the most device
+    time is reported, beside every session's.  With none complete, busy
+    and idle are "not measured" and the most device time seen is a lower
+    bound."""
+    runs = [_profile_once(engine, sql) for _ in range(sessions)]
+    busy = [r["device_busy_ms"] for r in runs]
+    measured = [r for r in runs if isinstance(r["device_busy_ms"], float)]
+    complete = [r for r in measured if r["scan_launches"]["captured"] >= r["scan_launches"]["made"]]
+    if complete:
+        best = max(complete, key=lambda r: r["device_busy_ms"])
+        return {**best, "device_busy_ms_of_sessions": busy}
+    best = max(measured, key=lambda r: r["device_busy_ms"]) if measured else runs[0]
+    return {**best, "device_busy_ms": "not measured", "device_idle_share": "not measured",
+            "device_busy_ms_lower_bound": best["device_busy_ms"], "device_busy_ms_of_sessions": busy}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the distributed engine's main path (bench.py main()) at full size
+# ---------------------------------------------------------------------------
+DIST_QUERIES = {
+    "a_bench": (
+        "SELECT lo_orderdate, SUM(lo_revenue) FROM lineorder "
+        "WHERE lo_quantity < 25 GROUP BY lo_orderdate LIMIT 2500"
+    ),
+    "b_filtered_agg": QUERY_B,
+    "c_min_max_groupby": (
+        "SELECT lo_discount, lo_quantity, COUNT(*), SUM(lo_revenue), MIN(lo_revenue), MAX(lo_revenue) "
+        "FROM lineorder WHERE lo_quantity < 25 GROUP BY lo_discount, lo_quantity "
+        "ORDER BY SUM(lo_revenue) DESC LIMIT 10"
+    ),
+    "d_sparse_groupby": (
+        "SET numGroupsLimit = 2000000; SELECT lo_orderdate, lo_quantity, lo_discount, SUM(lo_revenue), "
+        "COUNT(*) FROM lineorder WHERE lo_quantity < 25 GROUP BY lo_orderdate, lo_quantity, lo_discount "
+        "ORDER BY SUM(lo_revenue) DESC LIMIT 100"
+    ),
+}
+# bench.py's table size (N_ROWS = 2^27, about SSB scale factor 22), and the
+# launch budget that splits it into three launches (7.5 B a row packed)
+DIST_ROWS = 1 << 27
+DIST_THREE_BATCH_BYTES = 384 << 20
+
+
+def dist_golden(d):
+    """Exact numpy results of the four distributed queries.  Group sums use
+    np.bincount's float64 weights: every partial sum is an integer below
+    2^53 (at most ~2.8e10 a group here), so they are exact int64 values."""
+    od, q, disc, rev = d["lo_orderdate"] - 19920101, d["lo_quantity"], d["lo_discount"], d["lo_revenue"]
+    m = q < 25
+    odm, qm, dm, rm = od[m], q[m], disc[m], rev[m]
+    a_sum = np.bincount(odm, weights=rm, minlength=2406)
+    a_cnt = np.bincount(odm, minlength=2406)
+    rows_a = sorted((19920101 + int(i), float(a_sum[i])) for i in np.nonzero(a_cnt)[0])
+    mb = m & (disc >= 1) & (disc <= 3)
+    rows_b = [(float(rev[mb].sum()), int(mb.sum()))]
+    k = dm * 50 + (qm - 1)
+    order_k = np.argsort(k.astype(np.int16), kind="stable")  # radix sort: k < 550
+    ks, rs = k[order_k], rm[order_k]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    groups = ks[starts]
+    c_cnt = np.diff(np.r_[starts, len(ks)])
+    c_sum = np.add.reduceat(rs, starts)
+    c_min, c_max = np.minimum.reduceat(rs, starts), np.maximum.reduceat(rs, starts)
+    top = sorted(range(len(groups)), key=lambda i: -c_sum[i])[:10]
+    rows_c = [(int(groups[i] // 50), int(groups[i] % 50 + 1), int(c_cnt[i]), float(c_sum[i]), float(c_min[i]),
+               float(c_max[i])) for i in top]
+    key = odm.astype(np.int64) * 550 + (qm - 1) * 11 + dm
+    d_sum = np.bincount(key, weights=rm, minlength=2406 * 550)
+    d_cnt = np.bincount(key, minlength=2406 * 550)
+    live = np.nonzero(d_cnt)[0]
+    top_d = live[np.lexsort((live, -d_sum[live]))][:100]
+    rows_d = [(19920101 + int(i // 550), int(i // 11 % 50 + 1), int(i % 11), float(d_sum[i]), int(d_cnt[i]))
+              for i in top_d]
+    return {"a_bench": rows_a, "b_filtered_agg": rows_b, "c_min_max_groupby": rows_c,
+            "d_sparse_groupby": rows_d}, int(len(live))
+
+
+def _dist_counted_run(engine, stacked, golden_rows):
+    """The four queries once, with the counters set to 0 just before and
+    read just after; checks of the rows and of the route each took."""
+    from pinot_tpu_torch.ops import fused_scan, sparse_merge
+    from pinot_tpu_torch.sql.parser import parse_query
+
+    plans = {name: engine._plan(parse_query(sql), stacked) for name, sql in DIST_QUERIES.items()}
+    fused_scan.LAUNCHES = fused_scan.MASK_WORDS_LAUNCHES = sparse_merge.MERGES = 0
+    fused_scan.VARIANT_LAUNCHES.clear()
+    per_query, rows = {}, {}
+    for name, sql in DIST_QUERIES.items():
+        before = (fused_scan.LAUNCHES, fused_scan.MASK_WORDS_LAUNCHES, sparse_merge.MERGES,
+                  dict(fused_scan.VARIANT_LAUNCHES))
+        res = engine.query(sql)
+        rows[name] = res.rows
+        per_query[name] = {
+            "launches": fused_scan.LAUNCHES - before[0],
+            "mask_words_launches": fused_scan.MASK_WORDS_LAUNCHES - before[1],
+            "device_merges": sparse_merge.MERGES - before[2],
+            "instantiations": {k: v - before[3].get(k, 0) for k, v in fused_scan.VARIANT_LAUNCHES.items()
+                               if v != before[3].get(k, 0)},
+            "batches": len(plans[name].batch_offsets),
+            "kind": plans[name].kind,
+            "index_uses": list(res.stats.filter_index_uses),
+            "groups": res.stats.num_groups,
+        }
+    torch.cuda.synchronize()
+    launches, variants = fused_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES)
+
+    for name, want in golden_rows.items():
+        got = sorted(rows[name]) if name == "a_bench" else rows[name]
+        if got != want:
+            raise AssertionError(f"dist query {name} differs from the numpy golden: {got[:3]} vs {want[:3]}")
+    nb = len(plans["a_bench"].batch_offsets)
+    pa, pd = per_query["a_bench"], per_query["d_sparse_groupby"]
+    if not (plans["a_bench"].row_sharded_params and plans["a_bench"].word_fused):
+        raise AssertionError("query (a) did not take the word-fused route")
+    if pa["launches"] != nb or pa["mask_words_launches"] != nb or pa["instantiations"] != {"p16/i32/shared": nb}:
+        raise AssertionError(f"query (a) did not launch the fused scan once a batch with mask_words: {pa}")
+    if plans["c_min_max_groupby"].word_fused or per_query["c_min_max_groupby"]["launches"] != nb:
+        raise AssertionError(f"query (c) did not take the unpacked-words route: {per_query['c_min_max_groupby']}")
+    if pd["kind"] != "groupby_sparse" or pd["device_merges"] != 1:
+        raise AssertionError(f"query (d) did not run the device sparse merge: {pd}")
+    return launches, variants, per_query, rows
+
+
+def _dist_host_costs(engine, stacked, dev):
+    """Host ms of the range-index words of query (a) (prefix[hi] &
+    ~prefix[lo] over the flat doc space), of one plan (a plan-cache hit,
+    words included), and of the words' per-batch slice and pageable copy
+    to the card; medians of 5."""
+    from pinot_tpu_torch.query import executor
+    from pinot_tpu_torch.sql.parser import parse_query
+
+    idx = stacked.indexes["range"]["lo_quantity"]
+    hi = int(np.searchsorted(stacked.column("lo_quantity").dictionary.values, 25, side="left"))
+
+    def med(fn):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    ctx = parse_query(DIST_QUERIES["a_bench"])
+    plan = engine._plan(ctx, stacked)
+    (key,) = plan.row_sharded_params
+    off, fresh = plan.batch_offsets[0]
+    host = engine.batch_params(plan, off, fresh)[key]
+    return {
+        "words_host_ms": med(lambda: idx.range_bitmap(0, hi)),
+        "plan_ms": med(lambda: engine._plan(ctx, stacked)),
+        "slice_ms": med(lambda: engine.batch_params(plan, off, fresh)),
+        "copy_ms": med(lambda: executor._param_tensor(host, dev)),
+        "words_bytes_per_batch": int(host.nbytes),
+    }
+
+
+def phase_dist_main_path(args, dev):
+    """StackedTable.build over 2^27 rows, DistributedEngine() at one launch
+    and at three; exact against numpy; the literal sweep; wall times, then
+    the profile."""
+    from pinot_tpu_torch.parallel.engine import DistributedEngine
+    from pinot_tpu_torch.parallel.stacked import StackedTable
+    from pinot_tpu_torch.spi.config import IndexingConfig, TableConfig
+    from pinot_tpu_torch.spi.schema import DataType, FieldRole, FieldSpec, Schema
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed)
+    n = DIST_ROWS
+    data = {
+        "lo_orderdate": (19920101 + rng.integers(0, 2406, n)).astype(np.int32),
+        "lo_quantity": rng.integers(1, 51, n).astype(np.int32),
+        "lo_discount": rng.integers(0, 11, n).astype(np.int32),
+        "lo_revenue": rng.integers(100, 1_000_000, n).astype(np.int64),
+    }
+    schema = Schema("lineorder", [
+        FieldSpec("lo_orderdate", DataType.INT),
+        FieldSpec("lo_quantity", DataType.INT),
+        FieldSpec("lo_discount", DataType.INT),
+        FieldSpec("lo_revenue", DataType.LONG, role=FieldRole.METRIC),
+    ])
+    cfg = TableConfig("lineorder", indexing=IndexingConfig(range_index_columns=["lo_quantity"]))
+    t1 = time.perf_counter()
+    stacked = StackedTable.build(schema, data, num_shards=1, table_config=cfg)
+    build_s = time.perf_counter() - t1
+    want, live_groups = dist_golden(data)
+    del data
+    engines = {"one_batch": DistributedEngine(),
+               "three_batches": DistributedEngine(launch_bytes=DIST_THREE_BATCH_BYTES)}
+    for e in engines.values():
+        e.register_table("lineorder", stacked)
+    log("dist_setup", rows=n, docs_per_shard=stacked.docs_per_shard, build_s=build_s,
+        setup_s=time.perf_counter() - t0, sparse_live_groups=live_groups)
+
+    launches, variants, checks, rows = 0, {}, {}, {}
+    for label, e in engines.items():
+        nl, nv, per_query, rows[label] = _dist_counted_run(e, stacked, want)
+        launches += nl
+        for k, v in nv.items():
+            variants[k] = variants.get(k, 0) + v
+        checks[label] = per_query
+    if rows["one_batch"] != rows["three_batches"]:
+        raise AssertionError("the three-launch rows differ from the one-launch rows")
+    nb3 = checks["three_batches"]["a_bench"]["batches"]
+    if checks["one_batch"]["a_bench"]["batches"] != 1 or nb3 != 3:
+        raise AssertionError(f"batches: {checks['one_batch']['a_bench']['batches']} and {nb3}, want 1 and 3")
+    log("dist_check", exact=True, launches=launches, instantiations=variants, per_query=checks)
+
+    # the literal sweep of bench.py: one plan, 19 cache hits
+    sweep = DistributedEngine()
+    sweep.register_table("lineorder", stacked)
+    for i in range(20):
+        sweep.query("SELECT lo_orderdate, SUM(lo_revenue) FROM lineorder "
+                    f"WHERE lo_quantity < {5 + (i % 40)} GROUP BY lo_orderdate LIMIT 2500")
+    if (sweep.plan_misses, sweep.plan_hits) != (1, 19):
+        raise AssertionError(f"literal sweep planned {sweep.plan_misses} times ({sweep.plan_hits} hits)")
+    log("dist_sweep", queries=20, plan_misses=sweep.plan_misses, plan_hits=sweep.plan_hits)
+
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    for label, e in engines.items():
+        for name, sql in DIST_QUERIES.items():
+            ms = []
+            for _ in range(5):
+                s = time.perf_counter()
+                e.query(sql)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - s) * 1e3)
+            med = statistics.median(ms)
+            timings[f"{label}/{name}"] = {"median_ms": med, "rows_per_s": n / (med / 1e3), "runs_ms": ms}
+    log("dist_timing", rows=n, max_memory_allocated=torch.cuda.max_memory_allocated(), **timings)
+    log("dist_host_costs", **_dist_host_costs(engines["one_batch"], stacked, dev))
+    profiles = {}
+    for label, e in engines.items():
+        for name, sql in DIST_QUERIES.items():
+            profiles[f"{label}/{name}"] = profile_query(e, sql)
+            log("dist_profile", engine=label, query=name, **profiles[f"{label}/{name}"])
+    stacked.release_device()
+    del engines, sweep
+    torch.cuda.empty_cache()
+    return launches, variants
 
 
 def main() -> int:
@@ -696,10 +993,15 @@ def main() -> int:
     worst = phase_kernels(np.random.default_rng(args.seed), dev)
     shape_worst, timings = _timed_shapes(args.seed + 1, dev)
     worst = max(worst, shape_worst)
-    timing = timings[0]  # the main path's shape
+    timing = timings[0]  # the distributed main path's shape
+    seg_timing = timings[1]  # the segment main path's shape (the single numbers up to slice 2)
 
-    # 4. main path
-    main_launches, main_variants = phase_main_path(args, dev)
+    # 4. main paths: the segment engine's, then the distributed engine's
+    sse_launches, main_variants = phase_main_path(args, dev)
+    dist_launches, dist_variants = phase_dist_main_path(args, dev)
+    for k, v in dist_variants.items():
+        main_variants[k] = main_variants.get(k, 0) + v
+    main_launches = sse_launches + dist_launches
 
     # 5. profile
     generic, flush_check = phase_kernel_profile(args.seed + 1, dev, timings)
@@ -714,7 +1016,9 @@ def main() -> int:
         "exact": worst == 0.0,
         "launches": main_launches,
         "launches_on_main_path": main_launches,
+        "launches_by_path": {"segment_engine": sse_launches, "distributed_engine": dist_launches},
         "max_abs_err": worst,
+        "shape": timing["shape"],
         "ms": timing["kernel_ms"],
         "kernel_ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
@@ -722,6 +1026,8 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "scan_ms": timing["scan_ms"],
+        "segment_path_shape": {k: seg_timing[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
         "instantiations_on_main_path": main_variants,
         "shapes": timings,
         "specialised_vs_generic": generic,

@@ -28,7 +28,8 @@ straight into the global table.  The int64 tables convert to f64 here.
 signature (an int64 ``index_add_`` per entry).  ``fused_group_tables`` takes
 it only for tensors on the CPU; on a CUDA tensor it launches the kernel or
 raises.  ``LAUNCHES`` counts kernel launches and nothing else;
-``VARIANT_LAUNCHES`` splits them by instantiation.
+``VARIANT_LAUNCHES`` splits them by instantiation and
+``MASK_WORDS_LAUNCHES`` counts those that read packed filter words.
 """
 from __future__ import annotations
 
@@ -60,9 +61,11 @@ SPECIALISED = (("p16", "i32"), ("i32", "i32"))
 INSTANTIATIONS = tuple(f"{k}/{v}/shared" for k, v in SPECIALISED) + ("any/any/shared", "any/any/global")
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it),
-# in all and by instantiation ("<key mode>/<value mode>/<shared|global>")
+# in all, by instantiation ("<key mode>/<value mode>/<shared|global>") and
+# those that read the filter as packed bitmap words (mask_words)
 LAUNCHES = 0
 VARIANT_LAUNCHES: Dict[str, int] = {}
+MASK_WORDS_LAUNCHES = 0
 
 _INT_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.uint16, torch.int32, torch.uint32, torch.int64)
 # ElemType codes of csrc/fused_scan.cu
@@ -403,7 +406,7 @@ def _smem_optin(lib, index: int) -> int:
 
 
 def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> List[torch.Tensor]:
-    global LAUNCHES
+    global LAUNCHES, MASK_WORDS_LAUNCHES
     lib = _library()
     device = key_t.device
     out = torch.zeros((len(entries), num_groups), dtype=torch.int64, device=device)
@@ -419,6 +422,7 @@ def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> L
         raise RuntimeError(f"fused scan launch failed: {lib.pinot_cuda_error_string(err).decode()}")
     LAUNCHES += 1
     VARIANT_LAUNCHES[variant] = VARIANT_LAUNCHES.get(variant, 0) + 1
+    MASK_WORDS_LAUNCHES += mask_words is not None
     rows = out.to(torch.float64).unbind(0)
     tables: List[Optional[torch.Tensor]] = [None] * len(entries)
     for j, i in enumerate(order):

@@ -1,0 +1,545 @@
+"""Distributed query engine at one device: macro-batched launches over a
+StackedTable.
+
+Port of pinot_tpu/parallel/engine.py's DistributedEngine for one card.  A
+query plans ONCE over the whole stacked table (plan cache keyed by the
+query's shape fingerprint, the table's signature, the batch width and the
+backend tag "cuda" | "torch"), and its closure runs once per macro-batch:
+each launch covers doc columns [off, off + batch_docs) of the [S, D] column
+arrays.  The JAX package's in-graph psum over the device mesh is the
+identity at one device; the per-launch partials combine on the device
+(dense and scalar tables add / min / max, sparse tables through
+ops.sparse_merge.merge_sparse_tables), and one copy brings the result home.
+
+The range-index words of a filter that is one plain bitmap go straight to
+the fused scan (`mask_words`, the word-fused path): no row mask is unpacked.
+Up to `pipeline_depth` launches are in flight before the first drain, which
+waits on that launch's completion event, not on the whole stream.
+
+Not ported in this slice, each raising NotImplementedError naming its
+ROADMAP Queue 1 item: selection queries (item 2), residency tiering and
+prefetch (item 3), cross-query batching `execute_many` (item 6), joins
+(item 8).  Sketch bindings are slice 4, with the sketches.
+"""
+from __future__ import annotations
+
+import itertools
+import os
+import time
+from dataclasses import dataclass
+from types import SimpleNamespace
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pinot_tpu_torch.device import DeviceLike, resolve_device
+from pinot_tpu_torch.ops.sparse_merge import merge_sparse_tables
+from pinot_tpu_torch.query import executor, planner
+from pinot_tpu_torch.query import reduce as reduce_mod
+from pinot_tpu_torch.query.filter import FilterCompiler
+from pinot_tpu_torch.query.functions import FIELD_COMBINE, combine_field
+from pinot_tpu_torch.query.ir import QueryContext
+from pinot_tpu_torch.query.planner import GroupDim
+from pinot_tpu_torch.query.result import (
+    AggSegmentResult,
+    DenseGroupData,
+    ExecutionStats,
+    GroupBySegmentResult,
+    ResultTable,
+)
+from pinot_tpu_torch.query.shape import column_info_from, params_structure
+
+
+# the launch schedule's params: a launch's first doc column, and its first
+# column not covered by an earlier launch
+_SCHEDULE_PARAMS = ("__boff__", "__fresh__")
+
+
+def flatten_cols(cols):
+    """[S, D] shard-local row tensors -> flat [S * D] views."""
+    out = {}
+    for name, entry in cols.items():
+        out[name] = {
+            k: (v.reshape(-1) if k in ("codes", "codes_packed", "values", "nulls") else v)
+            for k, v in entry.items()
+        }
+    return out
+
+
+class _ShardView:
+    """Plan-time facade over a StackedTable for the FilterCompiler and the
+    planner helpers: they read metadata (dictionaries, nulls, dtypes, stats)
+    and num_docs, here the flat row count of ONE launch (local shards x
+    batch docs).  `docs_fn` gives the global flat doc ids of a launch's rows
+    and `bitmap_layout` the full-words shape [ndev, L, D // 32] of index
+    bitmap params (query/filter.py)."""
+
+    def __init__(
+        self,
+        stacked,
+        local_rows: int,
+        docs_fn: Optional[Callable] = None,
+        bitmap_layout: Optional[Tuple[int, int, int]] = None,
+    ):
+        self._stacked = stacked
+        self.num_docs = local_rows
+        self.schema = stacked.schema
+        self.total_docs = stacked.num_docs
+        self.indexes = stacked.indexes
+        self.docs_fn = docs_fn
+        self.bitmap_layout = bitmap_layout
+
+    def column(self, name: str):
+        return self._stacked.column(name)
+
+
+@dataclass
+class _DistPlan:
+    kind: str  # aggregation | groupby_dense | groupby_sparse
+    fn: Callable  # fn(cols, params, dev) -> one launch's outputs
+    params: Dict[str, Any]
+    needed_columns: List[str]
+    aggs: List[Any]
+    group_dims: List[GroupDim]
+    num_groups: int
+    # param keys sliced on the doc axis per launch (index bitmap words)
+    row_sharded_params: frozenset = frozenset()
+    # (column, index kind) per index-accelerated filter predicate
+    index_uses: Tuple = ()
+    # macro-batch launch schedule: each launch covers doc columns [off,
+    # off + batch_docs) of the [S, D] arrays; `fresh` is the first not yet
+    # covered column within the batch (tail overlap masking)
+    batch_docs: int = 0
+    batch_offsets: Tuple[Tuple[int, int], ...] = ((0, 0),)
+    # device-side cross-launch merge of the sparse path; None merges on the host
+    sparse_merge_fn: Optional[Callable] = None
+    # the filter's words go straight to the fused scan (mask_words)
+    word_fused: bool = False
+
+
+class DistributedEngine:
+    """Executes queries over StackedTables on one device.
+
+    device: None means CUDA and raises without it; "cpu" runs the plain
+    PyTorch path.  launch_bytes: the bytes of table one launch may cover
+    (macro-batching threshold, default PINOT_TPU_LAUNCH_BYTES or 2 GiB).
+    pipeline_depth: launches in flight before the first drain (default 2)."""
+
+    def __init__(
+        self,
+        device: DeviceLike = None,
+        launch_bytes: Optional[int] = None,
+        pipeline_depth: int = 2,
+        hbm_cache_bytes: Optional[int] = None,
+        residency=None,
+    ):
+        if hbm_cache_bytes is not None or residency is not None:
+            raise NotImplementedError(
+                "residency tiering (hbm_cache_bytes, residency) is a later slice of the port "
+                "(ROADMAP Queue 1 item 3)"
+            )
+        self.device = resolve_device(device)
+        self.tables: Dict[str, Any] = {}
+        self._plan_cache = planner._PlanCache()
+        # plan-cache misses (plans built) and hits since construction
+        self.plan_misses = 0
+        self.plan_hits = 0
+        self.launch_bytes = (
+            launch_bytes if launch_bytes is not None
+            else int(os.environ.get("PINOT_TPU_LAUNCH_BYTES", str(2 << 30)))
+        )
+        self.pipeline_depth = int(pipeline_depth)
+        self._qid_seq = itertools.count(1)
+
+    @property
+    def num_devices(self) -> int:
+        return 1
+
+    def register_table(self, name: str, stacked) -> None:
+        self.tables[name] = stacked
+
+    # ------------------------------------------------------------------
+    def query(self, sql: str) -> ResultTable:
+        from pinot_tpu_torch.sql.parser import parse_query
+
+        return self.execute(parse_query(sql))
+
+    def execute(self, ctx: QueryContext) -> ResultTable:
+        if ctx.joins:
+            raise NotImplementedError(
+                "joins (the multi-stage engine) are a later slice of the port (ROADMAP Queue 1 item 8)"
+            )
+        if ctx.set_ops or ctx.gapfill is not None:
+            raise NotImplementedError("set operations and gap-filling are later slices of the port")
+        t0 = time.perf_counter()
+        if ctx.table not in self.tables:
+            raise KeyError(f"table {ctx.table!r} not registered (have {list(self.tables)})")
+        stacked = self.tables[ctx.table]
+        stats = ExecutionStats(
+            num_segments_queried=stacked.num_shards,
+            num_segments_processed=stacked.num_shards,
+            num_docs_scanned=stacked.num_docs,
+            total_docs=stacked.num_docs,
+        )
+        misses = self.plan_misses
+        plan = self._plan(ctx, stacked)
+        if self.plan_misses != misses:
+            stats.compile_ms = (time.perf_counter() - t0) * 1000.0
+        stats.add_index_uses(plan.index_uses)
+        result = self._run(ctx, plan, stacked, stats)
+        out = reduce_mod.reduce_results(ctx, [result], stats)
+        out.stats.time_ms = (time.perf_counter() - t0) * 1000
+        out.stats.query_id = f"dist_{next(self._qid_seq)}"
+        return out
+
+    def execute_many(self, ctxs: List[QueryContext]) -> List[ResultTable]:
+        raise NotImplementedError("cross-query batching is a later slice of the port (ROADMAP Queue 1 item 6)")
+
+    # ------------------------------------------------------------------
+    def _plan(self, ctx: QueryContext, stacked) -> _DistPlan:
+        batch_docs, batch_offsets = self._batching(ctx, stacked)
+        # keyed on the SHAPE fingerprint: predicate literals are parameter
+        # slots, so distinct-literal variants of one query share the entry
+        # and only rebind params
+        key = (
+            ctx.shape_fingerprint(column_info_from(stacked)),
+            stacked.signature(), self.num_devices, batch_docs,
+            planner.backend_tag(self.device),
+        )
+        cached = self._plan_cache.get(key)
+        if cached is not None:
+            plan = self._build_plan(ctx, stacked, batch_docs, batch_offsets, cached=cached)
+            if (
+                params_structure(plan.params) == params_structure(cached.params)
+                and plan.row_sharded_params == cached.row_sharded_params
+            ):
+                self.plan_hits += 1
+                return plan
+        self.plan_misses += 1
+        plan = self._build_plan(ctx, stacked, batch_docs, batch_offsets)
+        self._plan_cache.put(key, plan)
+        return plan
+
+    def _batching(self, ctx: QueryContext, stacked) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
+        """Macro-batch launch schedule, the JAX package's arithmetic: the
+        doc axis splits into enough 32-aligned windows that one launch
+        covers at most launch_bytes of the table; a ragged tail re-launches
+        the last full-width window with the already covered rows masked via
+        the `fresh` offset."""
+        D = stacked.docs_per_shard
+        L = stacked.num_shards // self.num_devices
+        # bytes per doc over the WHOLE table (not the query's columns): every
+        # query shares one doc slicing, so no column is cached twice
+        bytes_per_doc = 0.0
+        for c in stacked.columns.values():
+            if c.codes is not None:
+                bytes_per_doc += c.code_bits / 8.0 if c.code_bits and c.packed is not None else c.codes.dtype.itemsize
+            if c.values is not None:
+                bytes_per_doc += c.values.dtype.itemsize
+            if c.nulls is not None:
+                bytes_per_doc += 1
+        per_dev = int(max(1.0, bytes_per_doc) * L * D)
+        n_batches = max(1, -(-per_dev // self.launch_bytes))
+        if n_batches == 1 or D < 64:
+            return D, ((0, 0),)
+        batch_docs = min(D, -(-(-(-D // n_batches)) // 32) * 32)
+        offsets = []
+        off = 0
+        while off + batch_docs <= D:
+            offsets.append((off, 0))
+            off += batch_docs
+        if off < D:
+            tail = D - batch_docs
+            offsets.append((tail, off - tail))
+        return batch_docs, tuple(offsets)
+
+    def _build_plan(
+        self,
+        ctx: QueryContext,
+        stacked,
+        batch_docs: int,
+        batch_offsets: Tuple[Tuple[int, int], ...],
+        cached: Optional[_DistPlan] = None,
+    ) -> _DistPlan:
+        """Plan one query over the stacked table.  With `cached` (a plan
+        cache hit) only the params and metadata are rebuilt; the closure and
+        the merge function are the cached plan's."""
+        if not ctx.is_aggregate:
+            raise NotImplementedError(
+                "selection queries on the distributed engine are a later slice of the port "
+                "(ROADMAP Queue 1 item 2)"
+            )
+        planner._refuse_later_slices(ctx)
+        ndev = self.num_devices
+        L = stacked.num_shards // ndev
+        D_full = stacked.docs_per_shard
+        Db = batch_docs
+        local_rows = L * Db
+        has_padding = stacked.num_docs < stacked.num_shards * D_full
+        backend = planner.backend_tag(self.device)
+        assert D_full % 32 == 0, "docs_per_shard must be 32-aligned (StackedTable.build)"
+
+        def docs_fn(params, dev):
+            """Global flat doc ids of this launch's rows."""
+            return (
+                params["__boff__"]
+                + torch.arange(L, dtype=torch.int32, device=dev)[:, None] * D_full
+                + torch.arange(Db, dtype=torch.int32, device=dev)[None, :]
+            ).reshape(-1)
+
+        def _valid_mask(params, dev):
+            """Padding rows and the tail window's already covered columns
+            masked off; None when the launch has neither."""
+            m = None
+            if has_padding:
+                m = docs_fn(params, dev) < stacked.num_docs
+            fresh = params["__fresh__"]
+            if fresh:
+                f = torch.ones(Db, dtype=torch.bool, device=dev)
+                f[:fresh] = False
+                f = f.repeat(L)
+                m = f if m is None else m & f
+            return m
+
+        view = _ShardView(stacked, local_rows, docs_fn=docs_fn, bitmap_layout=(ndev, L, D_full // 32))
+        fc = FilterCompiler(view, ctx.null_handling)
+        filter_fn = fc.compile(ctx.filter)
+        # set when the WHOLE filter is one plain index bitmap
+        word_key = fc.sole_bitmap_param
+        agg_specs = list(ctx.aggregations)
+        aggs = planner.bind_aggs(agg_specs, stacked, ctx)
+
+        kind, group_dims, num_groups = planner.plan_groups(ctx, view, aggs)
+        needed = planner._needed_columns(ctx, stacked)
+        packed_meta = planner.packed_code_bits(stacked, needed)
+
+        def _flat(cols):
+            return planner.overlay_unpacked(flatten_cols(cols), packed_meta, local_rows)
+
+        _agg_inputs = planner.make_agg_inputs(agg_specs, aggs, view, ctx.null_handling)
+
+        def _filtered(cols, params, dev):
+            """The filter's row mask, padding and covered tail rows off."""
+            tmask, _ = filter_fn(cols, params, dev)
+            vm = _valid_mask(params, dev)
+            return tmask if vm is None else tmask & vm
+
+        sparse_merge_fn = None
+        word_fused = False
+
+        if kind == "aggregation":
+
+            def kernel(cols, params, dev):
+                cols = _flat(cols)
+                tmask = _filtered(cols, params, dev)
+                return [fn.partial(v, m) for fn, (v, m) in zip(aggs, _agg_inputs(cols, tmask))]
+
+        elif kind == "groupby_dense":
+            vranges = planner.agg_vranges(agg_specs, stacked)
+            # word fusion: the whole filter is one plain index bitmap and
+            # every field is one the fused scan makes (count/sum/sumsq), so
+            # the packed words go straight to the scan
+            word_fused = word_key is not None and planner.words_fusable(aggs)
+
+            def kernel(cols, params, dev):
+                cols = _flat(cols)
+                if word_fused:
+                    vm = _valid_mask(params, dev)
+                    tmask = vm if vm is not None else torch.ones(local_rows, dtype=torch.bool, device=dev)
+                    words = params[word_key].reshape(-1)
+                else:
+                    tmask = _filtered(cols, params, dev)
+                    words = None
+                return planner.grouped_partials(
+                    aggs, _agg_inputs(cols, tmask), tmask, planner.lazy_group_key(cols, group_dims), num_groups,
+                    vranges, backend=backend, mask_words=words,
+                    key_packed=planner.key_packed(cols, group_dims, packed_meta, local_rows, backend),
+                )
+
+        else:  # groupby_sparse
+            # per-launch sort + scatter into fixed [num_slots] tables; only
+            # tables, never row-length arrays, outlive a launch.  Each launch
+            # keeps its local top num_slots groups by the ORDER BY comparator
+            tables, num_slots, order_spec = planner.sparse_tables_fn(ctx, aggs, group_dims, num_groups, _agg_inputs)
+
+            def kernel(cols, params, dev):
+                cols = _flat(cols)
+                return tables(cols, _filtered(cols, params, dev))
+
+            # device merge across launches when every aggregation merges
+            # field-wise and any ORDER BY-aware trim is expressible on the
+            # device (kernel_order_spec); otherwise the host merge remains
+            merge_ok = all(not getattr(fn, "pairwise_merge", False) for fn in aggs)
+            morder = None
+            if merge_ok and planner.order_by_agg_index(ctx) is not None:
+                if order_spec is None:
+                    merge_ok = False  # the host ranks by fn.final
+                else:
+                    morder = order_spec  # (agg index, order FIELD name, asc)
+            if merge_ok:
+                field_ops = [{f: FIELD_COMBINE[f] for f in fn.field_kinds} for fn in aggs]
+
+                def _merge(uniq_list, parts_list):
+                    uniq = torch.cat([u.reshape(-1) for u in uniq_list])
+                    parts = [
+                        {f: torch.cat([p[i][f].reshape(-1) for p in parts_list]) for f in field_ops[i]}
+                        for i in range(len(field_ops))
+                    ]
+                    return merge_sparse_tables(uniq, parts, num_slots, field_ops, order_spec=morder)
+
+                sparse_merge_fn = cached.sparse_merge_fn if cached is not None else _merge
+
+        # launch-schedule params: batch doc offset and fresh floor, always
+        # present so every launch shares one params structure; they stay
+        # host ints at launch (the closure branches on them, eagerly)
+        fc.params["__boff__"] = np.int32(0)
+        fc.params["__fresh__"] = np.int32(0)
+        # index-resolved filter columns never ship to the device
+        keep = planner._non_filter_columns(ctx, view) | fc.used_columns
+        return _DistPlan(
+            kind=kind,
+            fn=cached.fn if cached is not None else kernel,
+            params=fc.params,
+            needed_columns=[c for c in needed if c in keep],
+            aggs=aggs,
+            group_dims=group_dims,
+            num_groups=num_groups,
+            row_sharded_params=frozenset(fc.row_sharded_params),
+            index_uses=tuple(fc.index_uses),
+            batch_docs=batch_docs,
+            batch_offsets=tuple(batch_offsets),
+            sparse_merge_fn=sparse_merge_fn,
+            word_fused=word_fused,
+        )
+
+    # ------------------------------------------------------------------
+    def batch_params(self, plan: _DistPlan, off: int, fresh: int) -> Dict[str, Any]:
+        """Host params of the launch covering docs [off, off + batch_docs):
+        schedule scalars set, row-sharded bitmap words sliced on the doc axis."""
+        p = dict(plan.params)
+        p["__boff__"] = np.int32(off)
+        p["__fresh__"] = np.int32(fresh)
+        wlo, whi = off // 32, (off + plan.batch_docs) // 32
+        for k in plan.row_sharded_params:
+            w = plan.params[k]  # [ndev, L, D // 32]
+            p[k] = np.ascontiguousarray(w[:, :, wlo:whi]).reshape(w.shape[0], -1)
+        return p
+
+    def _shared_params(self, plan: _DistPlan) -> Dict[str, torch.Tensor]:
+        """Batch-invariant params, on the device once per query."""
+        return {
+            k: executor._param_tensor(v, self.device)
+            for k, v in plan.params.items()
+            if k not in plan.row_sharded_params and k not in _SCHEDULE_PARAMS
+        }
+
+    def _stage_batch(self, plan: _DistPlan, stacked, j: int, shared) -> Tuple[Dict, Dict]:
+        """Macro-batch j's device inputs: the table's doc slice (cached on
+        the table) and this launch's params."""
+        off, fresh = plan.batch_offsets[j]
+        cols, _ = stacked.to_device(
+            self.device, plan.needed_columns, doc_slice=(off, off + plan.batch_docs),
+            with_valid=False, packed_codes=True,
+        )
+        params = dict(shared)
+        for k, v in self.batch_params(plan, off, fresh).items():
+            if k in _SCHEDULE_PARAMS:
+                params[k] = int(v)
+            elif k not in shared:
+                params[k] = executor._param_tensor(v, self.device)
+        return cols, params
+
+    def device_batches(self, plan: _DistPlan, stacked) -> List[Tuple[Dict, Dict]]:
+        """Device-placed (cols, params) of every macro-batch launch.  A copy
+        from host memory waits for the device, so _run stages every batch
+        before its first launch, keeping copies out of the launch loop."""
+        shared = self._shared_params(plan)
+        return [self._stage_batch(plan, stacked, j, shared) for j in range(len(plan.batch_offsets))]
+
+    @staticmethod
+    def _combine_partials(parts_list):
+        """Fold per-launch partials (a list over launches of per-agg field
+        dicts) with the add / min / max semantics of their field names."""
+        out = parts_list[0]
+        for nxt in parts_list[1:]:
+            out = [{f: combine_field(f, p[f], q[f]) for f in p} for p, q in zip(out, nxt)]
+        return out
+
+    def _completion(self):
+        """A marker of the work queued so far on the device, or None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    @staticmethod
+    def _drain(pending) -> Any:
+        """Completion fence for one in-flight launch: waits for that launch's
+        own completion event (not the whole stream); its outputs stay on the
+        device for the combine."""
+        out, ev = pending
+        if ev is not None:
+            ev.synchronize()
+        return out
+
+    def _run(self, ctx, plan: _DistPlan, stacked, stats: ExecutionStats):
+        dev = self.device
+        depth = max(1, int(self.pipeline_depth))
+        batches = self.device_batches(plan, stacked)
+        batch_outs: List[Any] = []
+        pending: List[Any] = []
+        tl0 = time.perf_counter()
+        for cols, params in batches:
+            pending.append((plan.fn(cols, params, dev), self._completion()))
+            if len(pending) >= depth:
+                batch_outs.append(self._drain(pending.pop(0)))
+        while pending:
+            batch_outs.append(self._drain(pending.pop(0)))
+        stats.device_ms += (time.perf_counter() - tl0) * 1000.0
+
+        if plan.kind == "aggregation":
+            return AggSegmentResult(partials=list(executor._to_host(self._combine_partials(batch_outs))))
+
+        if plan.kind == "groupby_dense":
+            presence = batch_outs[0][0]
+            for p, _ in batch_outs[1:]:
+                presence = presence + p
+            presence, partials = executor._to_host((presence, self._combine_partials([p for _, p in batch_outs])))
+            shim = SimpleNamespace(group_dims=plan.group_dims, aggs=plan.aggs)
+            dense = DenseGroupData(
+                presence=presence, partials=partials, key_space=executor._key_space_id(shim),
+                group_dims=plan.group_dims,
+            )
+            keys, sliced = executor._dense_to_present(
+                shim, presence, partials, ctx.num_groups_limit,
+                order_trim=planner.order_by_agg_index(ctx),
+            )
+            stats.num_groups = len(keys[0]) if keys else 0
+            return GroupBySegmentResult(keys=keys, partials=sliced, dense=dense)
+
+        # groupby_sparse
+        if plan.sparse_merge_fn is not None:
+            # device merge: only the final [num_slots] tables come home
+            uniq, partials = executor._to_host(
+                plan.sparse_merge_fn([u for u, _ in batch_outs], [p for _, p in batch_outs])
+            )
+            res = executor.sparse_tables_to_result(
+                plan.group_dims, plan.aggs, uniq, partials, ctx.num_groups_limit,
+                order_trim=None, assume_unique=True,
+            )
+        else:
+            # host merge: launches concatenate and duplicate keys fold
+            host = executor._to_host(batch_outs)
+            uniq = np.concatenate([u.reshape(-1) for u, _ in host])
+            partials = [
+                {f: np.concatenate([p[i][f] for _, p in host]) for f in host[0][1][i]}
+                for i in range(len(host[0][1]))
+            ]
+            res = executor.sparse_tables_to_result(
+                plan.group_dims, plan.aggs, uniq, partials, ctx.num_groups_limit,
+                order_trim=planner.order_by_agg_index(ctx),
+            )
+        stats.num_groups = len(res.keys[0]) if res.keys else 0
+        return res

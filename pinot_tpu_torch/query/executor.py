@@ -8,7 +8,9 @@ metadata, then per-segment plan execution.
 device and runs the planned closure; on CUDA its work is queued on the
 current stream and the call returns before the device finishes.
 ``collect_segment`` moves the outputs to the host (``.cpu()``, which waits
-for the device) and decodes them: dense group table -> present keys.
+for the device) and decodes them: dense group table -> present keys, sparse
+fixed-slot tables -> merged keys (``sparse_tables_to_result``, which the
+distributed engine shares).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.query import planner
+from pinot_tpu_torch.query.functions import combine_field
 from pinot_tpu_torch.query.ir import FilterNode, FilterOp, PredicateType, QueryContext
 from pinot_tpu_torch.query.result import (
     AggSegmentResult,
@@ -127,6 +130,14 @@ def collect_segment(state):
     host = _to_host(out)
     if plan.kind == "aggregation":
         return AggSegmentResult(partials=list(host)), stats
+    if plan.kind == "groupby_sparse":
+        uniq, partials = host
+        res = sparse_tables_to_result(
+            plan.group_dims, plan.aggs, uniq, partials, ctx.num_groups_limit,
+            order_trim=planner.order_by_agg_index(ctx),
+        )
+        stats.num_groups = len(res.keys[0]) if res.keys else 0
+        return res, stats
     presence, partials = host
     dense = DenseGroupData(
         presence=presence,
@@ -191,3 +202,77 @@ def _dense_to_present(
     keys = planner.decode_packed_keys(plan.group_dims, present)
     sliced = [{f: np.asarray(arr)[present] for f, arr in p.items()} for p in partials]
     return keys, sliced
+
+
+def sparse_tables_to_result(
+    group_dims, aggs, uniq, partials, num_groups_limit: int,
+    order_trim: Optional[Tuple[int, bool]] = None,
+    assume_unique: bool = False,
+) -> GroupBySegmentResult:
+    """Decode fixed-size sparse group tables (planner.sparse_grouped_tables)
+    into a GroupBySegmentResult, merging slots that share a key.
+
+    Takes one kernel's [K] tables (keys already unique) or the
+    concatenation of several launches' tables, where one key may appear in
+    several (the IndexedTable merge of the reference's CombineOperator).
+    Only table-sized arrays are touched.
+
+    assume_unique: the caller merged duplicate keys already (the device
+    merge, ops.sparse_merge.merge_sparse_tables): keys are unique and
+    ascending and any order-aware trim is applied; this drops the empty
+    padding slots and decodes."""
+    uniq = np.asarray(uniq).reshape(-1)
+    present = uniq != planner.SPARSE_EMPTY_KEY
+    if assume_unique:
+        u = uniq[present]
+        if len(u) > num_groups_limit:  # defensive: the device merge trims already
+            present = present & (np.cumsum(present) <= num_groups_limit)
+            u = u[:num_groups_limit]
+        out = [{f: np.asarray(arr)[present] for f, arr in p.items()} for p in partials]
+        return GroupBySegmentResult(keys=planner.decode_packed_keys(group_dims, u), partials=out, dense=None)
+    keys_flat = uniq[present]
+    u, inverse = np.unique(keys_flat, return_inverse=True)
+    if len(u) > num_groups_limit and order_trim is None:
+        # numGroupsLimit safety valve: lowest packed keys win (with an ORDER
+        # BY comparator the trim happens after the fold, over merged partials)
+        keep = inverse < num_groups_limit
+        u = u[:num_groups_limit]
+        inverse = inverse[keep]
+    else:
+        keep = None
+    n_groups = len(u)
+
+    # padded per-group row matrix: mat[g] lists the slot rows carrying key g
+    # (-1 padding); one vectorized combine per fold level merges every group
+    counts = np.bincount(inverse, minlength=n_groups) if len(inverse) else np.zeros(n_groups, np.int64)
+    maxc = int(counts.max(initial=1))
+    order = np.argsort(inverse, kind="stable")
+    starts = np.zeros(n_groups, dtype=np.int64)
+    np.cumsum(counts[:-1], out=starts[1:] if n_groups > 1 else starts[:0])
+    mat = np.full((n_groups, maxc), -1, dtype=np.int64)
+    if len(order):
+        col = np.arange(len(order)) - starts[inverse[order]]
+        mat[inverse[order], col] = order
+
+    first = np.maximum(mat[:, 0], 0)
+    out: List[Dict[str, np.ndarray]] = []
+    for p in partials:
+        rows: Dict[str, np.ndarray] = {}
+        for fname, arr in p.items():
+            a = np.asarray(arr)[present]
+            rows[fname] = a if keep is None else a[keep]
+        acc = {f: a[first] for f, a in rows.items()}
+        for j in range(1, maxc):
+            validj = mat[:, j] >= 0
+            if not validj.any():
+                break
+            idx = np.maximum(mat[:, j], 0)
+            for f in acc:
+                acc[f] = np.where(validj, combine_field(f, acc[f], rows[f][idx]), acc[f])
+        out.append(acc)
+
+    if order_trim is not None and n_groups > num_groups_limit:
+        sel = _order_trim_select(aggs, lambda i: out[i], u, order_trim, num_groups_limit)
+        u = u[sel]
+        out = [{f: a[sel] for f, a in p.items()} for p in out]
+    return GroupBySegmentResult(keys=planner.decode_packed_keys(group_dims, u), partials=out, dense=None)

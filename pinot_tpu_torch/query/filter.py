@@ -20,6 +20,15 @@ in literals share one planned closure.  Closures take (cols, params, dev):
 eager torch needs the device for masks that read no column.  Transforms
 over columns (function calls in predicates or aggregation inputs) are a
 later slice of the port.
+
+Macro-batch hooks (parallel/engine.py compiles against a _ShardView that
+carries them): with `bitmap_layout` = (ndev, L, D // 32) bitmap words are
+stored FULL in that shape and named in `row_sharded_params`, and the engine
+slices the doc axis per launch; with `docs_fn` a sorted column's doc range
+compares against the global flat doc ids of the launch's rows.
+`sole_bitmap_param` names the one plain bitmap (not negated, no null guard)
+when it is the whole root filter: the engine then hands its words straight
+to the fused scan (`mask_words`) and no row mask is unpacked.
 """
 from __future__ import annotations
 
@@ -114,6 +123,17 @@ class FilterCompiler:
         self._counter = 0
         self.used_columns = set()
         self.index_uses: List[Tuple[str, str]] = []
+        # macro-batch launches: per-launch global doc ids (a params-dependent
+        # closure, the batch offset being a param) and the full-words layout
+        self.docs_fn = getattr(segment, "docs_fn", None)
+        self.bitmap_layout: Optional[Tuple[int, int, int]] = getattr(segment, "bitmap_layout", None)
+        # param keys whose leading axis is the device axis (sliced per launch)
+        self.row_sharded_params: set = set()
+        # bitmap param keys that are plain (not negated, no null guard)
+        self._plain_bitmaps: set = set()
+        # set when the ROOT filter is exactly one plain bitmap predicate
+        self.sole_bitmap_param: Optional[str] = None
+        self._root_compiled = False
 
     def _key(self, suffix: str) -> str:
         k = f"f{self._counter}.{suffix}"
@@ -125,6 +145,8 @@ class FilterCompiler:
 
     # ------------------------------------------------------------------
     def compile(self, node: Optional[FilterNode]) -> Callable[[Dict, Dict, torch.device], MaskPair]:
+        is_root = not self._root_compiled
+        self._root_compiled = True
         if node is None:
             n = self.segment.num_docs
 
@@ -132,7 +154,13 @@ class FilterCompiler:
                 return torch.ones((n,), dtype=torch.bool, device=dev), None
 
             return match_all
-        return self._compile_node(node)
+        before_keys = set(self.params)
+        fn = self._compile_node(node)
+        if is_root and node.op is FilterOp.PRED:
+            new_keys = set(self.params) - before_keys
+            if len(new_keys) == 1 and next(iter(new_keys)) in self._plain_bitmaps:
+                self.sole_bitmap_param = next(iter(new_keys))
+        return fn
 
     def _compile_node(self, node: FilterNode) -> Callable[[Dict, Dict, torch.device], MaskPair]:
         if node.op is FilterOp.PRED:
@@ -311,9 +339,13 @@ class FilterCompiler:
         self.params[hi_key] = np.int32(d1)
         self._null_guard(name, has_nulls)
         self.index_uses.append((name, "sorted"))
+        docs_fn = self.docs_fn
 
         def eval_docrange(cols, params, dev, _lo=lo_key, _hi=hi_key, _name=name, _has=has_nulls):
-            docs = torch.arange(n, dtype=torch.int32, device=dev)
+            if docs_fn is not None:
+                docs = docs_fn(params, dev)
+            else:
+                docs = torch.arange(n, dtype=torch.int32, device=dev)
             t = (docs >= params[_lo]) & (docs < params[_hi])
             nulls = cols[_name].get("nulls") if _has else None
             if nulls is not None:
@@ -325,12 +357,21 @@ class FilterCompiler:
     def _emit_bitmap(self, name: str, words: np.ndarray, kind: str, has_nulls: bool, negate: bool):
         n = self.segment.num_docs
         key = self._key("bits")
-        self.params[key] = np.ascontiguousarray(words, dtype=np.uint32)
+        words = np.ascontiguousarray(words, dtype=np.uint32)
+        if self.bitmap_layout is not None:
+            # macro-batch engine: FULL words as [ndev, L, D // 32]; the engine
+            # slices the doc axis per launch to [ndev, L * Db // 32]
+            assert words.size == int(np.prod(self.bitmap_layout)), (words.size, self.bitmap_layout)
+            words = words.reshape(self.bitmap_layout)
+            self.row_sharded_params.add(key)
+        self.params[key] = words
+        if not negate and not has_nulls:
+            self._plain_bitmaps.add(key)
         self._null_guard(name, has_nulls)
         self.index_uses.append((name, kind))
 
         def eval_bitmap(cols, params, dev, _key=key, _name=name, _has=has_nulls, _neg=negate):
-            t = unpack_bitmap_words(params[_key], n)
+            t = unpack_bitmap_words(params[_key].reshape(-1), n)
             if _neg:
                 t = ~t
             nulls = cols[_name].get("nulls") if _has else None
@@ -345,6 +386,11 @@ class FilterCompiler:
         if lo_code is not None:  # code-range predicate (EQ / RANGE)
             if col.stats.is_sorted and col.codes is not None:
                 codes_arr = np.asarray(col.codes)
+                if codes_arr.ndim == 2:
+                    # stacked [S, D]: the flat row-major order is the build
+                    # order with all padding at the tail; doc ranges are in
+                    # global flat coordinates (docs_fn)
+                    codes_arr = codes_arr.reshape(-1)[: self.segment.total_docs]
                 d0 = int(np.searchsorted(codes_arr, lo_code, side="left"))
                 d1 = int(np.searchsorted(codes_arr, hi_code, side="left")) if hi_code > lo_code else d0
                 return self._emit_doc_range(name, d0, d1, has_nulls)

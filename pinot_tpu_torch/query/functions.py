@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from pinot_tpu_torch.ops import segmented as ops
 
@@ -52,9 +53,13 @@ def field_identity(field_name: str) -> float:
 
 
 def combine_field(field_name: str, a, b):
+    """Combine two partial fields by their name's semantics: numpy arrays
+    on the host, torch tensors on their device."""
     op = FIELD_COMBINE[field_name]
     if op == "add":
         return a + b
+    if isinstance(a, torch.Tensor):
+        return torch.minimum(a, b) if op == "min" else torch.maximum(a, b)
     if op == "min":
         return np.minimum(a, b)
     return np.maximum(a, b)

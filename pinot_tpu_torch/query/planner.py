@@ -13,10 +13,14 @@ signature, backend tag) — the JAX package's key, with the tag "cuda" or
 "torch" in place of its scan backend — and a cache hit rebuilds only the
 params (literals, dictionary lookups) and reuses the closure.
 
+Group-bys whose key space passes maxDenseGroups take the SPARSE path
+(``sparse_grouped_tables``): rows sorted by a packed int64 key and scattered
+into fixed [numGroupsLimit] tables, with the ORDER BY-aware trim on the
+device.  The distributed engine (parallel/engine.py) shares these pieces.
+
 Shapes of later slices raise NotImplementedError here, naming the slice:
 selection queries, transforms and FILTER(WHERE) (slice 2), sketches and the
-extended aggregations (slice 4), the sparse group-by (slice 1 of the
-ROADMAP's queue: macro-batched engine + sparse path).
+extended aggregations (slice 4).
 """
 from __future__ import annotations
 
@@ -29,8 +33,9 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.ops import segmented as ops
+from pinot_tpu_torch.ops.sparse_merge import SPARSE_EMPTY_KEY
 from pinot_tpu_torch.query.filter import FilterCompiler, eval_column
-from pinot_tpu_torch.query.functions import AggFunction, for_spec
+from pinot_tpu_torch.query.functions import FIELD_COMBINE, AggFunction, field_identity, for_spec
 from pinot_tpu_torch.query.ir import AggregationSpec, Expr, QueryContext
 from pinot_tpu_torch.query.shape import column_info_from, params_structure
 from pinot_tpu_torch.segment import packing
@@ -68,12 +73,12 @@ class GroupDim:
             vals[np.asarray(codes) == self.null_code] = None
         return vals
 
-    def device_code(self, cols) -> torch.Tensor:
-        """Per-row dimension code as int32 (the group-key contribution)."""
+    def device_code(self, cols, dtype=torch.int32) -> torch.Tensor:
+        """Per-row dimension code in `dtype` (the group-key contribution)."""
         if self.kind == "dict":
-            return cols[self.name]["codes"].to(torch.int32)
+            return cols[self.name]["codes"].to(dtype)
         v = cols[self.name]["values"]
-        return (v - self.base).to(torch.int32)  # subtract in storage dtype
+        return (v - self.base).to(dtype)  # subtract in storage dtype
 
 
 def group_strides(group_dims: List[GroupDim]) -> List[int]:
@@ -97,7 +102,7 @@ def decode_packed_keys(group_dims: List[GroupDim], packed: np.ndarray) -> List[n
 
 @dataclass
 class SegmentPlan:
-    kind: str  # "aggregation" | "groupby_dense"
+    kind: str  # "aggregation" | "groupby_dense" | "groupby_sparse"
     fn: Callable  # fn(cols, params, device) -> partials
     params: Dict[str, Any]
     needed_columns: List[str]
@@ -297,8 +302,14 @@ def _is_int(t: torch.Tensor) -> bool:
     return not t.is_floating_point() and t.dtype != torch.bool
 
 
+def words_fusable(aggs) -> bool:
+    """Every field of every aggregation is one the fused scan makes (count,
+    sum, sum of squares), so a filter's packed words can go to the scan."""
+    return all(k in ("count", "sum", "sumsq") for fn in aggs for k in fn.field_kinds.values())
+
+
 def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
-                     backend=None, key_packed=None):
+                     backend=None, key_packed=None, mask_words=None):
     """Presence table + per-agg grouped partial dicts for the dense path.
 
     All additive fields (presence, counts, sums, sums of squares) of ALL
@@ -307,7 +318,26 @@ def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
     presence entry.  key_fn() returns the group-key codes; it is called only
     when something reads them — eager torch has no dead-code elimination, so
     a packed key (key_packed = (words, code_bits)) that the kernel reads
-    in-register is never unpacked for nothing."""
+    in-register is never unpacked for nothing.
+
+    mask_words optionally carries the filter as packed bitmap words (int32
+    views) instead of folded into tmask and the input masks: the fused scan
+    reads them in-register.  The min/max scatters never see packed words, so
+    when any aggregation needs a field the scan does not make, the words are
+    unpacked here and ANDed into the masks (shared masks stay shared)."""
+    if mask_words is not None:
+        if not words_fusable(aggs):
+            row_mask = ops.unpack_bitmap_words(mask_words, int(tmask.shape[0]))
+            anded: Dict[int, torch.Tensor] = {}
+
+            def _and(m):
+                if id(m) not in anded:
+                    anded[id(m)] = m & row_mask
+                return anded[id(m)]
+
+            tmask = _and(tmask)
+            inputs = [(v, _and(m)) for v, m in inputs]
+            mask_words = None
     entries: List[Tuple] = []
     slot_of: Dict[Tuple, int] = {}
 
@@ -350,7 +380,7 @@ def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
 
     tables = ops.fused_group_tables(
         entries, None if key_packed is not None else key_fn(), num_groups,
-        backend=backend, codes_packed=key_packed,
+        backend=backend, mask_words=mask_words, codes_packed=key_packed,
     )
 
     def _as_table(idx):
@@ -370,6 +400,33 @@ def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
                 p[fname] = ops.group_max(vals, mask, key_fn(), num_groups)
         partials.append(p)
     return presence, partials
+
+
+def make_agg_inputs(agg_specs, aggs, table_like, null_handling: bool):
+    """Per-aggregation (values, mask) builder over a plan's device columns,
+    with null handling (the projection step of the hot loop); shared by the
+    segment plans and the distributed engine's."""
+
+    def _agg_inputs(cols, base_mask):
+        out = []
+        for spec, fn in zip(agg_specs, aggs):
+            mask = base_mask
+            if spec.expr is None:
+                vals = mask  # COUNT(*): values unused
+            elif fn.name == "count":
+                # COUNT(col) needs only the null mask — works on strings too
+                vals = mask
+                c = table_like.column(spec.expr.op)
+                if c.nulls is not None and null_handling:
+                    mask = mask & ~cols[spec.expr.op]["nulls"]
+            else:
+                vals, nulls = eval_column(spec.expr, table_like, cols)
+                if nulls is not None and null_handling:
+                    mask = mask & ~nulls
+            out.append((vals, mask))
+        return out
+
+    return _agg_inputs
 
 
 def order_by_agg_index(ctx: QueryContext) -> Optional[Tuple[int, bool]]:
@@ -403,6 +460,196 @@ def order_by_agg_index(ctx: QueryContext) -> Optional[Tuple[int, bool]]:
     return None
 
 
+def guard_sparse_vector_fields(kind: str, aggs: List[AggFunction]) -> None:
+    """Pre-plan check for the sparse group path: only field-wise partials
+    (count/sum/sumsq/min/max fields) ride its scatters.  The sketch families
+    whose per-slot vector fields the JAX package scatters there are a later
+    slice of the port (slice 4)."""
+    if kind != "groupby_sparse":
+        return
+    for fn in aggs:
+        if fn.field_kinds is None or getattr(fn, "pairwise_merge", False):
+            raise NotImplementedError(
+                f"{fn.name} on the sparse group-by path is a later slice of the port (slice 4)"
+            )
+
+
+def bind_aggs(agg_specs, table_like, ctx: QueryContext) -> List[AggFunction]:
+    """The aggregation functions of one plan.  Column binding (the sketch
+    functions' per-column key spaces) comes with those functions, a later
+    slice of the port (slice 4)."""
+    out = []
+    for spec in agg_specs:
+        fn = for_spec(spec)
+        if getattr(fn, "needs_binding", False):
+            raise NotImplementedError(f"{spec.function} needs column binding, a later slice of the port (slice 4)")
+        out.append(fn)
+    return out
+
+
+def kernel_order_spec(ctx: QueryContext, aggs: List[AggFunction]) -> Optional[Tuple[int, str, bool]]:
+    """(agg index, contribution mode, ascending) when the first ORDER BY key
+    is an aggregate whose per-group order value the sparse path can derive
+    in one pass: additive sum/count via a segment cumsum, min/max via a
+    secondary sort key.  None falls back to the lowest-packed-key trim."""
+    hit = order_by_agg_index(ctx)
+    if hit is None:
+        return None
+    i, asc = hit
+    fn = aggs[i]
+    mode = {"sum": "sum", "count": "count", "min": "min", "max": "max"}.get(fn.name)
+    if mode is None or getattr(fn, "mv_input", False) or getattr(fn, "needs_extra_exprs", False):
+        return None
+    return i, mode, asc
+
+
+def packed_key64(cols, group_dims: List[GroupDim]) -> torch.Tensor:
+    """Per-dimension codes raveled into one int64 key (the planner keeps the
+    key space below 2^62 before it picks the sparse path)."""
+    key = None
+    for gd in group_dims:
+        code = gd.device_code(cols, torch.int64)
+        key = code if key is None else key * gd.cardinality + code
+    return key
+
+
+def _sort_by(primary: torch.Tensor, secondary: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stable lexicographic argsort by (primary, secondary): two stable
+    sorts, the secondary key first (lax.sort with num_keys=2).  Ties in both
+    keep the input order."""
+    if secondary is None:
+        return torch.sort(primary, stable=True).indices
+    p1 = torch.sort(secondary, stable=True).indices
+    return p1[torch.sort(primary[p1], stable=True).indices]
+
+
+def sparse_grouped_tables(aggs, inputs, tmask, key, num_slots: int, order_spec=None):
+    """High-cardinality group-by on the device: sort + segment-scatter into
+    FIXED-size tables (the IndexedTable analog with the numGroupsLimit trim
+    inside).
+
+    Rows sort by packed key (filtered rows get SPARSE_EMPTY_KEY and sort
+    last); a group starts where the sorted key changes; the running group
+    index is the cumsum of the starts; rows of groups past num_slots go to a
+    dropped overflow slot.  Without an order spec the lowest packed keys win.
+    With one (kernel_order_spec), each group's order value is computed in
+    row space and the groups ranked by (order value, packed key); the top
+    num_slots get slots.  Empty (SQL NULL) and NaN order values rank last.
+
+    Counts accumulate in int64, sums and sums of squares in float64 (exact
+    for integer sums below 2^53), min/max in float64.
+
+    Returns (uniq_keys int64[num_slots] with SPARSE_EMPTY_KEY padding,
+    [{field: table[num_slots]}] per aggregation)."""
+    n = int(tmask.shape[0])
+    dev = tmask.device
+    f64 = torch.float64
+    inf = torch.full((), float("inf"), dtype=f64, device=dev)
+    k64 = torch.where(tmask, key.to(torch.int64), torch.full((), SPARSE_EMPTY_KEY, dtype=torch.int64, device=dev))
+    iota = torch.arange(n, device=dev)
+    if order_spec is not None and order_spec[1] in ("min", "max"):
+        # the min/max order value rides the row sort as a secondary key:
+        # after sorting by (key, +-value) a group's extremum is its first row
+        oi, omode, _ = order_spec
+        ov_raw, om = inputs[oi]
+        ovr = ov_raw.to(f64)
+        ovr = torch.where(om, ovr if omode == "min" else -ovr, inf)
+        perm = _sort_by(k64, ovr)
+        skey, sov = k64[perm], ovr[perm]
+    else:
+        sov = None
+        skey, perm = torch.sort(k64, stable=True)
+    smask = tmask[perm]
+    prev = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=dev), skey[:-1]])
+    is_start = smask & (skey != prev)
+    seg = torch.cumsum(is_start.to(torch.int64), 0) - 1
+    overflow = torch.full((), num_slots, dtype=torch.int64, device=dev)
+    if order_spec is None:
+        slot = torch.where(smask & (seg < num_slots), seg, overflow)
+    else:
+        oi, omode, asc = order_spec
+        if sov is not None:
+            empty = torch.isinf(sov)  # no agg-mask rows in the group: NULL
+            group_ov = sov if asc else -sov
+            if omode == "max":  # sov carries -v for max
+                group_ov = -group_ov
+            group_ov = torch.clamp(torch.where(empty | torch.isnan(group_ov), inf, group_ov), -1e300, 1e300)
+        else:
+            ov_raw, om = inputs[oi]
+            isn = None
+            if omode == "count":
+                c = om.to(f64)
+            else:
+                cv = (ov_raw if ov_raw.dim() else ov_raw.expand(n)).to(f64)
+                # NaN rows stay out of the cumsum (one NaN would poison every
+                # later group's prefix) and are tracked per group instead
+                isn = torch.isnan(cv)
+                c = torch.where(om & ~isn, cv, torch.zeros((), dtype=f64, device=dev))
+
+            def _prefix(x):
+                return torch.cat([torch.zeros(1, dtype=f64, device=dev), torch.cumsum(x[perm], 0)])
+
+            s0 = _prefix(c)
+            # each group's first row, n past the last group; at a start row
+            # the next group's first row is where the group's prefix ends
+            # (the JAX package takes the same index from a reversed cummin)
+            first_row = torch.full((n + 2,), n, dtype=torch.int64, device=dev).scatter_(
+                0, torch.where(is_start, seg, torch.full((), n + 1, dtype=torch.int64, device=dev)), iota
+            )
+            nxt = first_row[(seg + 1).clamp(0, n)]
+            group_ov = s0[nxt] - s0[iota]  # valid at start rows
+            group_ov = group_ov if asc else -group_ov
+            if omode == "sum":
+                # SUM over zero agg-mask rows is SQL NULL, and a group that
+                # saw a NaN (or overflowed to inf) ranks last
+                m0 = _prefix(om.to(f64))
+                n0 = _prefix((isn & om).to(f64))
+                bad = ((n0[nxt] - n0[iota]) > 0) | torch.isnan(group_ov) | ((m0[nxt] - m0[iota]) <= 0)
+                group_ov = torch.clamp(torch.where(bad, inf, group_ov), -1e300, 1e300)
+        ovkey = torch.where(is_start, group_ov, inf)
+        # rank groups by (order value, packed key): skey is already sorted,
+        # so a stable sort by the order value breaks ties by key
+        rorder = torch.sort(ovkey, stable=True).indices
+        sovk, sseg = ovkey[rorder], seg[rorder]
+        rank = torch.clamp(iota, max=num_slots)
+        ranks = torch.full((n + 1,), num_slots, dtype=torch.int64, device=dev).scatter_(
+            0, torch.where(torch.isfinite(sovk), sseg, torch.full((), n, dtype=torch.int64, device=dev)), rank
+        )
+        gslot = ranks[seg.clamp(0, n)]
+        slot = torch.where(smask & (gslot < num_slots), gslot, overflow)
+    uniq = torch.full((num_slots + 1,), SPARSE_EMPTY_KEY, dtype=torch.int64, device=dev).scatter_(
+        0, torch.where(is_start, slot, overflow), skey
+    )
+    partials = []
+    for fn, (vals, mask) in zip(aggs, inputs):
+        m = mask[perm]
+        v = (vals if vals.dim() else vals.expand(n))[perm]
+        p: Dict[str, torch.Tensor] = {}
+        for fname in fn.field_kinds:
+            comb = FIELD_COMBINE[fname]
+            if comb == "add":
+                if fname == "count":
+                    acc = torch.zeros(num_slots + 1, dtype=torch.int64, device=dev).index_add_(
+                        0, slot, m.to(torch.int64)
+                    )
+                else:
+                    w = v.to(f64)
+                    if fname == "sumsq":
+                        w = w * w
+                    acc = torch.zeros(num_slots + 1, dtype=f64, device=dev).index_add_(
+                        0, slot, torch.where(m, w, torch.zeros((), dtype=f64, device=dev))
+                    )
+            else:
+                ident = torch.full((), field_identity(fname), dtype=f64, device=dev)
+                acc = ident.repeat(num_slots + 1).scatter_reduce_(
+                    0, slot, torch.where(m, v.to(f64), ident),
+                    reduce="amin" if comb == "min" else "amax", include_self=True,
+                )
+            p[fname] = acc[:num_slots]
+        partials.append(p)
+    return uniq[:num_slots], partials
+
+
 class _LazyCodes(dict):
     """A packed column's device entry that unpacks "codes" from its lane
     words on first read, once per plan run (never cached on the segment)."""
@@ -418,6 +665,99 @@ class _LazyCodes(dict):
         codes = packing.unpack_codes_torch(dict.__getitem__(self, "codes_packed"), self._bits, self._n)
         self["codes"] = codes
         return codes
+
+
+def packed_code_bits(table_like, names) -> Dict[str, int]:
+    """Code bits of each named column whose dictionary codes ship packed."""
+    out: Dict[str, int] = {}
+    for name in names:
+        c = table_like.column(name)
+        if c.code_bits and c.packed is not None:
+            out[name] = int(c.code_bits)
+    return out
+
+
+def overlay_unpacked(cols, packed_meta: Dict[str, int], num_rows: int):
+    """`cols` with every packed-only code entry wrapped to unpack "codes"
+    on its first read (_LazyCodes)."""
+    out = dict(cols)
+    for name, bits in packed_meta.items():
+        e = out.get(name)
+        if e is not None and "codes_packed" in e and "codes" not in e:
+            out[name] = _LazyCodes(e, bits, num_rows)
+    return out
+
+
+def plan_groups(ctx: QueryContext, table_like, aggs) -> Tuple[str, List[GroupDim], int]:
+    """(kind, group dims, dense key-space size) of one plan: aggregation,
+    groupby_dense up to maxDenseGroups keys, else groupby_sparse."""
+    if not ctx.group_by:
+        return "aggregation", [], 0
+    group_dims = [_group_dim(g, table_like, ctx.null_handling) for g in ctx.group_by]
+    num_groups = 1
+    for gd in group_dims:
+        num_groups *= max(1, gd.cardinality)
+    kind = "groupby_dense" if num_groups <= ctx.max_dense_groups else "groupby_sparse"
+    guard_sparse_vector_fields(kind, aggs)
+    return kind, group_dims, num_groups
+
+
+def group_key(cols, group_dims: List[GroupDim]) -> torch.Tensor:
+    """Per-row dense group key; a single dict dimension passes its codes
+    through in their storage dtype (the kernel and scatters read it as is)."""
+    if len(group_dims) == 1 and group_dims[0].kind == "dict":
+        return cols[group_dims[0].name]["codes"]
+    key = None
+    for gd in group_dims:
+        code = gd.device_code(cols)
+        key = code if key is None else key * gd.cardinality + code
+    return key
+
+
+def lazy_group_key(cols, group_dims: List[GroupDim]) -> Callable[[], torch.Tensor]:
+    """group_key(cols) built on the first call and reused after (the fused
+    scan on packed words never needs it)."""
+    box: List[torch.Tensor] = []
+
+    def key_fn():
+        if not box:
+            box.append(group_key(cols, group_dims))
+        return box[0]
+
+    return key_fn
+
+
+def key_packed(cols, group_dims: List[GroupDim], packed_meta: Dict[str, int], num_rows: int,
+               backend: str) -> Optional[Tuple[torch.Tensor, int]]:
+    """(words, code_bits) when the single dict group key shipped packed,
+    its lanes cover `num_rows` whole words and the plan runs on the kernel
+    backend; else None."""
+    if backend != "cuda" or len(group_dims) != 1:
+        return None
+    gd = group_dims[0]
+    bits = packed_meta.get(gd.name)
+    if gd.kind != "dict" or not bits or num_rows % (32 // bits):
+        return None
+    e = cols.get(gd.name)
+    if e is None or "codes_packed" not in e:
+        return None
+    return (e["codes_packed"], bits)
+
+
+def sparse_tables_fn(ctx: QueryContext, aggs, group_dims: List[GroupDim], num_groups: int, agg_inputs):
+    """The sparse group path's per-launch step, (cols, tmask) -> (uniq keys,
+    partial tables) of numGroupsLimit slots, with its slot count and
+    ORDER BY-aware trim spec (kernel_order_spec)."""
+    if num_groups >= (1 << 62):
+        raise NotImplementedError("composite group key exceeds 62 bits")
+    num_slots = min(ctx.num_groups_limit, num_groups)
+    order_spec = kernel_order_spec(ctx, aggs)
+
+    def tables(cols, tmask):
+        key = packed_key64(cols, group_dims)
+        return sparse_grouped_tables(aggs, agg_inputs(cols, tmask), tmask, key, num_slots, order_spec)
+
+    return tables, num_slots, order_spec
 
 
 def plan_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.device) -> SegmentPlan:
@@ -459,103 +799,38 @@ def _build_plan(
     keep = _non_filter_columns(ctx, segment) | fc.used_columns
     needed = [c for c in needed if c in keep]
 
-    packed_meta: Dict[str, int] = {}
-    for name in needed:
-        c = segment.column(name)
-        if c.code_bits and c.packed is not None:
-            packed_meta[name] = int(c.code_bits)
+    packed_meta = packed_code_bits(segment, needed)
     num_docs = segment.num_docs
-
-    def _overlay_unpacked(cols):
-        out = dict(cols)
-        for name, bits in packed_meta.items():
-            e = out.get(name)
-            if e is not None and "codes_packed" in e and "codes" not in e:
-                out[name] = _LazyCodes(e, bits, num_docs)
-        return out
-
-    if not ctx.group_by:
-        kind = "aggregation"
-        group_dims: List[GroupDim] = []
-        num_groups = 0
-    else:
-        group_dims = [_group_dim(g, segment, null_handling) for g in ctx.group_by]
-        num_groups = 1
-        for gd in group_dims:
-            num_groups *= max(1, gd.cardinality)
-        if num_groups > ctx.max_dense_groups:
-            raise NotImplementedError(
-                f"{num_groups} groups exceed maxDenseGroups={ctx.max_dense_groups}: the sparse "
-                "group-by is a later slice of the port (slice 1 of the queue)"
-            )
-        kind = "groupby_dense"
-
-    def _agg_inputs(cols, base_mask):
-        """Per-aggregation (values, mask) with null handling."""
-        out = []
-        for spec, fn in zip(agg_specs, aggs):
-            mask = base_mask
-            if spec.expr is None:
-                vals = mask  # COUNT(*): values unused
-            elif fn.name == "count":
-                # COUNT(col) needs only the null mask — works on strings too
-                vals = mask
-                c = segment.column(spec.expr.op)
-                if c.nulls is not None and null_handling:
-                    mask = mask & ~cols[spec.expr.op]["nulls"]
-            else:
-                vals, nulls = eval_column(spec.expr, segment, cols)
-                if nulls is not None and null_handling:
-                    mask = mask & ~nulls
-            out.append((vals, mask))
-        return out
-
-    def _group_key(cols):
-        if len(group_dims) == 1 and group_dims[0].kind == "dict":
-            # storage-dtype passthrough: the kernel and scatters read it as is
-            return cols[group_dims[0].name]["codes"]
-        key = None
-        for gd in group_dims:
-            code = gd.device_code(cols)
-            key = code if key is None else key * gd.cardinality + code
-        return key
-
-    def _key_packed(cols):
-        """(words, code_bits) when the single dict group key shipped packed
-        and the plan runs on the kernel backend; else None."""
-        if backend != "cuda" or len(group_dims) != 1:
-            return None
-        gd = group_dims[0]
-        bits = packed_meta.get(gd.name)
-        if gd.kind != "dict" or not bits or num_docs % (32 // bits):
-            return None
-        e = cols.get(gd.name)
-        if e is None or "codes_packed" not in e:
-            return None
-        return (e["codes_packed"], bits)
+    kind, group_dims, num_groups = plan_groups(ctx, segment, aggs)
+    _agg_inputs = make_agg_inputs(agg_specs, aggs, segment, null_handling)
 
     if kind == "aggregation":
 
         def kernel(cols, params, dev):
-            cols = _overlay_unpacked(cols)
+            cols = overlay_unpacked(cols, packed_meta, num_docs)
             tmask, _ = filter_fn(cols, params, dev)
             return [fn.partial(vals, mask) for fn, (vals, mask) in zip(aggs, _agg_inputs(cols, tmask))]
+
+    elif kind == "groupby_sparse":
+        # sort + scatter into fixed [numGroupsLimit] tables on the device: no
+        # row-length array leaves it (sparse_grouped_tables)
+        tables, _, _ = sparse_tables_fn(ctx, aggs, group_dims, num_groups, _agg_inputs)
+
+        def kernel(cols, params, dev):
+            cols = overlay_unpacked(cols, packed_meta, num_docs)
+            tmask, _ = filter_fn(cols, params, dev)
+            return tables(cols, tmask)
 
     else:
         vranges = agg_vranges(agg_specs, segment)
 
         def kernel(cols, params, dev):
-            cols = _overlay_unpacked(cols)
+            cols = overlay_unpacked(cols, packed_meta, num_docs)
             tmask, _ = filter_fn(cols, params, dev)
-            key_box: List[torch.Tensor] = []
-
-            def key_fn():
-                if not key_box:
-                    key_box.append(_group_key(cols))
-                return key_box[0]
-
-            return grouped_partials(aggs, _agg_inputs(cols, tmask), tmask, key_fn, num_groups, vranges,
-                                    backend=backend, key_packed=_key_packed(cols))
+            return grouped_partials(
+                aggs, _agg_inputs(cols, tmask), tmask, lazy_group_key(cols, group_dims), num_groups, vranges,
+                backend=backend, key_packed=key_packed(cols, group_dims, packed_meta, num_docs, backend),
+            )
 
     return SegmentPlan(
         kind=kind,

@@ -24,6 +24,11 @@ class ExecutionStats:
     total_docs: int = 0
     num_groups: int = 0
     time_ms: float = 0.0
+    # distributed engine: host ms of planning on a plan-cache miss (the
+    # port's counterpart of the JAX package's trace + compile), and wall ms
+    # of the launch loop (launches through the last drain)
+    compile_ms: float = 0.0
+    device_ms: float = 0.0
     # (column, "sorted"|"range"|"inverted") per index-accelerated predicate
     filter_index_uses: Tuple = ()
     query_id: Optional[str] = None

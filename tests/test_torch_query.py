@@ -317,13 +317,24 @@ def test_plan_cache_reuses_closure_across_literals(lineorder):
         "SELECT SUM(v) FILTER (WHERE city = 'sf') FROM t",  # filtered aggregation
         "SELECT SUM(v * 2) FROM t",  # transform
         "SELECT DISTINCTCOUNTHLL(city) FROM t",  # sketch
-        "SET maxDenseGroups = 4; SELECT city, year, SUM(v) FROM t GROUP BY city, year",  # sparse
     ],
 )
 def test_later_slices_raise_not_implemented(engines, sql):
     _, port_engine, _ = engines
     with pytest.raises(NotImplementedError):
         port_engine.query(sql)
+
+
+def test_sparse_groupby_matches_jax(engines):
+    """The sparse group-by (a key space past maxDenseGroups) answers as the
+    JAX package's, and as sqlite does over the full group set."""
+    jax_engine, port_engine, conn = engines
+    sql = "SET maxDenseGroups = 4; SELECT city, year, SUM(v) FROM t GROUP BY city, year"
+    got, want = port_engine.query(sql), jax_engine.query(sql)
+    assert_rows_match(got.rows, want.rows)
+    full = port_engine.query(sql + " LIMIT 1000")
+    assert_rows_match(full.rows, jax_engine.query(sql + " LIMIT 1000").rows)
+    assert_same_rows(full.rows, conn.execute("SELECT city, year, SUM(v) FROM t GROUP BY city, year").fetchall())
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
