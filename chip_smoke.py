@@ -12,13 +12,15 @@ Phases, in order; any failure raises and the process exits non-zero:
                 two specialised ones, the generic one, the global-atomic
                 path), unaligned
                 views, shared and distinct masks, E = 16 and 17, G = 1 and
-                8, out-of-table codes; then 5 shapes timed with CUDA events
+                8, out-of-table codes; then 6 shapes timed with CUDA events
                 (median of 20 calls, L2 flushed before each): the
                 distributed main path's launch (2^27 rows, packed 16-bit
                 key, mask_words, an all-true entry mask, 2406 groups, count
                 + int_sum), the segment main path's (2^23 rows, one mask),
-                query (c)'s raw computed key (550 groups), G = 8, and
-                G = 8192 with 4 sums (global path).  Each: the wrapper call,
+                query (c)'s raw computed key (550 groups), G = 8, G = 8192
+                with 4 sums (global path), and the distributed FILTER launch
+                of query (e) (2^27 rows, packed key, mask_words, two
+                distinct masks, count + two int32 sums).  Each: the wrapper call,
                 the plain version, and one torch.Tensor.index_add_ per entry
                 as the library yardstick (never called by the port).  Also
                 printed: ptxas's registers/shared memory/spills of each
@@ -42,6 +44,21 @@ Phases, in order; any failure raises and the process exits non-zero:
                 from the counters around one counted run per engine; the
                 20-literal sweep plans once; warm medians of 5, the host ms
                 of the words and their copy, then a profile of each query.
+ 4c. transform_path - on the tables of phases 4 and 4b (no second build):
+                (e) a FILTER (WHERE ...) group-by, (f) SSB Q1.1's
+                SUM(lo_revenue * lo_discount), (g) a GROUP BY MOD(...) key
+                with a CASE sum, (h) a top-100 selection, on both engines
+                (the distributed one at one launch and at three); (i) an
+                expression selection with OFFSET and (j) RANK / SUM OVER
+                windows on the segment engine only (the distributed engine
+                refuses them, as the JAX package's does).  Each query once
+                counted (scan launches by instantiation, with mask_words, and
+                the distinct masks of each launch) and held against a numpy
+                golden, (e) and (g) required to launch the fused scan; then
+                warm medians of 5.  The profiles of phases 4-4c run after all
+                their wall timings; then one transform_path line per query
+                and engine: wall, device busy and idle share, launches,
+                masks, bytes of doc ids copied home, exact.
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
@@ -361,7 +378,7 @@ def _timed_shape(label, ents, key, g, kw, flush):
 
 
 def _timed_shapes(seed: int, dev):
-    """The 5 timed shapes, each held exactly against the plain version and
+    """The 6 timed shapes, each held exactly against the plain version and
     timed with CUDA events."""
     from pinot_tpu_torch.ops import fused_scan
 
@@ -480,7 +497,7 @@ def _compile_report():
 
 
 def _shapes(seed: int, dev):
-    """(label, entries, key, num_groups, kwargs) of the 5 timed shapes, on
+    """(label, entries, key, num_groups, kwargs) of the 6 timed shapes, on
     the card, made from the seed."""
     from pinot_tpu_torch.ops import segmented
 
@@ -520,6 +537,13 @@ def _shapes(seed: int, dev):
     ones2 = torch.ones(n2, dtype=torch.bool, device=dev)
     rev2 = torch.from_numpy(rng.integers(100, 1_000_000, n2).astype(np.int32)).to(dev)
     dist = [("count", None, ones2, None), ("int_sum", rev2, ones2, plan)]
+    # the distributed FILTER launch of query (e): the same key and words, a
+    # second mask (lo_discount BETWEEN 1 AND 3) for the FILTERed SUM, and
+    # SUM(lo_revenue * lo_discount) over int32 products with no range bound
+    disc2 = rng.integers(0, 11, n2).astype(np.int32)
+    fmask = torch.from_numpy((disc2 >= 1) & (disc2 <= 3)).to(dev)
+    revdisc = rev2 * torch.from_numpy(disc2).to(dev)
+    filt = [("count", None, ones2, None), ("int_sum", rev2, fmask, plan), ("int_sum", revdisc, ones2, (4, True))]
     return [
         ("dist main path: n=2^27 packed16 G=2406 E=2, mask_words, all-true mask", dist, None, g,
          {"codes_packed": (words2, 16), "mask_words": torch.from_numpy(qbits.reshape(-1)).to(dev)}),
@@ -527,6 +551,8 @@ def _shapes(seed: int, dev):
         ("query (c): n=2^23 int32 key G=550 E=2, all-true mask", qc, kc, 550, {}),
         ("hot slots: n=2^23 int32 key G=8 E=2, shared mask", main, k8, 8, {}),
         ("global path: n=2^23 int32 key G=8192 E=4 sums", e4, k8192, 8192, {}),
+        ("dist FILTER launch: n=2^27 packed16 G=2406 E=3, mask_words, 2 masks (all-true, discount)", filt, None, g,
+         {"codes_packed": (words2, 16), "mask_words": torch.from_numpy(qbits.reshape(-1)).to(dev)}),
     ]
 
 
@@ -674,9 +700,10 @@ def phase_main_path(args, dev):
         med = statistics.median(ms)
         timings[name] = {"median_ms": med, "rows_per_s": total_rows / (med / 1e3), "runs_ms": ms}
     log("main_path_timing", rows=total_rows, max_memory_allocated=torch.cuda.max_memory_allocated(), **timings)
-    for name, sql in (("a_config2", CONFIG2), ("b_filtered_agg", QUERY_B), ("c_two_dim_groupby", QUERY_C)):
-        log("main_path_profile", query=name, **profile_query(engine, sql))
-    return main_launches, main_variants
+    profiles = [("main_path_profile", {"query": name}, engine, sql) for name, sql in (
+        ("a_config2", CONFIG2), ("b_filtered_agg", QUERY_B), ("c_two_dim_groupby", QUERY_C))]
+    return {"launches": main_launches, "variants": main_variants, "engine": engine, "datas": datas,
+            "profiles": profiles}
 
 
 def _profile_once(engine, sql: str) -> dict:
@@ -878,8 +905,9 @@ def _dist_host_costs(engine, stacked, dev):
 
 def phase_dist_main_path(args, dev):
     """StackedTable.build over 2^27 rows, DistributedEngine() at one launch
-    and at three; exact against numpy; the literal sweep; wall times, then
-    the profile."""
+    and at three; exact against numpy; the literal sweep; wall times.  The
+    profiles run later (run_profiles); the table, its host data and the
+    engines stay for phase transform_path."""
     from pinot_tpu_torch.parallel.engine import DistributedEngine
     from pinot_tpu_torch.parallel.stacked import StackedTable
     from pinot_tpu_torch.spi.config import IndexingConfig, TableConfig
@@ -905,7 +933,6 @@ def phase_dist_main_path(args, dev):
     stacked = StackedTable.build(schema, data, num_shards=1, table_config=cfg)
     build_s = time.perf_counter() - t1
     want, live_groups = dist_golden(data)
-    del data
     engines = {"one_batch": DistributedEngine(),
                "three_batches": DistributedEngine(launch_bytes=DIST_THREE_BATCH_BYTES)}
     for e in engines.values():
@@ -951,15 +978,273 @@ def phase_dist_main_path(args, dev):
             timings[f"{label}/{name}"] = {"median_ms": med, "rows_per_s": n / (med / 1e3), "runs_ms": ms}
     log("dist_timing", rows=n, max_memory_allocated=torch.cuda.max_memory_allocated(), **timings)
     log("dist_host_costs", **_dist_host_costs(engines["one_batch"], stacked, dev))
-    profiles = {}
-    for label, e in engines.items():
-        for name, sql in DIST_QUERIES.items():
-            profiles[f"{label}/{name}"] = profile_query(e, sql)
-            log("dist_profile", engine=label, query=name, **profiles[f"{label}/{name}"])
-    stacked.release_device()
-    del engines, sweep
-    torch.cuda.empty_cache()
-    return launches, variants
+    profiles = [("dist_profile", {"engine": label, "query": name}, e, sql)
+                for label, e in engines.items() for name, sql in DIST_QUERIES.items()]
+    return {"launches": launches, "variants": variants, "engines": engines, "stacked": stacked, "data": data,
+            "profiles": profiles}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: transforms, FILTER (WHERE ...), CASE, selections and windows on
+# the tables phases 4 and 4b built
+# ---------------------------------------------------------------------------
+TRANSFORM_QUERIES = {
+    "e_filter_groupby": (
+        "SELECT lo_orderdate, COUNT(*), SUM(lo_revenue) FILTER (WHERE lo_discount BETWEEN 1 AND 3), "
+        "SUM(lo_revenue * lo_discount) FROM lineorder WHERE lo_quantity < 25 GROUP BY lo_orderdate LIMIT 2500"
+    ),
+    # SSB Q1.1 on this flat table (it has no lo_extendedprice)
+    "f_q1_1_analog": (
+        "SELECT SUM(lo_revenue * lo_discount) FROM lineorder "
+        "WHERE lo_discount BETWEEN 1 AND 3 AND lo_quantity < 25"
+    ),
+    "g_computed_key": (
+        "SELECT MOD(lo_orderdate, 100), COUNT(*), SUM(CASE WHEN lo_discount > 5 THEN lo_revenue ELSE 0 END) "
+        "FROM lineorder WHERE lo_quantity < 25 GROUP BY MOD(lo_orderdate, 100) "
+        "ORDER BY MOD(lo_orderdate, 100) LIMIT 100"
+    ),
+    "h_selection_top": (
+        "SELECT lo_orderdate, lo_quantity, lo_discount, lo_revenue FROM lineorder "
+        "WHERE lo_quantity = 1 AND lo_discount = 0 ORDER BY lo_revenue DESC, lo_orderdate LIMIT 100"
+    ),
+    "i_selection_expr": (
+        "SELECT lo_orderdate, lo_revenue * lo_discount FROM lineorder WHERE lo_quantity = 1 "
+        "ORDER BY lo_orderdate, lo_revenue LIMIT 50 OFFSET 10"
+    ),
+    "j_windows": (
+        "SELECT lo_orderdate, lo_revenue, RANK() OVER (PARTITION BY lo_orderdate ORDER BY lo_revenue DESC), "
+        "SUM(lo_revenue) OVER (PARTITION BY lo_orderdate) FROM lineorder "
+        "WHERE lo_quantity = 1 AND lo_discount = 0 AND lo_revenue > 990000 LIMIT 5000"
+    ),
+}
+# the distributed engine refuses these, as the JAX package's does
+TRANSFORM_SEGMENT_ONLY = ("i_selection_expr", "j_windows")
+# (instantiation, distinct masks) of every scan launch a query must make
+TRANSFORM_SCANS = {"e_filter_groupby": ("p16/i32/shared", 2), "g_computed_key": ("i32/i32/shared", 1)}
+
+
+def _ordered_expect(keys: np.ndarray, rows: list, offset: int, limit: int):
+    """The golden of an ORDER BY ... LIMIT/OFFSET selection whose order key
+    may tie: (the window's keys, {key: Counter of every matched row with
+    that key}).  keys: [n, k] sort keys of every matched row in the golden's
+    stable order; rows the output rows in the same order."""
+    from collections import Counter
+
+    lo, hi = offset, min(offset + limit, len(rows))
+    if hi <= lo:
+        return [], {}
+    first, last = lo, hi - 1
+    while first > 0 and (keys[first - 1] == keys[lo]).all():
+        first -= 1
+    while last + 1 < len(rows) and (keys[last + 1] == keys[hi - 1]).all():
+        last += 1
+    cand = {}
+    for j in range(first, last + 1):
+        cand.setdefault(tuple(keys[j].tolist()), Counter())[rows[j]] += 1
+    return [tuple(keys[j].tolist()) for j in range(lo, hi)], cand
+
+
+def _ordered_exact(got: list, expect) -> bool:
+    """Rows in ORDER BY order: each run of the golden's tied keys holds, in
+    the port's rows at those positions, a sub-multiset of the matched rows
+    with that key (the rows of the last tie group compare as a set)."""
+    from collections import Counter
+
+    window, cand = expect
+    if len(got) != len(window):
+        return False
+    groups = {}
+    for pos, key in enumerate(window):
+        groups.setdefault(key, []).append(pos)
+    for key, positions in groups.items():
+        have = Counter(got[p] for p in positions)
+        if any(n > cand[key][r] for r, n in have.items()):
+            return False
+    return True
+
+
+def transform_golden(d, segment_only: bool):
+    """Numpy goldens of TRANSFORM_QUERIES over the host columns `d` (rows in
+    the engine's doc order).  Group sums use np.bincount's float64 weights:
+    every partial sum is an integer below 2^53 (at most ~3e11 a group
+    here), so they are exact; the scalar sum is int64."""
+    od, q, disc, rev = (np.asarray(d[k]) for k in ("lo_orderdate", "lo_quantity", "lo_discount", "lo_revenue"))
+    rev = rev.astype(np.int64)
+    disc64 = disc.astype(np.int64)
+    out = {}
+    m = q < 25
+    k = (od[m] - 19920101).astype(np.int64)
+    rm, dm = rev[m], disc64[m]
+    cnt = np.bincount(k, minlength=2406)
+    fm = (dm >= 1) & (dm <= 3)
+    fcnt = np.bincount(k[fm], minlength=2406)  # a SUM over no FILTER rows is NULL
+    s1 = np.bincount(k, weights=np.where(fm, rm, 0), minlength=2406)
+    s2 = np.bincount(k, weights=rm * dm, minlength=2406)
+    out["e_filter_groupby"] = sorted(
+        (19920101 + int(i), int(cnt[i]), float(s1[i]) if fcnt[i] else None, float(s2[i]))
+        for i in np.nonzero(cnt)[0])
+    mb = m & (disc64 >= 1) & (disc64 <= 3)
+    out["f_q1_1_analog"] = [(float(int((rev[mb] * disc64[mb]).sum())),)]
+    km = od[m].astype(np.int64) % 100
+    gc = np.bincount(km, minlength=100)
+    gs = np.bincount(km, weights=np.where(dm > 5, rm, 0), minlength=100)
+    out["g_computed_key"] = [(int(i), int(gc[i]), float(gs[i])) for i in range(100) if gc[i]]
+    ih = np.nonzero((q == 1) & (disc64 == 0))[0]
+    oh = ih[np.lexsort((od[ih], -rev[ih]))][: 100 + 4096]  # every row a tie at the end can reach
+    out["h_selection_top"] = _ordered_expect(
+        np.stack([-rev[oh], od[oh].astype(np.int64)], 1),
+        [(int(a), 1, 0, int(b)) for a, b in zip(od[oh], rev[oh])], 0, 100)
+    if segment_only:
+        ii = np.nonzero(q == 1)[0]
+        oi = ii[np.lexsort((rev[ii], od[ii]))]
+        head = oi[: 60 + 4096]  # every row a tie at the window's end can reach
+        out["i_selection_expr"] = _ordered_expect(
+            np.stack([od[head].astype(np.int64), rev[head]], 1),
+            [(int(a), int(b) * int(c)) for a, b, c in zip(od[head], rev[head], disc64[head])], 10, 50)
+        ij = np.nonzero((q == 1) & (disc64 == 0) & (rev > 990000))[0]
+        by_date = {}
+        for j in ij:
+            by_date.setdefault(int(od[j]), []).append(int(rev[j]))
+        out["j_windows"] = [
+            (int(od[j]), int(rev[j]), 1 + sum(r > int(rev[j]) for r in by_date[int(od[j])]),
+             float(sum(by_date[int(od[j])])))
+            for j in ij
+        ][:5000]
+    return out
+
+
+def _transform_exact(name: str, got_rows, want) -> bool:
+    if name in ("h_selection_top", "i_selection_expr"):
+        return _ordered_exact(list(got_rows), want)
+    if name == "e_filter_groupby":
+        return sorted(got_rows) == want
+    return list(got_rows) == want
+
+
+def _transform_counted_run(engine, names, golden, kind: str, plans=None):
+    """Each query once, with the scan counters set to 0 just before and read
+    just after the run (a spy on fused_scan.build_params, which only a
+    launch calls on the SQL path, records each launch's distinct masks);
+    the rows held against the golden and the route checked."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    real = fused_scan.build_params
+    seen = []
+
+    def spy(*a, **k):
+        p, order, variant = real(*a, **k)
+        seen.append((variant, int(p.num_masks), bool(p.mask_words)))
+        return p, order, variant
+
+    fused_scan.build_params = spy
+    try:
+        fused_scan.LAUNCHES = fused_scan.MASK_WORDS_LAUNCHES = 0
+        fused_scan.VARIANT_LAUNCHES.clear()
+        out = {}
+        for name in names:
+            before = (fused_scan.LAUNCHES, fused_scan.MASK_WORDS_LAUNCHES, len(seen),
+                      dict(fused_scan.VARIANT_LAUNCHES))
+            res = engine.query(TRANSFORM_QUERIES[name])
+            torch.cuda.synchronize()
+            launched = seen[before[2]:]
+            out[name] = {
+                "launches": fused_scan.LAUNCHES - before[0],
+                "mask_words_launches": fused_scan.MASK_WORDS_LAUNCHES - before[1],
+                "instantiations": {k: v - before[3].get(k, 0) for k, v in fused_scan.VARIANT_LAUNCHES.items()
+                                   if v != before[3].get(k, 0)},
+                "masks_per_launch": [m for _v, m, _w in launched],
+                "bytes_to_host": res.stats.bytes_to_host,
+                "rows": len(res.rows),
+                "exact": _transform_exact(name, res.rows, golden[name]),
+            }
+        launches, variants = fused_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES)
+    finally:
+        fused_scan.build_params = real
+    for name, r in out.items():
+        if not r["exact"]:
+            raise AssertionError(f"{kind} query {name} differs from the numpy golden")
+        expected = TRANSFORM_SCANS.get(name)
+        per_launch = len(plans[name].batch_offsets) if plans is not None else len(engine.tables["lineorder"].segments)
+        want_launches = per_launch if expected else 0
+        if r["launches"] != want_launches:
+            raise AssertionError(f"{kind} query {name}: {r['launches']} scan launches, want {want_launches}: {r}")
+        if expected and (r["instantiations"] != {expected[0]: want_launches}
+                         or set(r["masks_per_launch"]) != {expected[1]}):
+            raise AssertionError(f"{kind} query {name} did not launch {expected}: {r}")
+        if expected and plans is not None and (not plans[name].word_fused or r["mask_words_launches"] != want_launches):
+            raise AssertionError(f"{kind} query {name} did not read the filter words in every launch: {r}")
+        if name.startswith(("h_", "i_")) and not r["bytes_to_host"]:
+            raise AssertionError(f"{kind} selection {name} copied no doc ids home: {r}")
+    return launches, variants, out
+
+
+def _wall_ms(engine, sql: str) -> dict:
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.query(sql)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"median_ms": statistics.median(ms), "runs_ms": ms}
+
+
+def phase_transform_path(seg, dist):
+    """(e)-(j) on the segment engine's 8 x 2^23 rows and (e)-(h) on the
+    distributed engine's 2^27-row table at one launch and at three: each
+    query once counted and held against its numpy golden, then warm wall
+    times.  Returns the launches, the instantiations, each query's record
+    and the profiles to run."""
+    from pinot_tpu_torch.sql.parser import parse_query
+
+    t0 = time.perf_counter()
+    seg_cols = {k: np.concatenate([d[k] for d in seg["datas"]]) for k in seg["datas"][0]}
+    seg_golden = transform_golden(seg_cols, segment_only=True)
+    del seg_cols
+    dist_golden_rows = transform_golden(dist["data"], segment_only=False)
+    log("transform_setup", golden_s=time.perf_counter() - t0)
+
+    records, launches, by_path, variants, profiles = {}, 0, {}, {}, []
+    runs = [("segment_engine", seg["engine"], list(TRANSFORM_QUERIES), seg_golden, None)]
+    for label, e in dist["engines"].items():
+        names = [n for n in TRANSFORM_QUERIES if n not in TRANSFORM_SEGMENT_ONLY]
+        plans = {n: e._plan(parse_query(TRANSFORM_QUERIES[n]), dist["stacked"]) for n in names}
+        runs.append((f"dist_{label}", e, names, dist_golden_rows, plans))
+        for n in TRANSFORM_SEGMENT_ONLY:
+            try:
+                e.query(TRANSFORM_QUERIES[n])
+            except NotImplementedError as err:
+                records[f"dist_{label}/{n}"] = {"refused": str(err)}
+            else:
+                raise AssertionError(f"the distributed engine answered {n}, which the JAX package refuses")
+    for label, e, names, golden_rows, plans in runs:
+        nl, nv, per_query = _transform_counted_run(e, names, golden_rows, label, plans)
+        launches += nl
+        by_path[label] = nl
+        for k, v in nv.items():
+            variants[k] = variants.get(k, 0) + v
+        for name, r in per_query.items():
+            if plans is not None:
+                r["batches"] = len(plans[name].batch_offsets)
+            records[f"{label}/{name}"] = r
+    for label, e, names, _g, _p in runs:
+        for name in names:
+            records[f"{label}/{name}"].update(_wall_ms(e, TRANSFORM_QUERIES[name]))
+            profiles.append(("transform_profile", {"engine": label, "query": name}, e, TRANSFORM_QUERIES[name]))
+    log("transform_check", exact=True, launches=launches, launches_by_engine=by_path, instantiations=variants)
+    return {"launches": launches, "variants": variants, "records": records, "profiles": profiles}
+
+
+def run_profiles(tasks) -> dict:
+    """Every profile the query phases asked for, after all their wall
+    timings (a torch.profiler session leaves tracing set up in the process);
+    one log line each, and the results by (phase, engine, query)."""
+    out = {}
+    for phase, labels, engine, sql in tasks:
+        prof = profile_query(engine, sql)
+        log(phase, **labels, **prof)
+        out[(phase, labels.get("engine"), labels["query"])] = prof
+    return out
+
 
 
 def main() -> int:
@@ -996,12 +1281,28 @@ def main() -> int:
     timing = timings[0]  # the distributed main path's shape
     seg_timing = timings[1]  # the segment main path's shape (the single numbers up to slice 2)
 
-    # 4. main paths: the segment engine's, then the distributed engine's
-    sse_launches, main_variants = phase_main_path(args, dev)
-    dist_launches, dist_variants = phase_dist_main_path(args, dev)
-    for k, v in dist_variants.items():
-        main_variants[k] = main_variants.get(k, 0) + v
-    main_launches = sse_launches + dist_launches
+    # 4. main paths: the segment engine's, the distributed engine's, then
+    # the transform path over the tables they built; their profiles after
+    # all their wall timings
+    seg = phase_main_path(args, dev)
+    dist = phase_dist_main_path(args, dev)
+    transform = phase_transform_path(seg, dist)
+    main_variants = dict(seg["variants"])
+    for part in (dist, transform):
+        for k, v in part["variants"].items():
+            main_variants[k] = main_variants.get(k, 0) + v
+    sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
+    main_launches = sse_launches + dist_launches + transform_launches
+    profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"])
+    for key, rec in transform["records"].items():
+        engine, _, query = key.partition("/")
+        prof = profiles.get(("transform_profile", engine, query), {})
+        log("transform_path", engine=engine, query=query, **rec,
+            device_busy_ms=prof.get("device_busy_ms", "not run"), device_idle_share=prof.get("device_idle_share",
+                                                                                             "not run"))
+    dist["stacked"].release_device()
+    del seg, dist, transform
+    torch.cuda.empty_cache()
 
     # 5. profile
     generic, flush_check = phase_kernel_profile(args.seed + 1, dev, timings)
@@ -1016,7 +1317,8 @@ def main() -> int:
         "exact": worst == 0.0,
         "launches": main_launches,
         "launches_on_main_path": main_launches,
-        "launches_by_path": {"segment_engine": sse_launches, "distributed_engine": dist_launches},
+        "launches_by_path": {"segment_engine": sse_launches, "distributed_engine": dist_launches,
+                             "transform_path": transform_launches},
         "max_abs_err": worst,
         "shape": timing["shape"],
         "ms": timing["kernel_ms"],
@@ -1027,6 +1329,8 @@ def main() -> int:
         "library_ms": timing["library_ms"],
         "scan_ms": timing["scan_ms"],
         "segment_path_shape": {k: seg_timing[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
+        "filter_launch_shape": {k: timings[5][k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
         "instantiations_on_main_path": main_variants,
         "shapes": timings,

@@ -13,13 +13,21 @@ ops.sparse_merge.merge_sparse_tables), and one copy brings the result home.
 
 The range-index words of a filter that is one plain bitmap go straight to
 the fused scan (`mask_words`, the word-fused path): no row mask is unpacked.
-Up to `pipeline_depth` launches are in flight before the first drain, which
-waits on that launch's completion event, not on the whole stream.
+Aggregation inputs may be expressions and carry FILTER (WHERE ...) masks,
+which ride the word-fused path beside the words; group keys may be "expr" or
+"derived" dimensions.  Up to `pipeline_depth` launches are in flight before
+the first drain, which waits on that launch's completion event, not on the
+whole stream.
 
-Not ported in this slice, each raising NotImplementedError naming its
-ROADMAP Queue 1 item: selection queries (item 2), residency tiering and
-prefetch (item 3), cross-query batching `execute_many` (item 6), joins
-(item 8).  Sketch bindings are slice 4, with the sketches.
+Selection queries take the JAX engine's shape: bare select columns and bare
+ORDER BY columns only (expression items and window functions are refused,
+as there).  Each launch's row mask turns into global doc ids on the device,
+only the fresh part of a re-covering tail window counting, and only the ids
+come home; the rows gather on the host (StackedTable.decoded_rows).
+
+Not ported, each raising NotImplementedError naming its ROADMAP Queue 1
+item: sketches (item 4), residency tiering and prefetch (item 3),
+cross-query batching `execute_many` (item 6), joins (item 8).
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ from pinot_tpu_torch.query import executor, planner
 from pinot_tpu_torch.query import reduce as reduce_mod
 from pinot_tpu_torch.query.filter import FilterCompiler
 from pinot_tpu_torch.query.functions import FIELD_COMBINE, combine_field
-from pinot_tpu_torch.query.ir import QueryContext
+from pinot_tpu_torch.query.ir import Expr, QueryContext
 from pinot_tpu_torch.query.planner import GroupDim
 from pinot_tpu_torch.query.result import (
     AggSegmentResult,
@@ -47,6 +55,7 @@ from pinot_tpu_torch.query.result import (
     ExecutionStats,
     GroupBySegmentResult,
     ResultTable,
+    SelectionSegmentResult,
 )
 from pinot_tpu_torch.query.shape import column_info_from, params_structure
 
@@ -96,8 +105,8 @@ class _ShardView:
 
 @dataclass
 class _DistPlan:
-    kind: str  # aggregation | groupby_dense | groupby_sparse
-    fn: Callable  # fn(cols, params, dev) -> one launch's outputs
+    kind: str  # aggregation | groupby_dense | groupby_sparse | selection
+    fn: Callable  # fn(cols, params, dev) -> one launch's outputs (selection: the row mask)
     params: Dict[str, Any]
     needed_columns: List[str]
     aggs: List[Any]
@@ -116,6 +125,7 @@ class _DistPlan:
     sparse_merge_fn: Optional[Callable] = None
     # the filter's words go straight to the fused scan (mask_words)
     word_fused: bool = False
+    select_columns: Tuple[str, ...] = ()
 
 
 class DistributedEngine:
@@ -265,11 +275,6 @@ class DistributedEngine:
         """Plan one query over the stacked table.  With `cached` (a plan
         cache hit) only the params and metadata are rebuilt; the closure and
         the merge function are the cached plan's."""
-        if not ctx.is_aggregate:
-            raise NotImplementedError(
-                "selection queries on the distributed engine are a later slice of the port "
-                "(ROADMAP Queue 1 item 2)"
-            )
         planner._refuse_later_slices(ctx)
         ndev = self.num_devices
         L = stacked.num_shards // ndev
@@ -305,19 +310,31 @@ class DistributedEngine:
         view = _ShardView(stacked, local_rows, docs_fn=docs_fn, bitmap_layout=(ndev, L, D_full // 32))
         fc = FilterCompiler(view, ctx.null_handling)
         filter_fn = fc.compile(ctx.filter)
-        # set when the WHOLE filter is one plain index bitmap
+        # set when the WHOLE filter is one plain index bitmap (read before
+        # the FILTER clauses below compile through the same compiler)
         word_key = fc.sole_bitmap_param
         agg_specs = list(ctx.aggregations)
         aggs = planner.bind_aggs(agg_specs, stacked, ctx)
+        agg_filter_fns = [fc.compile(s.filter) if s.filter is not None else None for s in agg_specs]
 
         kind, group_dims, num_groups = planner.plan_groups(ctx, view, aggs)
+        select_columns: List[str] = []
+        if kind == "selection":
+            for s in ctx.select_list:
+                if not (isinstance(s, Expr) and s.is_column):
+                    raise NotImplementedError(
+                        f"selection item {s} on the distributed engine: only bare columns, as in the JAX package"
+                    )
+                select_columns.extend(stacked.schema.column_names if s.op == "*" else [s.op])
+            if any(not o.expr.is_column for o in ctx.order_by):
+                raise NotImplementedError("selection ORDER BY on the distributed engine supports bare columns only")
         needed = planner._needed_columns(ctx, stacked)
         packed_meta = planner.packed_code_bits(stacked, needed)
 
         def _flat(cols):
             return planner.overlay_unpacked(flatten_cols(cols), packed_meta, local_rows)
 
-        _agg_inputs = planner.make_agg_inputs(agg_specs, aggs, view, ctx.null_handling)
+        _agg_inputs = planner.make_agg_inputs(agg_specs, aggs, agg_filter_fns, view, ctx.null_handling)
 
         def _filtered(cols, params, dev):
             """The filter's row mask, padding and covered tail rows off."""
@@ -333,7 +350,12 @@ class DistributedEngine:
             def kernel(cols, params, dev):
                 cols = _flat(cols)
                 tmask = _filtered(cols, params, dev)
-                return [fn.partial(v, m) for fn, (v, m) in zip(aggs, _agg_inputs(cols, tmask))]
+                return [fn.partial(v, m) for fn, (v, m) in zip(aggs, _agg_inputs(cols, params, tmask, dev))]
+
+        elif kind == "selection":
+
+            def kernel(cols, params, dev):
+                return _filtered(_flat(cols), params, dev)
 
         elif kind == "groupby_dense":
             vranges = planner.agg_vranges(agg_specs, stacked)
@@ -352,7 +374,8 @@ class DistributedEngine:
                     tmask = _filtered(cols, params, dev)
                     words = None
                 return planner.grouped_partials(
-                    aggs, _agg_inputs(cols, tmask), tmask, planner.lazy_group_key(cols, group_dims), num_groups,
+                    aggs, _agg_inputs(cols, params, tmask, dev), tmask,
+                    planner.lazy_group_key(cols, group_dims, view, dev), num_groups,
                     vranges, backend=backend, mask_words=words,
                     key_packed=planner.key_packed(cols, group_dims, packed_meta, local_rows, backend),
                 )
@@ -361,11 +384,12 @@ class DistributedEngine:
             # per-launch sort + scatter into fixed [num_slots] tables; only
             # tables, never row-length arrays, outlive a launch.  Each launch
             # keeps its local top num_slots groups by the ORDER BY comparator
-            tables, num_slots, order_spec = planner.sparse_tables_fn(ctx, aggs, group_dims, num_groups, _agg_inputs)
+            tables, num_slots, order_spec = planner.sparse_tables_fn(
+                ctx, aggs, group_dims, num_groups, _agg_inputs, view)
 
             def kernel(cols, params, dev):
                 cols = _flat(cols)
-                return tables(cols, _filtered(cols, params, dev))
+                return tables(cols, params, _filtered(cols, params, dev), dev)
 
             # device merge across launches when every aggregation merges
             # field-wise and any ORDER BY-aware trim is expressible on the
@@ -395,8 +419,9 @@ class DistributedEngine:
         # host ints at launch (the closure branches on them, eagerly)
         fc.params["__boff__"] = np.int32(0)
         fc.params["__fresh__"] = np.int32(0)
-        # index-resolved filter columns never ship to the device
-        keep = planner._non_filter_columns(ctx, view) | fc.used_columns
+        # index-resolved filter columns never ship to the device, and a
+        # selection's launches read only the filter's columns
+        keep = fc.used_columns if kind == "selection" else planner._non_filter_columns(ctx, view) | fc.used_columns
         return _DistPlan(
             kind=kind,
             fn=cached.fn if cached is not None else kernel,
@@ -411,6 +436,7 @@ class DistributedEngine:
             batch_offsets=tuple(batch_offsets),
             sparse_merge_fn=sparse_merge_fn,
             word_fused=word_fused,
+            select_columns=tuple(select_columns),
         )
 
     # ------------------------------------------------------------------
@@ -502,6 +528,19 @@ class DistributedEngine:
         if plan.kind == "aggregation":
             return AggSegmentResult(partials=list(executor._to_host(self._combine_partials(batch_outs))))
 
+        if plan.kind == "selection":
+            # each launch's mask -> global flat doc ids on the device (the
+            # kernel masked padding and a tail window's re-covered columns);
+            # one sorted id vector comes home
+            D, Db = stacked.docs_per_shard, plan.batch_docs
+            ids = []
+            for (off, _fresh), m in zip(plan.batch_offsets, batch_outs):
+                local = torch.nonzero(m).reshape(-1)
+                ids.append((local // Db) * D + off + local % Db)
+            docids = torch.sort(torch.cat(ids)).values.cpu().numpy()
+            stats.bytes_to_host += int(docids.nbytes)
+            return self._gather_selection(ctx, plan, stacked, docids)
+
         if plan.kind == "groupby_dense":
             presence = batch_outs[0][0]
             for p, _ in batch_outs[1:]:
@@ -543,3 +582,41 @@ class DistributedEngine:
             )
         stats.num_groups = len(res.keys[0]) if res.keys else 0
         return res
+
+    @staticmethod
+    def _gather_selection(ctx, plan: _DistPlan, stacked, docids: np.ndarray) -> SelectionSegmentResult:
+        """Rows of the matched global doc ids (ascending): the ORDER BY
+        top-k on the shared dictionary's codes (global sort ranks), then the
+        decoded select and order columns."""
+        want = ctx.offset + ctx.limit
+        if ctx.order_by:
+            if len(docids) > want:
+                lex_keys: List[np.ndarray] = []
+                for ob in reversed(ctx.order_by):
+                    c = stacked.column(ob.expr.op)
+                    key, null_rank = executor.order_key_arrays(
+                        c.codes.reshape(-1) if c.codes is not None else None,
+                        c.values.reshape(-1) if c.values is not None else None,
+                        c.nulls.reshape(-1) if c.nulls is not None else None,
+                        docids, ob.ascending, ob.nulls_last,
+                    )
+                    lex_keys.append(key)
+                    if null_rank is not None:
+                        lex_keys.append(null_rank)
+                docids = docids[np.lexsort(tuple(lex_keys))[:want]]
+        else:
+            docids = docids[:want]
+
+        def _decoded(name: str) -> np.ndarray:
+            c = stacked.column(name)
+            vals = stacked.decoded_rows(name, docids)
+            if c.nulls is not None and ctx.null_handling:
+                vals = np.asarray(vals, dtype=object)
+                vals[c.nulls.reshape(-1)[docids]] = None
+            return vals
+
+        arrays: Dict[str, np.ndarray] = {name: _decoded(name) for name in plan.select_columns}
+        for i, ob in enumerate(ctx.order_by):
+            arrays[f"__ord{i}"] = _decoded(ob.expr.op)
+        cols_out = list(plan.select_columns) + [f"__ord{i}" for i in range(len(ctx.order_by))]
+        return SelectionSegmentResult(columns=cols_out, arrays=arrays)

@@ -295,3 +295,12 @@ class StackedTable:
         if c.dictionary is not None:
             return c.dictionary.get_values(c.codes.reshape(-1))
         return c.values.reshape(-1)
+
+    def decoded_rows(self, name: str, rows: np.ndarray) -> np.ndarray:
+        """Decoded values of SPECIFIC flat doc ids: O(len(rows)) host work,
+        never a full-column decode (a selection reads a LIMIT-sized handful
+        of the table's rows)."""
+        c = self.columns[name]
+        if c.dictionary is not None:
+            return c.dictionary.get_values(c.codes.reshape(-1)[rows])
+        return c.values.reshape(-1)[rows]

@@ -6,8 +6,11 @@ in the JAX package — every segment's work is launched (queued on the CUDA
 stream) before the first result is collected — then the host reduce runs.
 
 ``QueryEngine(device=None)`` runs on CUDA and raises without it;
-``device="cpu"`` runs the plain PyTorch path.  EXPLAIN, subqueries, set
-operations, joins and selection queries are later slices of the port.
+``device="cpu"`` runs the plain PyTorch path.  Aggregations, group-bys
+(over columns and expressions, with FILTER (WHERE ...)), and selections
+(columns, expressions, ORDER BY, OFFSET, window functions) run; EXPLAIN,
+subqueries, set operations, joins and gap-filling are later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -74,6 +77,7 @@ class QueryEngine:
             stats.num_segments_processed += 1
             stats.num_docs_scanned += seg_stats.num_docs_scanned
             stats.add_index_uses(seg_stats.filter_index_uses)
+            stats.bytes_to_host += seg_stats.bytes_to_host
             results.append(res)
         out = reduce_mod.reduce_results(ctx, results, stats)
         out.stats.time_ms = (time.perf_counter() - t0) * 1000

@@ -10,7 +10,10 @@ current stream and the call returns before the device finishes.
 ``collect_segment`` moves the outputs to the host (``.cpu()``, which waits
 for the device) and decodes them: dense group table -> present keys, sparse
 fixed-slot tables -> merged keys (``sparse_tables_to_result``, which the
-distributed engine shares).
+distributed engine shares).  A selection's row mask turns into matched doc
+ids on the device (``torch.nonzero``), and only the ids come home; the host
+then trims them per segment (ORDER BY over dictionary codes, which are sort
+ranks within the segment) and gathers the decoded rows.
 """
 from __future__ import annotations
 
@@ -21,13 +24,15 @@ import torch
 
 from pinot_tpu_torch.query import planner
 from pinot_tpu_torch.query.functions import combine_field
-from pinot_tpu_torch.query.ir import FilterNode, FilterOp, PredicateType, QueryContext
+from pinot_tpu_torch.query.ir import Expr, FilterNode, FilterOp, PredicateType, QueryContext, WindowSpec
 from pinot_tpu_torch.query.result import (
     AggSegmentResult,
     DenseGroupData,
     ExecutionStats,
     GroupBySegmentResult,
+    SelectionSegmentResult,
 )
+from pinot_tpu_torch.query.transform import eval_expr_host
 from pinot_tpu_torch.segment.segment import ImmutableSegment
 
 
@@ -124,9 +129,19 @@ def _to_host(x):
     return x
 
 
+def matched_docids(tmask: torch.Tensor) -> np.ndarray:
+    """Ascending doc ids where the row mask is set: found on the mask's
+    device, so only the ids cross to the host."""
+    return torch.nonzero(tmask.reshape(-1)).reshape(-1).cpu().numpy()
+
+
 def collect_segment(state):
     """Move the outputs to the host and decode them."""
     ctx, segment, plan, out, stats = state
+    if plan.kind == "selection":
+        docids = matched_docids(out)
+        stats.bytes_to_host = int(docids.nbytes)
+        return _gather_selection(ctx, plan, segment, docids), stats
     host = _to_host(out)
     if plan.kind == "aggregation":
         return AggSegmentResult(partials=list(host)), stats
@@ -276,3 +291,166 @@ def sparse_tables_to_result(
         u = u[sel]
         out = [{f: a[sel] for f, a in p.items()} for p in out]
     return GroupBySegmentResult(keys=planner.decode_packed_keys(group_dims, u), partials=out, dense=None)
+
+
+# ---------------------------------------------------------------------------
+# Selection
+# ---------------------------------------------------------------------------
+def _gather_selection(ctx: QueryContext, plan, segment: ImmutableSegment, docids: np.ndarray) -> SelectionSegmentResult:
+    """Host-side row gather for selection queries over the segment's
+    matched doc ids (ascending), with the per-segment trim (SelectionOnly /
+    SelectionOrderBy operator analog)."""
+    # window functions rank/aggregate over ALL matched rows: the
+    # per-segment trim would change their results, so it is off (bounded
+    # by a valve)
+    if ctx.windows:
+        cap = int(ctx.options.get("maxWindowRows", 1_000_000))
+        if len(docids) > cap:
+            raise ValueError(f"window/unnest query matched {len(docids)} rows > maxWindowRows={cap}")
+        want = len(docids)
+    else:
+        want = ctx.offset + ctx.limit
+    if ctx.order_by:
+        if len(docids) > want:
+            # Per-segment trim: WITHIN one segment dict codes are sort ranks
+            # (sorted dictionary), so a stable lexsort on codes/values is a
+            # correct local top-k whatever the type; expression keys
+            # evaluate on the host over the matched rows.  lexsort's primary
+            # key is the LAST array: (value, null_rank) per ORDER BY
+            # expression, pushed in reverse significance.
+            lex_keys: List[np.ndarray] = []
+            for ob in reversed(ctx.order_by):
+                if ob.expr.is_column:
+                    value_key, null_rank = _local_order_key(segment, ob.expr.op, docids, ob.ascending, ob.nulls_last)
+                else:
+                    value_key, null_rank = _expr_order_key(segment, ob.expr, docids, ob.ascending, ob.nulls_last)
+                lex_keys.append(value_key)
+                if null_rank is not None:
+                    lex_keys.append(null_rank)
+            order = np.lexsort(tuple(lex_keys))[:want]
+            docids = docids[order]
+    else:
+        docids = docids[:want]
+    arrays: Dict[str, np.ndarray] = {}
+
+    def _decoded(name: str) -> np.ndarray:
+        c = segment.column(name)
+        vals = c.decoded_rows(docids)
+        if c.nulls is not None and ctx.null_handling:
+            vals = np.asarray(vals, dtype=object)
+            vals[c.nulls[docids]] = None
+        return vals
+
+    def _value_array(e) -> np.ndarray:
+        return _decoded(e.op) if e.is_column else eval_expr_host(e, segment, docids)
+
+    out_keys: List[str] = []
+    items = plan.select_exprs or [Expr.col(n) for n in plan.select_columns]
+    # window keys are indexed by position in ctx.select_list (what reduce
+    # enumerates), not by the *-expanded item index
+    win_positions = iter(i for i, s in enumerate(ctx.select_list) if isinstance(s, WindowSpec))
+    for i, e in enumerate(items):
+        if isinstance(e, WindowSpec):
+            # placeholder output slot (reduce overwrites it after the global
+            # merge) and the window's input arrays keyed by fingerprint
+            key = f"__win{next(win_positions)}"
+            out_keys.append(key)
+            arrays[key] = np.zeros(len(docids))
+            for ie in list(e.partition_by) + [o.expr for o in e.order_by] + ([e.expr] if e.expr else []):
+                wkey = f"__wx_{ie.fingerprint()}"
+                if wkey not in arrays:
+                    arrays[wkey] = _value_array(ie)
+            continue
+        if e.is_column:
+            out_keys.append(e.op)
+            arrays[e.op] = _decoded(e.op)
+            continue
+        # expression select item: host evaluation over the gathered rows only
+        key = f"__sel{i}"
+        out_keys.append(key)
+        vals = eval_expr_host(e, segment, docids)
+        nmask = None
+        if ctx.null_handling:
+            for cname in e.columns():
+                cn = segment.column(cname).nulls
+                if cn is not None:
+                    m = cn[docids]
+                    nmask = m if nmask is None else (nmask | m)
+        if nmask is not None and nmask.any():
+            vals = np.asarray(vals, dtype=object)
+            vals[nmask] = None
+        arrays[key] = vals
+    # the cross-segment merge needs real VALUES for order columns (codes are
+    # segment-local); reduce re-sorts the concatenated trimmed rows
+    for i, ob in enumerate(ctx.order_by):
+        arrays[f"__ord{i}"] = _value_array(ob.expr)
+    cols = out_keys + [f"__ord{i}" for i in range(len(ctx.order_by))]
+    cols += sorted(k for k in arrays if k.startswith("__wx_"))
+    return SelectionSegmentResult(columns=cols, arrays=arrays)
+
+
+def order_key_arrays(
+    codes: Optional[np.ndarray],
+    values: Optional[np.ndarray],
+    nulls: Optional[np.ndarray],
+    docids: np.ndarray,
+    ascending: bool,
+    nulls_last: bool,
+):
+    """(value_key, null_rank) lexsort keys for ORDER BY, keeping integer
+    dtypes intact (LONG values above 2^53 must not collide in a float64
+    cast).  Shared by the per-segment selection trim and the distributed
+    gather (codes are sort ranks within their dictionary's key space)."""
+    if codes is not None:
+        key = np.asarray(codes)[docids].astype(np.int64)
+    else:
+        key = np.asarray(values)[docids]
+    if not ascending:
+        key = -key.astype(np.int64) if np.issubdtype(key.dtype, np.integer) else -key.astype(np.float64)
+    null_rank = None
+    if nulls is not None:
+        nullm = np.asarray(nulls)[docids]
+        null_rank = np.where(nullm, np.int8(1 if nulls_last else -1), np.int8(0))
+        key = np.where(nullm, key.dtype.type(0), key)
+    return key, null_rank
+
+
+def _expr_order_key(segment: ImmutableSegment, expr, docids: np.ndarray, ascending: bool, nulls_last: bool):
+    """(lexsort key, null_rank) for an ORDER BY expression: host evaluation
+    over the matched rows; a row is NULL when any input column is null there
+    (SQL null propagation), ranked by NULLS FIRST/LAST, not by the
+    placeholder value the expression computed."""
+    vals = eval_expr_host(expr, segment, docids)
+    nullm = None
+    for cname in expr.columns():
+        cn = segment.column(cname).nulls
+        if cn is not None:
+            m = cn[docids]
+            nullm = m if nullm is None else (nullm | m)
+    a = np.asarray(vals)
+    if a.dtype == object:
+        none_m = np.array([v is None for v in a], dtype=bool)
+        if none_m.any():
+            nullm = none_m if nullm is None else (nullm | none_m)
+            a = a.copy()
+            a[none_m] = 0
+        try:
+            a = a.astype(np.float64)
+        except (ValueError, TypeError):
+            pass
+    if np.issubdtype(a.dtype, np.number):
+        key = a.astype(np.float64)
+        key = key if ascending else -key
+    else:
+        _, inv = np.unique(a.astype(str), return_inverse=True)
+        key = inv if ascending else -inv
+    null_rank = None
+    if nullm is not None and nullm.any():
+        null_rank = np.where(nullm, np.int8(1 if nulls_last else -1), np.int8(0))
+        key = np.where(nullm, 0, key)
+    return key, null_rank
+
+
+def _local_order_key(segment: ImmutableSegment, col: str, docids: np.ndarray, ascending: bool, nulls_last: bool):
+    c = segment.column(col)
+    return order_key_arrays(c.codes, c.values, c.nulls, docids, ascending, nulls_last)

@@ -17,9 +17,11 @@ null_mask); rows are selected iff truly true.
 Per-segment constants ride a params dict (numpy on the host, tensors on the
 device at launch), so equal-shaped segments and queries that differ only
 in literals share one planned closure.  Closures take (cols, params, dev):
-eager torch needs the device for masks that read no column.  Transforms
-over columns (function calls in predicates or aggregation inputs) are a
-later slice of the port.
+eager torch needs the device for masks that read no column.  A predicate
+over an expression evaluates it through the transform layer
+(transform.eval_expr); one over a string function of a dictionary column
+(UPPER(city) = 'SF') evaluates the function over the dictionary on the
+host and looks the codes up in the resulting table.
 
 Macro-batch hooks (parallel/engine.py compiles against a _ShardView that
 carries them): with `bitmap_layout` = (ndev, L, D // 32) bitmap words are
@@ -39,7 +41,9 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.ops.segmented import unpack_bitmap_words
-from pinot_tpu_torch.query.ir import Expr, FilterNode, FilterOp, Predicate, PredicateType
+from pinot_tpu_torch.query import scalar
+from pinot_tpu_torch.query.ir import FilterNode, FilterOp, Predicate, PredicateType
+from pinot_tpu_torch.query.transform import eval_expr, or_masks
 from pinot_tpu_torch.segment.segment import ImmutableSegment
 
 # (true_mask, null_mask|None)
@@ -64,38 +68,35 @@ def like_to_regex(pattern: str) -> str:
     return "^" + "".join(out) + "$"
 
 
-def or_masks(a, b):
-    if a is None:
-        return b
-    if b is None:
-        return a
-    return a | b
-
-
-def column_values(name: str, segment: ImmutableSegment, cols: Dict) -> MaskPair:
-    """Numeric values of a column from its device entry (a dictionary gather
-    for dict-encoded numerics) and its null mask."""
-    c = segment.column(name)
-    entry = cols[name]
-    if c.data_type.is_string_like:
-        raise ValueError(
-            f"column {name!r} is {c.data_type.value}; string values never materialize on device "
-            "(use it in predicates/group-by, which operate on dict codes)"
-        )
-    if "values" in entry:
-        vals = entry["values"]
-    else:
-        vals = entry["dict"][entry["codes"].to(torch.int64)]
-    return vals, entry.get("nulls")
-
-
-def eval_column(expr: Expr, segment: ImmutableSegment, cols: Dict) -> MaskPair:
-    """(values, nulls) of a bare column expression."""
-    if not expr.is_column:
-        raise NotImplementedError(
-            f"expression {expr} needs the transform layer, a later slice of the port"
-        )
-    return column_values(expr.op, segment, cols)
+def _match_values(p, values: np.ndarray) -> np.ndarray:
+    """Evaluate a predicate over a (derived) value array -> bool table.
+    Used by derived-string predicates, where codes are NOT sort ranks of the
+    derived values, so everything is a table lookup (no code ranges)."""
+    pt = p.ptype
+    if pt is PredicateType.EQ:
+        return np.array([v == p.values[0] for v in values], dtype=bool)
+    if pt is PredicateType.NEQ:
+        return np.array([v != p.values[0] for v in values], dtype=bool)
+    if pt in (PredicateType.IN, PredicateType.NOT_IN):
+        s = set(p.values)
+        t = np.array([v in s for v in values], dtype=bool)
+        return ~t if pt is PredicateType.NOT_IN else t
+    if pt is PredicateType.RANGE:
+        t = np.ones(len(values), dtype=bool)
+        if p.lower is not None:
+            t &= np.array(
+                [(v >= p.lower if p.lower_inclusive else v > p.lower) for v in values], dtype=bool
+            )
+        if p.upper is not None:
+            t &= np.array(
+                [(v <= p.upper if p.upper_inclusive else v < p.upper) for v in values], dtype=bool
+            )
+        return t
+    if pt in (PredicateType.REGEXP_LIKE, PredicateType.LIKE):
+        pat = p.values[0]
+        rx = re.compile(pat if pt is PredicateType.REGEXP_LIKE else like_to_regex(pat))
+        return np.array([rx.search(str(v)) is not None for v in values], dtype=bool)
+    raise ValueError(f"predicate {pt} not supported on derived string values")
 
 
 def _promoted(vals: torch.Tensor, p: torch.Tensor):
@@ -237,13 +238,35 @@ class FilterCompiler:
             raise NotImplementedError(
                 f"{p.ptype.value} needs JSON/text/vector indexes, a later slice of the port"
             )
-        if not p.lhs.is_column:
-            raise NotImplementedError(
-                f"predicate over expression {p.lhs} needs the transform layer, a later slice of the port"
-            )
-        if seg.column(p.lhs.op).has_dictionary:
+        if p.lhs.is_column and seg.column(p.lhs.op).has_dictionary:
             return self._compile_dict_predicate(p)
+        if scalar.is_dict_fn_expr(p.lhs) and scalar.string_result(p.lhs):
+            return self._compile_derived_string_predicate(p)
         return self._compile_value_predicate(p)
+
+    def _compile_derived_string_predicate(self, p: Predicate) -> Callable[[Dict, Dict, torch.device], MaskPair]:
+        """Predicate over a string function of a dict column (WHERE
+        UPPER(city) = 'SF'): the function evaluates over the dictionary's
+        values on the host, the predicate over the derived values gives a
+        code table, and the device work is one table[codes] lookup."""
+        name = next(a for a in p.lhs.args if not a.is_literal).op
+        col = self.segment.column(name)
+        if not col.has_dictionary:
+            raise ValueError(f"{p.lhs.op} predicate requires dictionary column, {name} is raw")
+        table = _match_values(p, scalar.derived_for(p.lhs, col.dictionary))
+        has_nulls = col.nulls is not None and self.null_handling
+        key = self._key("dtable")
+        self.params[key] = table
+        self.used_columns.add(name)
+
+        def eval_table(cols, params, dev, _key=key, _name=name, _has=has_nulls):
+            t = params[_key][cols[_name]["codes"].to(torch.int64)]
+            nulls = cols[_name].get("nulls") if _has else None
+            if nulls is not None:
+                t = t & ~nulls
+            return t, nulls
+
+        return eval_table
 
     # -- dictionary-based ------------------------------------------------
     def _compile_dict_predicate(self, p: Predicate) -> Callable[[Dict, Dict, torch.device], MaskPair]:
@@ -432,7 +455,7 @@ class FilterCompiler:
         if pt in (PredicateType.REGEXP_LIKE, PredicateType.LIKE):
             raise ValueError(f"{pt.value} requires a dictionary-encoded column (lhs={p.lhs})")
         null_handling = self.null_handling
-        self.used_columns.add(p.lhs.op)
+        self.used_columns.update(c for c in p.lhs.columns() if c != "*")
 
         if pt in (PredicateType.IN, PredicateType.NOT_IN):
             key = self._key("set")
@@ -451,7 +474,7 @@ class FilterCompiler:
             self.params[key] = vals_arr
 
             def eval_in(cols, params, dev, _key=key, _neg=(pt is PredicateType.NOT_IN)):
-                vals, nulls = eval_column(p.lhs, seg, cols)
+                vals, nulls = eval_expr(p.lhs, seg, cols, dev)
                 t = torch.isin(*_promoted(vals, params[_key]))
                 if _neg:
                     t = ~t
@@ -487,7 +510,7 @@ class FilterCompiler:
             raise ValueError(f"predicate {pt} unsupported on raw values")
 
         def eval_cmp(cols, params, dev):
-            vals, nulls = eval_column(p.lhs, seg, cols)
+            vals, nulls = eval_expr(p.lhs, seg, cols, dev)
             if pt is PredicateType.EQ:
                 a, b = _promoted(vals, params[eq_key])
                 t = a == b

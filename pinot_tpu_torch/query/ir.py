@@ -1,9 +1,9 @@
 """Query IR: expressions, predicates, filter tree, query context.
 
-Copy of pinot_tpu/query/ir.py (host-only) without the window, gap-fill,
-subquery and join node types: the single-table slice's parser never builds
-them.  QueryContext keeps every field, so fingerprints are the JAX
-package's byte for byte.  Reference parity: the Thrift query IR PinotQuery/Expression
+Copy of pinot_tpu/query/ir.py (host-only) without the gap-fill, subquery
+and join node types: the single-table slices' parser never builds them.
+QueryContext keeps every field, so fingerprints are the JAX package's byte
+for byte.  Reference parity: the Thrift query IR PinotQuery/Expression
 (pinot-common/src/thrift/query.thrift:21,57) and pinot-core's QueryContext
 (pinot-core/.../core/query/request/context/QueryContext.java) — the engine's
 internal representation that the SQL parser produces and the planner consumes.
@@ -248,6 +248,46 @@ class OrderByExpr:
     nulls_last: bool = True
 
 
+@dataclass(frozen=True)
+class WindowSpec:
+    """One window-function select item — fn(...) OVER (PARTITION BY ...
+    ORDER BY ... [ROWS|RANGE frame]) (reference: WindowAggregateOperator,
+    pinot-query-runtime/.../runtime/operator/WindowAggregateOperator.java,
+    value functions under .../operator/window/value/, frames per
+    WindowFrame.java).
+
+    Functions: row_number/rank/dense_rank/ntile (ranking), lag/lead/
+    first_value/last_value (value), sum/count/avg/min/max/bool_and/bool_or
+    (aggregate).  literal_args carries NTILE's bucket count and LAG/LEAD's
+    (offset, default)."""
+
+    function: str
+    expr: Optional[Expr]
+    partition_by: Tuple[Expr, ...] = ()
+    order_by: Tuple[OrderByExpr, ...] = ()
+    # "range_all" = no frame clause (standard default: whole partition, or
+    # RANGE UNBOUNDED PRECEDING..CURRENT ROW when ORDER BY is present);
+    # "rows"/"range" = explicit frame with signed bounds; "rows_cumulative"
+    # = legacy alias for rows(None, 0)
+    frame: str = "range_all"
+    # signed bound offsets: None = UNBOUNDED, 0 = CURRENT ROW, -k = k
+    # PRECEDING, +k = k FOLLOWING (ROWS: row counts; RANGE: order-key deltas)
+    frame_lo: Optional[float] = None
+    frame_hi: Optional[float] = None
+    literal_args: Tuple = ()
+
+    def fingerprint(self) -> str:
+        e = self.expr.fingerprint() if self.expr else "*"
+        p = "|".join(x.fingerprint() for x in self.partition_by)
+        o = "|".join(f"{x.expr.fingerprint()}:{x.ascending}" for x in self.order_by)
+        f = f"{self.frame}:{self.frame_lo}:{self.frame_hi}"
+        la = ",".join(repr(a) for a in self.literal_args)
+        return f"win:{self.function}({e};{la})p[{p}]o[{o}]f[{f}]"
+
+    def __str__(self) -> str:
+        return f"{self.function}() OVER (...)"
+
+
 @dataclass
 class QueryContext:
     """Everything the engine needs for one query (QueryContext.java analog).
@@ -287,6 +327,10 @@ class QueryContext:
         return [s for s in self.select_list if isinstance(s, AggregationSpec)] + list(
             self.extra_aggregations
         )
+
+    @property
+    def windows(self) -> List["WindowSpec"]:
+        return [s for s in self.select_list if isinstance(s, WindowSpec)]
 
     @property
     def is_aggregate(self) -> bool:

@@ -18,9 +18,15 @@ Group-bys whose key space passes maxDenseGroups take the SPARSE path
 into fixed [numGroupsLimit] tables, with the ORDER BY-aware trim on the
 device.  The distributed engine (parallel/engine.py) shares these pieces.
 
-Shapes of later slices raise NotImplementedError here, naming the slice:
-selection queries, transforms and FILTER(WHERE) (slice 2), sketches and the
-extended aggregations (slice 4).
+Aggregation inputs and group keys may be expressions (query/transform.py):
+a FILTER (WHERE ...) clause gives its aggregation its own mask, a bounded
+integer expression is an "expr" group dimension and a string function of a
+dictionary column a "derived" one.  A query with no aggregation and no
+GROUP BY is a "selection" plan: its closure returns the filter's row mask
+and the executor gathers the rows (window functions are computed at reduce).
+
+Sketches and the aggregations with extra arguments raise
+NotImplementedError here, naming ROADMAP Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -34,9 +40,11 @@ import torch
 
 from pinot_tpu_torch.ops import segmented as ops
 from pinot_tpu_torch.ops.sparse_merge import SPARSE_EMPTY_KEY
-from pinot_tpu_torch.query.filter import FilterCompiler, eval_column
+from pinot_tpu_torch.query import scalar
+from pinot_tpu_torch.query.filter import FilterCompiler
 from pinot_tpu_torch.query.functions import FIELD_COMBINE, AggFunction, field_identity, for_spec
-from pinot_tpu_torch.query.ir import AggregationSpec, Expr, QueryContext
+from pinot_tpu_torch.query.ir import AggregationSpec, Expr, QueryContext, WindowSpec
+from pinot_tpu_torch.query.transform import as_row_array, device_constant, eval_expr
 from pinot_tpu_torch.query.shape import column_info_from, params_structure
 from pinot_tpu_torch.segment import packing
 from pinot_tpu_torch.segment.segment import ImmutableSegment
@@ -52,20 +60,29 @@ class GroupDim:
     kinds:
       dict    - dictionary codes of a column
       rawint  - integer column values shifted by base
+      expr    - integer-valued device expression shifted by base (range
+                bounded statically by scalar.expr_int_range)
+      derived - dict column remapped through a host-computed derived
+                dictionary (string functions: code -> remap[code], decoded
+                via derived_values)
     """
 
     expr: Expr
     name: str
-    kind: str  # "dict" | "rawint"
+    kind: str  # "dict" | "rawint" | "expr" | "derived"
     cardinality: int
     dictionary: Optional[Any] = None  # Dictionary for kind=dict
-    base: int = 0  # min value for kind=rawint
+    base: int = 0  # min value for kind=rawint/expr
     null_code: int = -1  # code representing SQL NULL (placeholder), -1 if none
+    derived_values: Optional[np.ndarray] = None  # kind=derived decode table
+    remap: Optional[np.ndarray] = None  # kind=derived code remap (int32)
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         if self.kind == "dict":
             card = self.dictionary.cardinality
             vals = self.dictionary.get_values(np.minimum(np.asarray(codes), card - 1))
+        elif self.kind == "derived":
+            vals = self.derived_values[np.minimum(np.asarray(codes), len(self.derived_values) - 1)]
         else:
             vals = codes.astype(np.int64) + self.base
         if self.null_code >= 0:
@@ -73,12 +90,18 @@ class GroupDim:
             vals[np.asarray(codes) == self.null_code] = None
         return vals
 
-    def device_code(self, cols, dtype=torch.int32) -> torch.Tensor:
+    def device_code(self, cols, segment, dev: torch.device, dtype=torch.int32) -> torch.Tensor:
         """Per-row dimension code in `dtype` (the group-key contribution)."""
         if self.kind == "dict":
             return cols[self.name]["codes"].to(dtype)
-        v = cols[self.name]["values"]
-        return (v - self.base).to(dtype)  # subtract in storage dtype
+        if self.kind == "rawint":
+            v = cols[self.name]["values"]
+            return (v - self.base).to(dtype)  # subtract in storage dtype
+        if self.kind == "derived":
+            remap = device_constant(self.remap, dev)
+            return remap[cols[self.name]["codes"].to(torch.int64)].to(dtype)
+        v, _ = eval_expr(self.expr, segment, cols, dev)
+        return (v.to(torch.int64) - self.base).to(dtype)
 
 
 def group_strides(group_dims: List[GroupDim]) -> List[int]:
@@ -102,13 +125,16 @@ def decode_packed_keys(group_dims: List[GroupDim], packed: np.ndarray) -> List[n
 
 @dataclass
 class SegmentPlan:
-    kind: str  # "aggregation" | "groupby_dense" | "groupby_sparse"
-    fn: Callable  # fn(cols, params, device) -> partials
+    kind: str  # "aggregation" | "groupby_dense" | "groupby_sparse" | "selection"
+    fn: Callable  # fn(cols, params, device) -> partials (selection: the row mask)
     params: Dict[str, Any]
     needed_columns: List[str]
     aggs: List[AggFunction] = field(default_factory=list)
     group_dims: List[GroupDim] = field(default_factory=list)
     num_groups: int = 0
+    select_columns: List[str] = field(default_factory=list)
+    # selection output items in order (columns, expressions and windows)
+    select_exprs: List[Any] = field(default_factory=list)
     # (column, index kind) per index-accelerated filter predicate
     index_uses: List[Tuple[str, str]] = field(default_factory=list)
     cache_key: Optional[Tuple] = None
@@ -175,7 +201,7 @@ def column_limb_sig(c) -> Optional[Tuple[int, bool]]:
     return None
 
 
-def _segment_signature(segment: ImmutableSegment, needed: List[str]) -> Tuple:
+def _segment_signature(segment: ImmutableSegment, needed: List[str], const_cols: frozenset = frozenset()) -> Tuple:
     sig = [segment.num_docs, segment.valid_docs is not None]
     for name in sorted(needed):
         c = segment.column(name)
@@ -185,6 +211,15 @@ def _segment_signature(segment: ImmutableSegment, needed: List[str]) -> Tuple:
             raw_range = (
                 (_sig_value(c.stats.min_value), _sig_value(c.stats.max_value)) if c.stats.num_docs else (0, 0)
             )
+        # columns whose dictionary-derived constants (derived remaps, expr
+        # ranges) the closure bakes in: the dictionary and range join the key
+        const_extra = None
+        if name in const_cols:
+            const_extra = (
+                c.dictionary.fingerprint() if c.has_dictionary else None,
+                _sig_value(c.stats.min_value),
+                _sig_value(c.stats.max_value),
+            )
         sig.append(
             (
                 name,
@@ -193,12 +228,48 @@ def _segment_signature(segment: ImmutableSegment, needed: List[str]) -> Tuple:
                 c.code_bits,
                 c.nulls is not None,
                 raw_range,
+                const_extra,
                 column_limb_sig(c),
                 c.stats.is_sorted,
                 tuple(sorted(k for k, by_col in segment.indexes.items() if name in by_col)),
             )
         )
     return tuple(sig)
+
+
+def const_bound_columns(ctx: QueryContext) -> frozenset:
+    """Columns whose dictionary values a planned closure bakes in as
+    constants: any column under a dictionary-domain function (derived
+    arrays) or an expression group-by (derived remaps, expr ranges).  Their
+    dictionary fingerprint joins the plan-cache signature, or a same-shaped
+    segment would reuse another segment's constants."""
+    out = set()
+
+    def visit(e: Optional[Expr]) -> None:
+        if e is None:
+            return
+        if e.kind.name == "CALL":
+            if e.op in scalar.DICT_FNS:
+                out.update(e.columns())
+            for a in e.args:
+                visit(a)
+
+    def visit_filter(node) -> None:
+        if node is None:
+            return
+        if node.predicate is not None:
+            visit(node.predicate.lhs)
+        for ch in node.children:
+            visit_filter(ch)
+
+    for g in ctx.group_by:
+        if not g.is_column:
+            out.update(g.columns())  # expr dims bake ranges/remaps
+    for spec in ctx.aggregations:
+        visit(spec.expr)
+        visit_filter(spec.filter)
+    visit_filter(ctx.filter)
+    return frozenset(out)
 
 
 def _needed_columns(ctx: QueryContext, segment: ImmutableSegment) -> List[str]:
@@ -213,6 +284,13 @@ def _needed_columns(ctx: QueryContext, segment: ImmutableSegment) -> List[str]:
                 cols.extend(s.expr.columns())
             if s.filter:
                 cols.extend(s.filter.columns())
+        elif isinstance(s, WindowSpec):
+            if s.expr is not None:
+                cols.extend(s.expr.columns())
+            for pe in s.partition_by:
+                cols.extend(pe.columns())
+            for o in s.order_by:
+                cols.extend(o.expr.columns())
         else:
             cols.extend(s.columns())
     # ORDER BY/HAVING references to AGGREGATION aliases resolve at reduce
@@ -221,14 +299,20 @@ def _needed_columns(ctx: QueryContext, segment: ImmutableSegment) -> List[str]:
         a for s, a in zip(ctx.select_list, ctx.select_aliases) if a and isinstance(s, AggregationSpec)
     }
     alias_only = agg_aliases - set(segment.schema.column_names)
+    # "*" here can only come from COUNT(*) inside an ORDER BY/HAVING call,
+    # which reads no column (unlike SELECT *)
     for o in ctx.order_by:
         cols.extend(c for c in o.expr.columns() if c not in alias_only and c != "*")
     if ctx.having:
         cols.extend(c for c in ctx.having.columns() if c not in alias_only and c != "*")
     seen, out = set(), []
     for c in cols:
-        if c == "*":
-            continue  # COUNT(*) reads no column
+        if c == "*":  # SELECT *
+            for name in segment.schema.column_names:
+                if name not in seen:
+                    seen.add(name)
+                    out.append(name)
+            continue
         if c not in seen:
             seen.add(c)
             out.append(c)
@@ -236,46 +320,65 @@ def _needed_columns(ctx: QueryContext, segment: ImmutableSegment) -> List[str]:
 
 
 def _non_filter_columns(ctx: QueryContext, segment) -> set:
-    """Columns the plan needs independent of the WHERE clause."""
+    """Columns the plan needs independent of the WHERE and FILTER clauses."""
     import dataclasses as dc
 
-    return set(_needed_columns(dc.replace(ctx, filter=None), segment))
+    def strip(s):
+        if isinstance(s, AggregationSpec) and s.filter is not None:
+            return dc.replace(s, filter=None)
+        return s
+
+    ctx2 = dc.replace(
+        ctx,
+        filter=None,
+        select_list=[strip(s) for s in ctx.select_list],
+        extra_aggregations=[strip(s) for s in ctx.extra_aggregations],
+    )
+    return set(_needed_columns(ctx2, segment))
 
 
 def _refuse_later_slices(ctx: QueryContext) -> None:
-    if not ctx.is_aggregate:
-        raise NotImplementedError("selection queries are a later slice of the port (slice 2)")
     for spec in ctx.aggregations:
-        if spec.filter is not None:
-            raise NotImplementedError("FILTER(WHERE ...) aggregations are a later slice of the port (slice 2)")
-        if spec.expr is not None and not spec.expr.is_column:
-            raise NotImplementedError(
-                f"aggregation over expression {spec.expr} needs transforms, a later slice of the port (slice 2)"
-            )
         if spec.extra_exprs or spec.literal_args:
             raise NotImplementedError(
-                f"{spec.function} with extra arguments is a later slice of the port (slice 4)"
-            )
-    for g in ctx.group_by:
-        if not g.is_column:
-            raise NotImplementedError(
-                f"GROUP BY expression {g} needs transforms, a later slice of the port (slice 2)"
+                f"{spec.function} with extra arguments is a later slice of the port (ROADMAP Queue 1 item 4)"
             )
 
 
 def _group_dim(expr: Expr, segment: ImmutableSegment, null_handling: bool) -> GroupDim:
-    c = segment.column(expr.op)
-    if c.has_dictionary:
-        null_code = -1
-        if c.nulls is not None and null_handling:
-            nc = c.dictionary.index_of(c.data_type.null_placeholder)
-            if nc >= 0:
-                null_code = nc
-        return GroupDim(expr, c.name, "dict", c.dictionary.cardinality, dictionary=c.dictionary, null_code=null_code)
-    if c.data_type in _INT_TYPES:
-        lo, hi = int(c.stats.min_value), int(c.stats.max_value)
-        return GroupDim(expr, c.name, "rawint", hi - lo + 1, base=lo)
-    raise NotImplementedError(f"group-by on raw {c.data_type.value} column {c.name} is not groupable")
+    if expr.is_column:
+        c = segment.column(expr.op)
+        if c.has_dictionary:
+            null_code = -1
+            if c.nulls is not None and null_handling:
+                nc = c.dictionary.index_of(c.data_type.null_placeholder)
+                if nc >= 0:
+                    null_code = nc
+            return GroupDim(expr, c.name, "dict", c.dictionary.cardinality, dictionary=c.dictionary,
+                            null_code=null_code)
+        if c.data_type in _INT_TYPES:
+            lo, hi = int(c.stats.min_value), int(c.stats.max_value)
+            return GroupDim(expr, c.name, "rawint", hi - lo + 1, base=lo)
+        raise NotImplementedError(f"group-by on raw {c.data_type.value} column {c.name} is not groupable")
+    # GROUP BY <expression>: a string-valued dictionary function is a
+    # derived dictionary dimension
+    if scalar.is_dict_fn_expr(expr) and scalar.string_result(expr):
+        col = next(a for a in expr.args if not a.is_literal).op
+        c = segment.column(col)
+        if c.has_dictionary:
+            derived = scalar.derived_for(expr, c.dictionary)
+            uniq, remap = np.unique(derived, return_inverse=True)
+            return GroupDim(expr, col, "derived", len(uniq), derived_values=uniq, remap=remap.astype(np.int32))
+    # an integer-valued device expression is a statically bounded dimension
+    # (GROUP BY DATETRUNC('day', ts), MOD(d, 100))
+    rng = scalar.expr_int_range(expr, segment)
+    if rng is not None:
+        lo, hi = rng
+        return GroupDim(expr, str(expr), "expr", hi - lo + 1, base=lo)
+    raise NotImplementedError(
+        f"group-by expression {expr} is not supported: its integer range cannot be "
+        "bounded from column stats and it is not a dictionary string function"
+    )
 
 
 def agg_vranges(agg_specs, table_like) -> List[Optional[Tuple[int, int]]]:
@@ -402,25 +505,36 @@ def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
     return presence, partials
 
 
-def make_agg_inputs(agg_specs, aggs, table_like, null_handling: bool):
+def make_agg_inputs(agg_specs, aggs, agg_filter_fns, table_like, null_handling: bool):
     """Per-aggregation (values, mask) builder over a plan's device columns,
-    with null handling (the projection step of the hot loop); shared by the
-    segment plans and the distributed engine's."""
+    with FILTER (WHERE ...) and null handling (the projection and transform
+    step of the hot loop); shared by the segment plans and the distributed
+    engine's.  agg_filter_fns holds each aggregation's compiled FILTER
+    clause or None.  Aggregations with the same FILTER clause share one
+    mask tensor, so the fused scan reads it once."""
 
-    def _agg_inputs(cols, base_mask):
+    def _agg_inputs(cols, params, base_mask, dev):
         out = []
-        for spec, fn in zip(agg_specs, aggs):
+        filtered: Dict[str, torch.Tensor] = {}
+        for spec, fn, ffn in zip(agg_specs, aggs, agg_filter_fns):
             mask = base_mask
+            if ffn is not None:
+                fp = spec.filter.fingerprint()
+                if fp not in filtered:
+                    ft, _ = ffn(cols, params, dev)
+                    filtered[fp] = mask & ft
+                mask = filtered[fp]
             if spec.expr is None:
                 vals = mask  # COUNT(*): values unused
-            elif fn.name == "count":
+            elif fn.name == "count" and spec.expr.is_column:
                 # COUNT(col) needs only the null mask — works on strings too
                 vals = mask
                 c = table_like.column(spec.expr.op)
                 if c.nulls is not None and null_handling:
                     mask = mask & ~cols[spec.expr.op]["nulls"]
             else:
-                vals, nulls = eval_column(spec.expr, table_like, cols)
+                vals, nulls = eval_expr(spec.expr, table_like, cols, dev)
+                vals = as_row_array(vals, mask)
                 if nulls is not None and null_handling:
                     mask = mask & ~nulls
             out.append((vals, mask))
@@ -503,12 +617,12 @@ def kernel_order_spec(ctx: QueryContext, aggs: List[AggFunction]) -> Optional[Tu
     return i, mode, asc
 
 
-def packed_key64(cols, group_dims: List[GroupDim]) -> torch.Tensor:
+def packed_key64(cols, group_dims: List[GroupDim], segment, dev: torch.device) -> torch.Tensor:
     """Per-dimension codes raveled into one int64 key (the planner keeps the
     key space below 2^62 before it picks the sparse path)."""
     key = None
     for gd in group_dims:
-        code = gd.device_code(cols, torch.int64)
+        code = gd.device_code(cols, segment, dev, torch.int64)
         key = code if key is None else key * gd.cardinality + code
     return key
 
@@ -690,9 +804,10 @@ def overlay_unpacked(cols, packed_meta: Dict[str, int], num_rows: int):
 
 def plan_groups(ctx: QueryContext, table_like, aggs) -> Tuple[str, List[GroupDim], int]:
     """(kind, group dims, dense key-space size) of one plan: aggregation,
-    groupby_dense up to maxDenseGroups keys, else groupby_sparse."""
+    selection (no aggregation, no GROUP BY), groupby_dense up to
+    maxDenseGroups keys, else groupby_sparse."""
     if not ctx.group_by:
-        return "aggregation", [], 0
+        return ("aggregation" if ctx.is_aggregate else "selection"), [], 0
     group_dims = [_group_dim(g, table_like, ctx.null_handling) for g in ctx.group_by]
     num_groups = 1
     for gd in group_dims:
@@ -702,26 +817,27 @@ def plan_groups(ctx: QueryContext, table_like, aggs) -> Tuple[str, List[GroupDim
     return kind, group_dims, num_groups
 
 
-def group_key(cols, group_dims: List[GroupDim]) -> torch.Tensor:
-    """Per-row dense group key; a single dict dimension passes its codes
-    through in their storage dtype (the kernel and scatters read it as is)."""
+def group_key(cols, group_dims: List[GroupDim], segment, dev: torch.device) -> torch.Tensor:
+    """Per-row dense int32 group key; a single dict dimension passes its
+    codes through in their storage dtype (the kernel and scatters read it as
+    is)."""
     if len(group_dims) == 1 and group_dims[0].kind == "dict":
         return cols[group_dims[0].name]["codes"]
     key = None
     for gd in group_dims:
-        code = gd.device_code(cols)
+        code = gd.device_code(cols, segment, dev)
         key = code if key is None else key * gd.cardinality + code
     return key
 
 
-def lazy_group_key(cols, group_dims: List[GroupDim]) -> Callable[[], torch.Tensor]:
-    """group_key(cols) built on the first call and reused after (the fused
+def lazy_group_key(cols, group_dims: List[GroupDim], segment, dev: torch.device) -> Callable[[], torch.Tensor]:
+    """group_key(...) built on the first call and reused after (the fused
     scan on packed words never needs it)."""
     box: List[torch.Tensor] = []
 
     def key_fn():
         if not box:
-            box.append(group_key(cols, group_dims))
+            box.append(group_key(cols, group_dims, segment, dev))
         return box[0]
 
     return key_fn
@@ -744,18 +860,18 @@ def key_packed(cols, group_dims: List[GroupDim], packed_meta: Dict[str, int], nu
     return (e["codes_packed"], bits)
 
 
-def sparse_tables_fn(ctx: QueryContext, aggs, group_dims: List[GroupDim], num_groups: int, agg_inputs):
-    """The sparse group path's per-launch step, (cols, tmask) -> (uniq keys,
-    partial tables) of numGroupsLimit slots, with its slot count and
-    ORDER BY-aware trim spec (kernel_order_spec)."""
+def sparse_tables_fn(ctx: QueryContext, aggs, group_dims: List[GroupDim], num_groups: int, agg_inputs, segment):
+    """The sparse group path's per-launch step, (cols, params, tmask, dev)
+    -> (uniq keys, partial tables) of numGroupsLimit slots, with its slot
+    count and ORDER BY-aware trim spec (kernel_order_spec)."""
     if num_groups >= (1 << 62):
         raise NotImplementedError("composite group key exceeds 62 bits")
     num_slots = min(ctx.num_groups_limit, num_groups)
     order_spec = kernel_order_spec(ctx, aggs)
 
-    def tables(cols, tmask):
-        key = packed_key64(cols, group_dims)
-        return sparse_grouped_tables(aggs, agg_inputs(cols, tmask), tmask, key, num_slots, order_spec)
+    def tables(cols, params, tmask, dev):
+        key = packed_key64(cols, group_dims, segment, dev)
+        return sparse_grouped_tables(aggs, agg_inputs(cols, params, tmask, dev), tmask, key, num_slots, order_spec)
 
     return tables, num_slots, order_spec
 
@@ -766,7 +882,7 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.dev
     needed = _needed_columns(ctx, segment)
     key = (
         ctx.shape_fingerprint(column_info_from(segment)),
-        _segment_signature(segment, needed),
+        _segment_signature(segment, needed, const_bound_columns(ctx)),
         backend_tag(device),
     )
     cached = _PLAN_CACHE.get(key)
@@ -782,6 +898,27 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.dev
     return plan
 
 
+def selection_items(ctx: QueryContext, table_like) -> Tuple[List[Any], List[str]]:
+    """(select_exprs, select_columns) of a selection plan: the output items
+    in order, SELECT * expanded to every column, window items kept (they are
+    computed at reduce over the merged rows); and the bare columns among
+    them."""
+    select_exprs: List[Any] = []
+    for s in ctx.select_list:
+        if isinstance(s, WindowSpec):
+            select_exprs.append(s)
+            continue
+        if not isinstance(s, Expr):
+            raise NotImplementedError(f"unsupported selection item {s}")
+        if s.kind.name == "CALL" and s.op == "unnest":
+            raise NotImplementedError("UNNEST (the MV explode) is a later slice of the port (ROADMAP Queue 1 item 5)")
+        if s.is_column and s.op == "*":
+            select_exprs.extend(Expr.col(n) for n in table_like.schema.column_names)
+        else:
+            select_exprs.append(s)
+    return select_exprs, [e.op for e in select_exprs if isinstance(e, Expr) and e.is_column]
+
+
 def _build_plan(
     ctx: QueryContext,
     segment: ImmutableSegment,
@@ -793,33 +930,47 @@ def _build_plan(
     fc = FilterCompiler(segment, null_handling)
     filter_fn = fc.compile(ctx.filter)
     agg_specs = list(ctx.aggregations)
-    aggs = [for_spec(spec) for spec in agg_specs]
+    aggs = bind_aggs(agg_specs, segment, ctx)
+    # per-aggregation FILTER (WHERE ...) clauses, compiled after the WHERE
+    agg_filter_fns = [fc.compile(spec.filter) if spec.filter is not None else None for spec in agg_specs]
 
     # columns touched ONLY by index-resolved predicates never ship
     keep = _non_filter_columns(ctx, segment) | fc.used_columns
     needed = [c for c in needed if c in keep]
 
+    kind, group_dims, num_groups = plan_groups(ctx, segment, aggs)
+    if kind != "selection" and ctx.windows:
+        raise NotImplementedError("window functions apply to selection queries only")
+    if kind == "selection":
+        # the selection closure reads only the filter's columns; the rows
+        # gather on the host (executor._gather_selection)
+        needed = [c for c in needed if c in fc.used_columns]
     packed_meta = packed_code_bits(segment, needed)
     num_docs = segment.num_docs
-    kind, group_dims, num_groups = plan_groups(ctx, segment, aggs)
-    _agg_inputs = make_agg_inputs(agg_specs, aggs, segment, null_handling)
+    _agg_inputs = make_agg_inputs(agg_specs, aggs, agg_filter_fns, segment, null_handling)
 
     if kind == "aggregation":
 
         def kernel(cols, params, dev):
             cols = overlay_unpacked(cols, packed_meta, num_docs)
             tmask, _ = filter_fn(cols, params, dev)
-            return [fn.partial(vals, mask) for fn, (vals, mask) in zip(aggs, _agg_inputs(cols, tmask))]
+            return [fn.partial(vals, mask) for fn, (vals, mask) in zip(aggs, _agg_inputs(cols, params, tmask, dev))]
+
+    elif kind == "selection":
+
+        def kernel(cols, params, dev):
+            tmask, _ = filter_fn(overlay_unpacked(cols, packed_meta, num_docs), params, dev)
+            return tmask
 
     elif kind == "groupby_sparse":
         # sort + scatter into fixed [numGroupsLimit] tables on the device: no
         # row-length array leaves it (sparse_grouped_tables)
-        tables, _, _ = sparse_tables_fn(ctx, aggs, group_dims, num_groups, _agg_inputs)
+        tables, _, _ = sparse_tables_fn(ctx, aggs, group_dims, num_groups, _agg_inputs, segment)
 
         def kernel(cols, params, dev):
             cols = overlay_unpacked(cols, packed_meta, num_docs)
             tmask, _ = filter_fn(cols, params, dev)
-            return tables(cols, tmask)
+            return tables(cols, params, tmask, dev)
 
     else:
         vranges = agg_vranges(agg_specs, segment)
@@ -828,10 +979,12 @@ def _build_plan(
             cols = overlay_unpacked(cols, packed_meta, num_docs)
             tmask, _ = filter_fn(cols, params, dev)
             return grouped_partials(
-                aggs, _agg_inputs(cols, tmask), tmask, lazy_group_key(cols, group_dims), num_groups, vranges,
-                backend=backend, key_packed=key_packed(cols, group_dims, packed_meta, num_docs, backend),
+                aggs, _agg_inputs(cols, params, tmask, dev), tmask, lazy_group_key(cols, group_dims, segment, dev),
+                num_groups, vranges, backend=backend,
+                key_packed=key_packed(cols, group_dims, packed_meta, num_docs, backend),
             )
 
+    select_exprs, select_columns = selection_items(ctx, segment) if kind == "selection" else ([], [])
     return SegmentPlan(
         kind=kind,
         fn=planned_fn if planned_fn is not None else kernel,
@@ -840,5 +993,7 @@ def _build_plan(
         aggs=aggs,
         group_dims=group_dims,
         num_groups=num_groups,
+        select_columns=select_columns,
+        select_exprs=select_exprs,
         index_uses=list(fc.index_uses),
     )

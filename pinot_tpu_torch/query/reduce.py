@@ -1,9 +1,9 @@
 """Broker reduce: merge per-segment results, HAVING/ORDER BY/LIMIT, format.
 
 Trimmed copy of pinot_tpu/query/reduce.py (host-only numpy): the
-aggregation and group-by reducers with HAVING, ORDER BY, LIMIT and
-post-aggregation arithmetic.  Selection, window and gap-fill reduce come
-with their slices.  Reference parity: BrokerReduceService.reduceOnDataTable
+aggregation, group-by and selection reducers with HAVING, ORDER BY, OFFSET,
+LIMIT, post-aggregation arithmetic and window functions (computed here,
+over the merged selection rows).  Gap-filling comes with its slice.  Reference parity: BrokerReduceService.reduceOnDataTable
 (pinot-core/.../query/reduce/BrokerReduceService.java:65) and its per-shape
 reducers (GroupByDataTableReducer, AggregationDataTableReducer,
 SelectionDataTableReducer) + PostAggregationHandler/HAVING handling.
@@ -33,19 +33,23 @@ from pinot_tpu_torch.query.ir import (
     OrderByExpr,
     PredicateType,
     QueryContext,
+    WindowSpec,
 )
 from pinot_tpu_torch.query.result import (
     AggSegmentResult,
     ExecutionStats,
     GroupBySegmentResult,
     ResultTable,
+    SelectionSegmentResult,
 )
 
 
 def reduce_results(ctx: QueryContext, results: List[Any], stats: ExecutionStats) -> ResultTable:
+    if ctx.is_aggregate and not ctx.group_by:
+        return _reduce_aggregation(ctx, results, stats)
     if ctx.group_by:
         return _reduce_groupby(ctx, results, stats)
-    return _reduce_aggregation(ctx, results, stats)
+    return _reduce_selection(ctx, results, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -293,6 +297,257 @@ def _hash_merge_vectorized(results: List[GroupBySegmentResult], aggs):
             out[f] = acc
         partials_out.append(out)
     return keys_out, partials_out
+
+
+# ---------------------------------------------------------------------------
+# Selection
+# ---------------------------------------------------------------------------
+def _reduce_selection(ctx: QueryContext, results: List[SelectionSegmentResult], stats: ExecutionStats) -> ResultTable:
+    results = [r for r in results if r is not None]
+    out_names = ctx.column_names_out()
+    if not results:
+        return ResultTable(columns=out_names, rows=[], stats=stats)
+    cols = results[0].columns
+    if "*" in out_names:
+        # SELECT *: label with the actual gathered columns so dataSchema
+        # matches the row arity (window inputs/order keys are internal)
+        out_names = [c for c in cols if not (c.startswith("__ord") or c.startswith("__wx_"))]
+    arrays = {
+        c: np.concatenate([np.asarray(r.arrays[c], dtype=object) for r in results])
+        if len(results) > 1
+        else np.asarray(results[0].arrays[c], dtype=object)
+        for c in cols
+    }
+    n = len(next(iter(arrays.values()))) if arrays else 0
+    # window functions: computed HERE, over the globally merged row set
+    # (WindowAggregateOperator analog; whole-partition frames)
+    if ctx.windows:
+        for i, s in enumerate(ctx.select_list):
+            if isinstance(s, WindowSpec):
+                arrays[f"__win{i}"] = _compute_window(s, arrays, n)
+    select_cols = [c for c in cols if not (c.startswith("__ord") or c.startswith("__wx_"))]
+    rows = _rows_from_columns([arrays[c] for c in select_cols], n)
+    if ctx.order_by:
+        ord_vals = [arrays[f"__ord{i}"] for i in range(len(ctx.order_by))]
+        order = _sorted_order(ctx.order_by, ord_vals, n)
+        rows = [rows[i] for i in order]
+    rows = rows[ctx.offset: ctx.offset + ctx.limit]
+    return ResultTable(columns=out_names, rows=rows, stats=stats)
+
+
+def _win_lex_key(vals, asc: bool) -> Tuple[np.ndarray, bool]:
+    """(sortable float key, is_numeric) for one OVER(ORDER BY) expression:
+    numeric values rank numerically, genuine strings by sorted-unique codes.
+    Descending flips sign, so 'preceding' is always toward SMALLER keys —
+    which makes signed RANGE offsets direction-agnostic.  RANGE offset
+    frames are only legal over a numeric key (the caller checks the flag)."""
+    a = np.asarray(vals)
+    if a.dtype == object:
+        try:
+            a = a.astype(np.float64)
+        except (ValueError, TypeError):
+            pass
+    if np.issubdtype(a.dtype, np.number):
+        a = a.astype(np.float64)
+        return (a if asc else -a), True
+    _, inv = np.unique(a.astype(str), return_inverse=True)
+    inv = inv.astype(np.float64)
+    return (inv if asc else -inv), False
+
+
+_WIN_AGG_FNS = ("sum", "avg", "count", "min", "max", "bool_and", "bool_or")
+
+
+def _compute_window(spec, arrays: Dict[str, np.ndarray], n: int) -> np.ndarray:
+    """One window function over the merged result rows.
+
+    Reference parity: WindowAggregateOperator + the window/value family
+    (pinot-query-runtime/.../runtime/operator/window/value/
+    LagValueWindowFunction.java, LeadValueWindowFunction.java,
+    FirstValueWindowFunction.java, LastValueWindowFunction.java,
+    range/NtileWindowFunction.java) with ROWS/RANGE frames per
+    WindowFrame.java.
+
+    Partition ids hash the partition-key tuples; within each partition rows
+    order by the OVER(ORDER BY ...) keys (stable).  Every frame shape
+    reduces to per-row inclusive-exclusive bounds [ws, we) in sorted space;
+    sums/counts then resolve via prefix sums, min/max via prefix/suffix
+    accumulation (unbounded edge) or per-row slices (bounded frames)."""
+    pid = np.zeros(n, dtype=np.int64)
+    if spec.partition_by:
+        pkeys = [np.asarray(arrays[f"__wx_{p.fingerprint()}"]) for p in spec.partition_by]
+        seen: Dict[tuple, int] = {}
+        for i in range(n):
+            key = tuple(k[i] for k in pkeys)
+            pid[i] = seen.setdefault(key, len(seen))
+    fn = spec.function
+    keyed = [_win_lex_key(arrays[f"__wx_{o.expr.fingerprint()}"], o.ascending) for o in spec.order_by]
+    lex = [k for k, _ in keyed]
+    lex_numeric = [num for _, num in keyed]
+    order = np.lexsort(tuple(reversed([pid] + lex)))
+    spid = pid[order]
+    idx = np.arange(n)
+    starts = np.ones(n, dtype=bool)
+    if n > 1:
+        starts[1:] = spid[1:] != spid[:-1]
+    # partition bounds per sorted row: [start_idx, end_idx)
+    ps = idx[starts]
+    pe = np.append(ps[1:], n)
+    pnum = np.cumsum(starts) - 1
+    start_idx = ps[pnum] if n else idx
+    end_idx = pe[pnum] if n else idx
+    pos0 = idx - start_idx
+    plen = end_idx - start_idx
+    # peer groups: rows with equal ORDER BY keys (frame CURRENT ROW in RANGE
+    # mode, and rank/dense_rank steps)
+    peer_flags = starts.copy()
+    if lex and n > 1:
+        diff = np.zeros(n - 1, dtype=bool)
+        for k in lex:
+            a = np.asarray(k)[order]
+            diff |= ~((a[1:] == a[:-1]) | (np.isnan(a[1:]) & np.isnan(a[:-1])))
+        peer_flags[1:] |= diff
+    pps = idx[peer_flags]
+    ppe = np.append(pps[1:], n)
+    ppnum = np.cumsum(peer_flags) - 1
+    peer_start = pps[ppnum] if n else idx
+    peer_end = ppe[ppnum] if n else idx
+
+    def unsort(sorted_vals, dtype):
+        out = np.empty(n, dtype=dtype)
+        out[order] = sorted_vals
+        return out
+
+    # -- ranking functions (frames do not apply) ------------------------
+    if fn in ("row_number", "rank", "dense_rank", "ntile"):
+        if fn == "row_number":
+            r = pos0 + 1
+        elif fn == "rank":
+            r = peer_start - start_idx + 1
+        elif fn == "dense_rank":
+            dc = np.cumsum(peer_flags)
+            r = dc - (dc[start_idx] - 1)
+        else:  # NTILE(t): first (plen % t) buckets get one extra row
+            t = int(spec.literal_args[0])
+            q, rem = plen // t, plen % t
+            cut = rem * (q + 1)
+            r = np.where(
+                pos0 < cut,
+                pos0 // np.maximum(q + 1, 1),
+                rem + (pos0 - cut) // np.maximum(q, 1),
+            ) + 1
+        return unsort(r.astype(np.int64), np.int64)
+
+    sval = None
+    if spec.expr is not None:
+        sval = np.asarray(arrays[f"__wx_{spec.expr.fingerprint()}"], dtype=object)[order]
+
+    # -- offset value functions (frames do not apply) -------------------
+    if fn in ("lag", "lead"):
+        off = int(spec.literal_args[0]) if spec.literal_args else 1
+        default = spec.literal_args[1] if len(spec.literal_args) > 1 else None
+        src = idx - off if fn == "lag" else idx + off
+        valid = (src >= start_idx) & (src < end_idx)
+        srcc = np.clip(src, 0, max(n - 1, 0))
+        return unsort(np.where(valid, sval[srcc], default), object)
+
+    # -- frame resolution: [ws, we) per sorted row ----------------------
+    mode, lo, hi = spec.frame, spec.frame_lo, spec.frame_hi
+    if mode == "rows_cumulative":
+        mode, lo, hi = "rows", None, 0
+    elif mode == "range_all":
+        if spec.order_by:
+            # SQL default frame with ORDER BY: RANGE UNBOUNDED PRECEDING ..
+            # CURRENT ROW (cumulative by peer groups)
+            mode, lo, hi = "range", None, 0
+        else:
+            mode, lo, hi = "rows", None, None  # whole partition
+    if mode == "rows":
+        ws = start_idx if lo is None else np.maximum(start_idx, idx + int(lo))
+        we = end_idx if hi is None else np.minimum(end_idx, idx + int(hi) + 1)
+    else:  # range
+        if not lex:
+            ws, we = start_idx, end_idx
+        elif lo in (None, 0) and hi in (None, 0):
+            ws = start_idx if lo is None else peer_start
+            we = end_idx if hi is None else peer_end
+        else:
+            if len(lex) != 1:
+                raise ValueError("RANGE frame with offsets requires exactly one ORDER BY key")
+            if not lex_numeric[0]:
+                raise ValueError("RANGE frame with offsets requires a NUMERIC ORDER BY key")
+            sk = np.asarray(lex[0], np.float64)[order]
+            ws = np.empty(n, dtype=np.int64)
+            we = np.empty(n, dtype=np.int64)
+            for s, e in zip(ps, pe):  # per partition: vectorized searchsorted
+                seg = sk[s:e]
+                if lo is None:
+                    ws[s:e] = s
+                elif lo == 0:
+                    ws[s:e] = peer_start[s:e]
+                else:
+                    ws[s:e] = s + np.searchsorted(seg, seg + float(lo), side="left")
+                if hi is None:
+                    we[s:e] = e
+                elif hi == 0:
+                    we[s:e] = peer_end[s:e]
+                else:
+                    we[s:e] = s + np.searchsorted(seg, seg + float(hi), side="right")
+    wsc = np.minimum(ws, we)  # empty frames collapse to zero-width slices
+
+    if fn == "count" and spec.expr is None:  # COUNT(*): frame row count
+        return unsort(np.maximum(we - ws, 0).astype(np.int64), np.int64)
+    if sval is None:
+        raise ValueError(f"window {fn} needs an argument")
+
+    if fn in ("first_value", "last_value"):
+        valid = we > ws
+        pos = np.clip(np.where(fn == "first_value", wsc, we - 1), 0, max(n - 1, 0))
+        return unsort(np.where(valid, sval[pos], None), object)
+
+    # -- numeric frame aggregates ---------------------------------------
+    v = np.array([np.nan if x is None else float(x) for x in sval], dtype=np.float64)
+    if fn in ("bool_and", "bool_or"):
+        v = np.where(np.isnan(v), np.nan, (v != 0).astype(np.float64))
+    notnan = ~np.isnan(v)
+    cn = np.concatenate([[0], np.cumsum(notnan.astype(np.int64))])
+    m = cn[we] - cn[wsc]  # non-null rows in frame
+    if fn == "count":
+        return unsort(m.astype(np.int64), np.int64)
+    if fn in ("sum", "avg"):
+        cs = np.concatenate([[0.0], np.cumsum(np.where(notnan, v, 0.0))])
+        tot = cs[we] - cs[wsc]
+        out_sorted = np.where(m > 0, tot, np.nan)
+        if fn == "avg":
+            out_sorted = out_sorted / np.maximum(m, 1)
+        return unsort(out_sorted, np.float64)
+    # min/max family: prefix/suffix accumulation when one edge is the
+    # partition bound, per-row slices for doubly-bounded frames
+    is_min = fn in ("min", "bool_and")
+    acc_op = np.fmin if is_min else np.fmax  # fmin/fmax ignore NaN
+    lo_unbounded = bool(np.all(wsc == start_idx))
+    hi_unbounded = bool(np.all(we == end_idx))
+    out_sorted = np.full(n, np.nan)
+    if lo_unbounded:
+        pref = np.empty(n, dtype=np.float64)
+        for i in range(n):
+            pref[i] = v[i] if starts[i] else acc_op(pref[i - 1], v[i])
+        sel = we > wsc
+        out_sorted[sel] = pref[we[sel] - 1]
+    elif hi_unbounded:
+        suf = np.empty(n, dtype=np.float64)
+        for i in range(n - 1, -1, -1):
+            last = (i == n - 1) or starts[i + 1]
+            suf[i] = v[i] if last else acc_op(suf[i + 1], v[i])
+        sel = we > wsc
+        out_sorted[sel] = suf[wsc[sel]]
+    else:
+        for i in range(n):
+            if we[i] > wsc[i] and m[i] > 0:
+                seg = v[wsc[i]: we[i]]
+                out_sorted[i] = np.nanmin(seg) if is_min else np.nanmax(seg)
+    out_sorted = np.where(m > 0, out_sorted, np.nan)
+    return unsort(out_sorted, np.float64)
 
 
 # ---------------------------------------------------------------------------

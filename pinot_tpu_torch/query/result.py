@@ -1,7 +1,7 @@
 """Result containers flowing segment -> reduce -> client.
 
-Trimmed copy of pinot_tpu/query/result.py: the aggregation and group-by
-results of the single-table slice, and ExecutionStats without the TPU cost
+Trimmed copy of pinot_tpu/query/result.py: the aggregation, group-by and
+selection results of single-table SQL, and ExecutionStats without the TPU cost
 model (the device-time metrics of the port come from chip runs).  Results
 are columnar numpy end to end.
 """
@@ -31,6 +31,8 @@ class ExecutionStats:
     device_ms: float = 0.0
     # (column, "sorted"|"range"|"inverted") per index-accelerated predicate
     filter_index_uses: Tuple = ()
+    # selection: bytes of matched doc ids copied from the device
+    bytes_to_host: int = 0
     query_id: Optional[str] = None
 
     def add_index_uses(self, uses: Tuple) -> None:
@@ -66,6 +68,12 @@ class GroupBySegmentResult:
     keys: List[np.ndarray]
     partials: List[Dict[str, np.ndarray]]
     dense: Optional[DenseGroupData] = None
+
+
+@dataclass
+class SelectionSegmentResult:
+    columns: List[str]  # gathered columns (select + order-by + window inputs)
+    arrays: Dict[str, np.ndarray]
 
 
 @dataclass

@@ -60,6 +60,13 @@ class ColumnData:
             return self.dictionary.get_values(self.codes)
         return self.values
 
+    def decoded_rows(self, rows: np.ndarray) -> np.ndarray:
+        """decoded()[rows] without decoding the whole column: a selection
+        reads a handful of rows of a segment."""
+        if self.dictionary is not None:
+            return self.dictionary.get_values(self.codes[rows])
+        return self.values[rows]
+
 
 def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     a = np.ascontiguousarray(arr)

@@ -4,10 +4,12 @@ Trimmed copy of pinot_tpu/sql/parser.py (host-only) for single-table SQL:
 SELECT / WHERE boolean algebra / GROUP BY / HAVING / ORDER BY /
 LIMIT-OFFSET / query options.  It recognizes the JAX package's full set of
 aggregation names (functions.ALL_AGG_NAMES), so one SQL text yields the
-same QueryContext in both packages; names this slice does not implement
-fail at plan time.  EXPLAIN, joins, set operations, subqueries, window
-functions, GAPFILL, CASE and the funnel STEPS syntax raise
-NotImplementedError here, naming the later slice that brings them.
+same QueryContext in both packages; names the port does not implement
+fail at plan time.  CASE, FILTER (WHERE ...) and window functions
+(fn(...) OVER (PARTITION BY ... ORDER BY ... [ROWS|RANGE frame])) parse as
+in the JAX package.  EXPLAIN, joins, set operations, subqueries, GAPFILL and
+the funnel STEPS syntax raise NotImplementedError here, naming the later
+slice that brings them.
 
 Reference parity: CalciteSqlParser (pinot-common/.../sql/parsers/
 CalciteSqlParser.java) compiling SQL text into the Thrift PinotQuery IR, plus
@@ -40,6 +42,7 @@ from pinot_tpu_torch.query.ir import (
     QueryContext,
     map_expr_columns,
     map_filter_columns,
+    WindowSpec,
 )
 
 
@@ -58,6 +61,40 @@ def _substitute_alias_expr(e: Expr, mapping: Dict[str, Expr]) -> Expr:
         if new_args != e.args:
             return Expr(ExprKind.CALL, op=e.op, value=e.value, args=new_args)
     return e
+
+
+def _filter_to_expr(node: FilterNode) -> Expr:
+    """CASE condition -> boolean expression ops (__and/__or/__not/__eq/...)
+    the transform layer evaluates on device."""
+    if node.op is FilterOp.AND:
+        return Expr.call("__and", *[_filter_to_expr(c) for c in node.children])
+    if node.op is FilterOp.OR:
+        return Expr.call("__or", *[_filter_to_expr(c) for c in node.children])
+    if node.op is FilterOp.NOT:
+        return Expr.call("__not", _filter_to_expr(node.children[0]))
+    p = node.predicate
+    if p.ptype is PredicateType.EQ:
+        return Expr.call("__eq", p.lhs, Expr.lit(p.values[0]))
+    if p.ptype is PredicateType.NEQ:
+        return Expr.call("__not", Expr.call("__eq", p.lhs, Expr.lit(p.values[0])))
+    if p.ptype is PredicateType.IN:
+        return Expr.call("__in", p.lhs, *[Expr.lit(v) for v in p.values])
+    if p.ptype is PredicateType.NOT_IN:
+        return Expr.call("__not", Expr.call("__in", p.lhs, *[Expr.lit(v) for v in p.values]))
+    if p.ptype is PredicateType.RANGE:
+        parts = []
+        if p.lower is not None:
+            parts.append(Expr.call("__ge" if p.lower_inclusive else "__gt", p.lhs, Expr.lit(p.lower)))
+        if p.upper is not None:
+            parts.append(Expr.call("__le" if p.upper_inclusive else "__lt", p.lhs, Expr.lit(p.upper)))
+        if len(parts) == 1:
+            return parts[0]
+        return Expr.call("__and", *parts)
+    if p.ptype is PredicateType.IS_NULL:
+        return Expr.call("__isnull", p.lhs)
+    if p.ptype is PredicateType.IS_NOT_NULL:
+        return Expr.call("__not", Expr.call("__isnull", p.lhs))
+    raise SqlParseError(f"unsupported predicate {p.ptype.value} inside a CASE condition")
 
 
 def _substitute_alias_filter(node: FilterNode, mapping: Dict[str, Expr]) -> FilterNode:
@@ -405,6 +442,16 @@ class _Parser:
         def strip_item(s):
             if isinstance(s, AggregationSpec):
                 return strip_agg(s)
+            if isinstance(s, WindowSpec):
+                return dataclasses.replace(
+                    s,
+                    expr=map_expr_columns(s.expr, strip_q) if s.expr is not None else None,
+                    partition_by=tuple(map_expr_columns(p, strip_q) for p in s.partition_by),
+                    order_by=tuple(
+                        OrderByExpr(map_expr_columns(o.expr, strip_q), o.ascending, o.nulls_last)
+                        for o in s.order_by
+                    ),
+                )
             return map_expr_columns(s, strip_q)
 
         select_list = [strip_item(s) for s in select_list]
@@ -459,6 +506,72 @@ class _Parser:
     # a misleading selection-expression error.
     _KNOWN_UNIMPLEMENTED_AGGS = frozenset({"distinctcountrawhll", "distinctcountthetasketch"})
 
+    _WINDOW_FNS = frozenset({
+        "row_number", "rank", "dense_rank", "ntile",
+        "lag", "lead", "first_value", "last_value",
+        "sum", "count", "avg", "min", "max", "bool_and", "bool_or",
+    })
+
+    def _at_word(self, w: str) -> bool:
+        return self.cur.kind in ("ident", "kw") and str(self.cur.value).lower() == w
+
+    def _accept_word(self, w: str) -> bool:
+        if self._at_word(w):
+            self.advance()
+            return True
+        return False
+
+    def _expect_word(self, w: str) -> None:
+        if not self._accept_word(w):
+            self.fail(f"expected {w.upper()} in window frame")
+
+    def _frame_bound(self, is_lower: bool) -> Optional[float]:
+        """One frame bound as a signed offset: None = UNBOUNDED, 0 = CURRENT
+        ROW, -k = k PRECEDING, +k = k FOLLOWING (WindowFrame.java bounds)."""
+        if self._accept_word("unbounded"):
+            if is_lower:
+                self._expect_word("preceding")
+            else:
+                self._expect_word("following")
+            return None
+        if self._accept_word("current"):
+            self._expect_word("row")
+            return 0
+        if self.cur.kind != "number":
+            self.fail("expected UNBOUNDED, CURRENT ROW or <n> PRECEDING/FOLLOWING")
+        k = self.advance().value
+        if self._accept_word("preceding"):
+            return -k
+        self._expect_word("following")
+        return k
+
+    def _window_frame(self) -> Tuple[str, Optional[float], Optional[float]]:
+        """[ROWS|RANGE] [BETWEEN <bound> AND <bound> | <bound>]."""
+        if self._accept_word("rows"):
+            mode = "rows"
+        elif self._accept_word("range"):
+            mode = "range"
+        else:
+            return "range_all", None, None
+        if self._accept_word("between"):
+            lo = self._frame_bound(True)
+            self._expect_word("and")
+            hi = self._frame_bound(False)
+            if lo is not None and hi is not None and lo > hi:
+                self.fail("window frame start must not be after frame end")
+        else:
+            lo = self._frame_bound(True)
+            hi = 0  # shorthand: <bound> == BETWEEN <bound> AND CURRENT ROW
+            if lo is not None and lo > 0:
+                self.fail("shorthand window frame bound must be UNBOUNDED/k PRECEDING or CURRENT ROW")
+        if mode == "rows":
+            for b in (lo, hi):
+                if b is not None and float(b) != int(b):
+                    self.fail("ROWS frame bounds must be integers")
+            lo = None if lo is None else int(lo)
+            hi = None if hi is None else int(hi)
+        return mode, lo, hi
+
     def expr_or_agg(self) -> Union[Expr, AggregationSpec]:
         """Expression that may be a top-level aggregation call."""
         e = self.expr()
@@ -466,8 +579,62 @@ class _Parser:
             self.fail(f"aggregation function {e.op!r} is not supported yet")
         if isinstance(e, Expr) and e.kind.name == "CALL" and e.op == "gapfill":
             raise NotImplementedError("GAPFILL is a later slice of the port")
+        # window function: fn(...) OVER (PARTITION BY ... ORDER BY ...)
         if isinstance(e, Expr) and e.kind.name == "CALL" and self.at_kw("over"):
-            raise NotImplementedError("window functions are a later slice of the port (slice 2)")
+            if e.op not in self._WINDOW_FNS:
+                self.fail(f"{e.op!r} is not a supported window function")
+            self.advance()
+            self.expect_op("(")
+            partition: List[Expr] = []
+            worder: List[OrderByExpr] = []
+            if self.accept_kw("partition"):
+                self.expect_kw("by")
+                while True:
+                    partition.append(self.expr())
+                    if not self.accept_op(","):
+                        break
+            if self.accept_kw("order"):
+                self.expect_kw("by")
+                while True:
+                    oe = self.expr()
+                    asc = True
+                    if self.accept_kw("desc"):
+                        asc = False
+                    else:
+                        self.accept_kw("asc")
+                    worder.append(OrderByExpr(oe, ascending=asc))
+                    if not self.accept_op(","):
+                        break
+            frame, frame_lo, frame_hi = self._window_frame()
+            self.expect_op(")")
+            arg = None
+            literal_args: Tuple = ()
+            if e.op == "ntile":
+                # NTILE(n): the single argument is the bucket count literal
+                if len(e.args) != 1 or not e.args[0].is_literal:
+                    self.fail("NTILE requires one literal bucket count")
+                if int(e.args[0].value) < 1:
+                    self.fail("NTILE bucket count must be >= 1")
+                literal_args = (int(e.args[0].value),)
+            elif e.op in ("lag", "lead"):
+                # LAG/LEAD(expr [, offset [, default]])
+                if not e.args:
+                    self.fail(f"{e.op.upper()} requires an argument")
+                arg = e.args[0]
+                extras = []
+                for a in e.args[1:]:
+                    if not a.is_literal:
+                        self.fail(f"{e.op.upper()} offset/default must be literals")
+                    extras.append(a.value)
+                if extras:
+                    extras[0] = int(extras[0])
+                literal_args = tuple(extras)
+            elif e.args and not (e.args[0].is_column and e.args[0].op == "*"):
+                arg = e.args[0]
+            return WindowSpec(
+                e.op, arg, tuple(partition), tuple(worder),
+                frame, frame_lo, frame_hi, literal_args,
+            )
         if isinstance(e, Expr) and e.kind.name == "CALL" and is_agg_function(e.op):
             spec = self._call_to_agg(e)
             # FILTER (WHERE ...) clause — Pinot filtered aggregations
@@ -491,6 +658,40 @@ class _Parser:
         lits = tuple(a.value for a in args[1:] if a.is_literal)
         extra = tuple(a for a in args[1:] if not a.is_literal)
         return AggregationSpec(e.op, expr, literal_args=lits, extra_exprs=extra)
+
+    def _case_expr(self) -> Expr:
+        """CASE WHEN cond THEN expr ... [ELSE expr] END -> a `case` CALL
+        whose args alternate (condition-as-expr, result): conditions convert
+        through _filter_to_expr into boolean expression ops the transform
+        layer evaluates on device (CaseTransformFunction analog)."""
+        self.advance()  # CASE
+        def word(w):
+            t = self.cur
+            if t.kind in ("ident", "kw") and str(t.value).lower() == w:
+                self.advance()
+                return True
+            return False
+
+        args: List[Expr] = []
+        saw_when = False
+        while word("when"):
+            saw_when = True
+            cond = self.boolean_expr()
+            args.append(_filter_to_expr(cond))
+            if not word("then"):
+                self.fail("expected THEN in CASE")
+            args.append(self.expr())
+        if not saw_when:
+            self.fail("expected WHEN in CASE")
+        if word("else"):
+            args.append(self.expr())
+        else:
+            args.append(Expr.lit(None))
+        if not word("end"):
+            self.fail("expected END closing CASE")
+        return Expr.call("case", *args)
+
+    # -- boolean (filter) grammar ---------------------------------------
 
     # -- boolean (filter) grammar ---------------------------------------
     def boolean_expr(self) -> FilterNode:
@@ -672,7 +873,7 @@ class _Parser:
         if self.accept_op("*"):
             return Expr.col("*")
         if t.kind == "ident" and str(t.value).lower() == "case":
-            raise NotImplementedError("CASE expressions are a later slice of the port (slice 2)")
+            return self._case_expr()
         if t.kind == "ident" or (t.kind == "kw" and t.value in ("filter",)):
             name = self.advance().value
             if self.accept_op("("):

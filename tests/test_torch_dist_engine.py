@@ -43,7 +43,7 @@ from pinot_tpu_torch.spi import config as port_config
 from pinot_tpu_torch.spi import schema as port_schema
 from pinot_tpu_torch.sql.parser import parse_query as port_parse
 
-from test_torch_query import assert_rows_match, build_engines
+from test_torch_query import assert_rows_match, build_engines, spy_kernel_calls
 from test_torch_query import make_data as sse_make_data
 
 N = 3001
@@ -132,6 +132,14 @@ def engines():
 
 
 BENCH_Q = "SELECT d, SUM(rev) FROM t WHERE q < 25 GROUP BY d LIMIT 2500"
+DIST_FILTER_Q = (
+    "SELECT d, COUNT(*), SUM(rev) FILTER (WHERE disc BETWEEN 1 AND 3), SUM(rev * disc) FROM t WHERE q < 25 "
+    "GROUP BY d LIMIT 2500"
+)
+DIST_MOD_Q = (
+    "SELECT MOD(d, 100), COUNT(*), SUM(CASE WHEN disc > 5 THEN rev ELSE 0 END) FROM t WHERE q < 25 "
+    "GROUP BY MOD(d, 100) ORDER BY MOD(d, 100) LIMIT 100"
+)
 SPARSE_Q = "SET maxDenseGroups = 2; SELECT disc, SUM(rev), COUNT(*) FROM t GROUP BY disc ORDER BY disc LIMIT 10"
 SPARSE_ORDER_Q = "SET maxDenseGroups = 2; SELECT disc, SUM(rev) FROM t GROUP BY disc ORDER BY SUM(rev) DESC LIMIT 3"
 
@@ -165,6 +173,16 @@ DIST_SET = [
     ("SELECT yr, COUNT(*) FROM t WHERE yr >= 2020 AND city = 'sf' GROUP BY yr LIMIT 100", (), False),
     ("SELECT COUNT(*), AVG(price) FROM t WHERE price IS NULL OR q > 40", (1,), False),
     ("SELECT q, SUM(rev) FROM t WHERE city != 'la' GROUP BY q ORDER BY q LIMIT 100", (), True),
+    # FILTER (WHERE ...) masks beside the words, expression values and keys
+    (DIST_FILTER_Q, (), False),
+    ("SELECT SUM(rev * disc) FROM t WHERE disc BETWEEN 1 AND 3 AND q < 25", (), False),
+    (DIST_MOD_Q, (), True),
+    ("SELECT city, COUNT(*) FILTER (WHERE q > 40), MIN(rev) FILTER (WHERE disc = 3), SUM(price) FILTER "
+     "(WHERE yr > 2010) FROM t WHERE q < 25 GROUP BY city LIMIT 10", (3,), False),
+    ("SET maxDenseGroups = 2; SELECT UPPER(city), q - 1, SUM(rev) FILTER (WHERE disc < 5), COUNT(*) FROM t "
+     "GROUP BY UPPER(city), q - 1 LIMIT 1000", (), False),
+    ("SELECT yr - 2000, SUM(CASE WHEN price > 50 THEN 1 ELSE 0 END), AVG(rev * 1.5) FROM t "
+     "GROUP BY yr - 2000 LIMIT 100", (2,), False),
 ]
 
 
@@ -285,8 +303,13 @@ def test_unported_paths_raise():
     _, ps = _stacked_pair()
     pe = PortDist(device="cpu")
     pe.register_table("t", ps)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        pe.query("SELECT d, rev FROM t LIMIT 5")
+    # as in the JAX package: selections take bare columns only
+    with pytest.raises(NotImplementedError, match="only bare columns"):
+        pe.query("SELECT d, rev * 2 FROM t LIMIT 5")
+    with pytest.raises(NotImplementedError, match="only bare columns"):
+        pe.query("SELECT d, RANK() OVER (ORDER BY rev) FROM t LIMIT 5")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        pe.query("SELECT PERCENTILE(rev, 50) FROM t")
     with pytest.raises(NotImplementedError, match="item 6"):
         pe.execute_many([port_parse(BENCH_Q)])
     with pytest.raises(NotImplementedError, match="item 3"):
@@ -427,3 +450,21 @@ def test_sse_sparse_groupby_matches_jax(sse_engines, sql, approx):
     got = port_engine.query(sql)
     assert_rows_match(got.rows, want.rows, approx, ordered="ORDER BY" in sql)
     assert got.stats.num_groups == want.stats.num_groups
+
+
+@pytest.mark.parametrize("sql,variant,masks", [(DIST_FILTER_Q, "p16/i32/shared", 2), (DIST_MOD_Q, "i32/i32/shared", 1)])
+def test_dist_slice_entry_sets_reach_the_kernel(engines, monkeypatch, sql, variant, masks):
+    """On the word-fused path the FILTER masks go to the kernel beside the
+    range-index words (mask_words); a computed key takes the int32 key
+    instantiation.  One call a launch."""
+    _, ps = _stacked_pair()
+    calls = spy_kernel_calls(monkeypatch, port_planner)
+    pe = PortDist(device="cpu", launch_bytes=_launch_bytes_for(ps, 4))
+    pe.register_table("t", ps)
+    plan = pe._plan(port_parse(sql), ps)
+    assert plan.word_fused
+    rows = pe.query(sql).rows
+    assert len(calls) == len(plan.batch_offsets) >= 3
+    for c in calls:
+        assert c["variant"] == variant and c["masks"] == masks and c["mask_words"], c
+    assert_rows_match(rows, engines["many"][0].query(sql).rows, ordered="ORDER BY" in sql)

@@ -4,7 +4,8 @@ For every query of the slice's SQL set, the two parsers must agree on the
 full fingerprint (every literal included), on the shape fingerprint against
 each package's own segment metadata, and on the extracted literal
 parameters of every predicate.  Constructs of later slices raise
-NotImplementedError in the port."""
+NotImplementedError in the port; window functions, CASE and FILTER (WHERE
+...) parse as in the JAX package."""
 import pytest
 
 import pinot_tpu  # noqa: F401
@@ -22,6 +23,17 @@ EXTRA = [
     "SELECT DISTINCT city, year FROM t",
     "SELECT COUNT(*) FROM t WHERE v > -5 AND v <= 10.5 OPTION(timeoutMs=100)",
     "SELECT SUM(v) / COUNT(*) FROM t WHERE city <> 'sf'",
+    # window functions, CASE, FILTER (WHERE ...), expressions, selections
+    "SELECT ROW_NUMBER() OVER (ORDER BY v) FROM t",
+    "SELECT CASE WHEN v > 1 THEN 1 ELSE 0 END FROM t",
+    "SELECT SUM(v) FILTER (WHERE city = 'sf'), COUNT(*) FILTER (WHERE year > 2010 AND tag IS NULL) FROM t",
+    "SELECT city, SUM(v) OVER (PARTITION BY city ORDER BY year ROWS BETWEEN 2 PRECEDING AND CURRENT ROW), "
+    "LAG(v, 2, 0) OVER (ORDER BY day), NTILE(3) OVER (ORDER BY v DESC) FROM t",
+    "SELECT AVG(v) OVER (ORDER BY day RANGE BETWEEN 5 PRECEDING AND 5 FOLLOWING) FROM t WHERE year > 2001",
+    "SELECT MOD(year, 5), UPPER(city), SUM(v * 2.5) FROM t GROUP BY MOD(year, 5), UPPER(city)",
+    "SELECT city, v * 2 FROM t WHERE DATETRUNC('day', v) > 3 ORDER BY v * 2 DESC NULLS FIRST LIMIT 5 OFFSET 2",
+    "SELECT * FROM t WHERE UPPER(city) = 'SF' AND v % 3 = 1 LIMIT 3",
+    "SELECT CASE WHEN city IN ('sf', 'la') THEN price WHEN NOT (v BETWEEN 1 AND 5) THEN v END FROM t",
 ]
 SQLS = [q[0] for q in SQL_SET] + [q.format(t="t") for q, _ in INDEX_QUERIES] + [CONFIG2] + EXTRA
 
@@ -54,8 +66,7 @@ def test_parser_matches_jax(engines, sql):  # noqa: F811
         "SELECT COUNT(*) FROM t UNION SELECT COUNT(*) FROM t",
         "SELECT COUNT(*) FROM t JOIN u ON t.a = u.a",
         "SELECT COUNT(*) FROM t WHERE city IN (SELECT city FROM u)",
-        "SELECT ROW_NUMBER() OVER (ORDER BY v) FROM t",
-        "SELECT CASE WHEN v > 1 THEN 1 ELSE 0 END FROM t",
+        "SELECT GAPFILL(year, 2000, 2010, 1), COUNT(*) FROM t GROUP BY year",
     ],
 )
 def test_later_slice_syntax_raises(sql):

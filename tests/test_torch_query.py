@@ -144,7 +144,38 @@ SQL_SET = [
     # AND whose nullable child is NULL where the other child is false): the
     # port mirrors the reference, sqlite disagrees (ROADMAP, Queue 3).
     ("SELECT COUNT(*) FROM t WHERE NOT (city = 'sf' AND price > 50)", (), False, False),
+    # selection, FILTER (WHERE ...) and transforms (unordered selection rows
+    # are segment order, which sqlite does not promise)
+    ("SELECT city, v FROM t LIMIT 5", (), True, False),
+    ("SELECT SUM(v) FILTER (WHERE city = 'sf') FROM t", (), False, None),
+    ("SELECT SUM(v * 2) FROM t", (), False, None),
+    ("SELECT COUNT(*) FILTER (WHERE year > 2010), SUM(v) FILTER (WHERE city IN ('sf', 'nyc')), "
+     "AVG(price) FILTER (WHERE tag = 'a'), MIN(v) FILTER (WHERE day < 100), MAX(big) FROM t", (2,), False, None),
+    ("SELECT city, COUNT(*), SUM(v) FILTER (WHERE year > 2010), COUNT(*) FILTER (WHERE year > 2010), "
+     "SUM(big) FILTER (WHERE tag IS NULL) FROM t GROUP BY city LIMIT 100", (), False, None),
+    ("SELECT year, SUM(v) FILTER (WHERE city = 'sf'), MAX(price) FILTER (WHERE city = 'sf') FROM t "
+     "GROUP BY year ORDER BY year LIMIT 50", (), True, None),
+    ("SET maxDenseGroups = 4; SELECT city, year, SUM(v) FILTER (WHERE day < 100), COUNT(*) FROM t "
+     "GROUP BY city, year LIMIT 1000", (), False,
+     "SELECT city, year, SUM(v) FILTER (WHERE day < 100), COUNT(*) FROM t GROUP BY city, year"),
+    ("SELECT MOD(year, 5), COUNT(*), SUM(v) FROM t GROUP BY MOD(year, 5) LIMIT 100", (), False,
+     "SELECT year % 5, COUNT(*), SUM(v) FROM t GROUP BY year % 5"),
+    ("SELECT UPPER(city), SUM(v) FROM t GROUP BY UPPER(city) LIMIT 100", (), False, None),
+    ("SELECT year - 2000, city, COUNT(*) FROM t WHERE v * 2 > 100 GROUP BY year - 2000, city LIMIT 1000",
+     (), False, None),
+    ("SELECT SUM(v * 2.5), AVG(year * 1.1), SUM(CASE WHEN price > 50 THEN 1 ELSE 0 END) FROM t", (0, 1), False,
+     None),
+    ("SELECT day / 7, SUM(CASE WHEN city = 'sf' THEN v ELSE 0 END) FROM t GROUP BY day / 7 LIMIT 10", (), False,
+     False),  # a float key: not groupable, refused by both packages below
+    # MOD by zero is 0 in both packages, NULL in sqlite
+    ("SELECT SUM(MOD(v, 0)), COUNT(*) FROM t WHERE LENGTH(city) = 2", (), False, False),
+    # a CASE condition compares a NULL as its stored placeholder in both
+    # packages, so NOT and <> pick NULL rows; sqlite does not (ROADMAP Queue 3)
+    ("SELECT SUM(CASE WHEN NOT (price > 50) THEN 1 ELSE 0 END), SUM(CASE WHEN tag <> 'a' THEN 1 ELSE 0 END) "
+     "FROM t", (), False, False),
 ]
+# queries both packages refuse (the parity test then checks the refusal)
+REFUSED_BY_BOTH = {"SELECT day / 7, SUM(CASE WHEN city = 'sf' THEN v ELSE 0 END) FROM t GROUP BY day / 7 LIMIT 10"}
 
 
 def _sort_key(row):
@@ -169,6 +200,11 @@ def assert_rows_match(got, want, approx=(), ordered=False):
 @pytest.mark.parametrize("sql,approx,ordered,lite", SQL_SET, ids=[q[0][:60] for q in SQL_SET])
 def test_sql_set_matches_jax(engines, sql, approx, ordered, lite):
     jax_engine, port_engine, conn = engines
+    if sql in REFUSED_BY_BOTH:
+        for eng in (jax_engine, port_engine):
+            with pytest.raises(NotImplementedError, match="group-by expression"):
+                eng.query(sql)
+        return
     want = jax_engine.query(sql)
     got = port_engine.query(sql)
     assert_rows_match(got.rows, want.rows, approx, ordered)
@@ -313,10 +349,8 @@ def test_plan_cache_reuses_closure_across_literals(lineorder):
 @pytest.mark.parametrize(
     "sql",
     [
-        "SELECT city, v FROM t LIMIT 5",  # selection
-        "SELECT SUM(v) FILTER (WHERE city = 'sf') FROM t",  # filtered aggregation
-        "SELECT SUM(v * 2) FROM t",  # transform
         "SELECT DISTINCTCOUNTHLL(city) FROM t",  # sketch
+        "SELECT PERCENTILE(v, 90) FROM t",  # extra arguments
     ],
 )
 def test_later_slices_raise_not_implemented(engines, sql):
@@ -342,3 +376,95 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         PortEngine()
     assert PortEngine(device="cpu").device == torch.device("cpu")
+
+
+# -- the entry sets this slice's SQL sends to the fused scan ------------------
+# H100's opt-in shared memory a block (227 KB): the layout the card would take
+SMEM_OPTIN = 227 * 1024
+
+
+def spy_kernel_calls(monkeypatch, planner_module):
+    """Plan for the kernel backend ("cuda") on CPU tensors and record, for
+    every call that reaches fused_scan.fused_group_tables (the wrapper that
+    launches the kernel on CUDA tensors), the instantiation build_params
+    picks, the distinct masks (dedup_masks) and whether filter words ride
+    along.  The calls still compute through the plain version here."""
+    calls = []
+    real = fused_scan.fused_group_tables
+
+    def spy(entries, codes, num_groups, **kw):
+        packed = kw.get("codes_packed")
+        key_t, bits = (packed[0], int(packed[1])) if packed is not None else (codes, 0)
+        n = int(codes.shape[0]) if codes is not None else int(entries[0][2].shape[0])
+        _p, _order, variant = fused_scan.build_params(
+            entries, key_t, bits, n, num_groups, kw.get("mask_words"), None, SMEM_OPTIN)
+        masks, _ = fused_scan.dedup_masks([m for _k, _v, m, _lp in entries])
+        calls.append({"variant": variant, "masks": len(masks), "mask_words": kw.get("mask_words") is not None,
+                      "kinds": sorted({k for k, _v, _m, _lp in entries})})
+        return real(entries, codes, num_groups, **kw)
+
+    monkeypatch.setattr(fused_scan, "fused_group_tables", spy)
+    monkeypatch.setattr(planner_module, "backend_tag", lambda device: "cuda")
+    return calls
+
+
+LO_FILTER_Q = (
+    "SELECT lo_orderdate, COUNT(*), SUM(lo_revenue) FILTER (WHERE lo_discount BETWEEN 1 AND 3), "
+    "SUM(lo_revenue * lo_discount) FROM lineorder WHERE lo_quantity < 25 GROUP BY lo_orderdate LIMIT 2500"
+)
+LO_MOD_Q = (
+    "SELECT MOD(lo_orderdate, 100), COUNT(*), SUM(CASE WHEN lo_discount > 5 THEN lo_revenue ELSE 0 END) "
+    "FROM lineorder WHERE lo_quantity < 25 GROUP BY MOD(lo_orderdate, 100) ORDER BY MOD(lo_orderdate, 100) LIMIT 100"
+)
+# (sql, instantiation, distinct masks) per call; None: no call reaches the kernel
+ENTRY_SETS = [
+    (LO_FILTER_Q, "p16/i32/shared", 2),
+    (LO_FILTER_Q.replace("FROM lineorder", ", SUM(lo_revenue) FILTER (WHERE lo_discount > 8) FROM lineorder"),
+     "p16/i32/shared", 3),
+    (LO_MOD_Q, "i32/i32/shared", 1),
+    # a CASE of literals is int64 with no range bound: int64-limb values
+    (LO_MOD_Q.replace("THEN lo_revenue ELSE 0", "THEN 1 ELSE 0"), "any/any/shared", 1),
+    # a float FILTER'd sum stays on the f64 torch path, as the JAX package
+    # keeps float sums off its Pallas kernel
+    ("SELECT lo_discount, SUM(lo_revenue * 1.5) FILTER (WHERE lo_quantity > 10) FROM lineorder "
+     "GROUP BY lo_discount LIMIT 20", None, None),
+]
+
+
+@pytest.mark.parametrize("sql,variant,masks", ENTRY_SETS, ids=[v or "torch path" for _s, v, _m in ENTRY_SETS])
+def test_slice_entry_sets_reach_the_kernel(lineorder, monkeypatch, sql, variant, masks):
+    jax_engine, _, datas = lineorder
+    port_planner.plan_cache_clear()
+    calls = spy_kernel_calls(monkeypatch, port_planner)
+    engine = PortEngine(device="cpu")
+    engine.register_table(lineorder_schema(port_schema), port_config.TableConfig(
+        "lineorder", indexing=port_config.IndexingConfig(range_index_columns=["lo_quantity"])))
+    for i, d in enumerate(datas):
+        engine.add_segment("lineorder", port_build(lineorder_schema(port_schema), dict(d), f"lo{i}",
+                                                   table_config=engine.tables["lineorder"].config))
+    got = engine.query(sql)
+    port_planner.plan_cache_clear()
+    assert_rows_match(got.rows, jax_engine.query(sql).rows, approx=(1,) if variant is None else ())
+    if variant is None:
+        assert calls == []
+        return
+    assert len(calls) == len(datas)  # one call a segment
+    for c in calls:
+        assert c["variant"] == variant and c["masks"] == masks and not c["mask_words"], c
+
+
+def test_derived_key_space_merge_is_mirrored():
+    """A reference fault the port mirrors (ROADMAP Queue 3): a GROUP BY over
+    a string function keys its dense table by the derived dictionary's SIZE,
+    so two segments whose derived values differ but number the same merge
+    their tables slot by slot.  Here 'zz2' (segment 1) folds into 'ZZ1'."""
+    d1, d2 = make_data(1, 300), make_data(2, 300)
+    d1["city"][d1["city"] == "atx"] = "zz1"
+    d2["city"][d2["city"] == "atx"] = "zz2"
+    jax_engine, port_engine = build_engines({"t": (True, [d1, d2])})
+    sql = "SELECT UPPER(city), COUNT(*) FROM t GROUP BY UPPER(city) LIMIT 100"
+    got = sorted(port_engine.query(sql).rows)
+    assert got == sorted(jax_engine.query(sql).rows)
+    truth = sorted(port_engine.query("SELECT city, COUNT(*) FROM t GROUP BY city LIMIT 100").rows)
+    assert [c for c, _n in got] == [c.upper() for c, _n in truth if c != "zz2"]
+    assert sum(n for _c, n in got) == sum(n for _c, n in truth)
