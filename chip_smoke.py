@@ -59,6 +59,26 @@ Phases, in order; any failure raises and the process exits non-zero:
                 their wall timings; then one transform_path line per query
                 and engine: wall, device busy and idle share, launches,
                 masks, bytes of doc ids copied home, exact.
+ 4d. storage  - on the same tables: the segment engine's 8 segments saved
+                (segment/store.py format) into a directory under build/,
+                loaded with verify=True (CRC) into a fresh QueryEngine()
+                whose table schema adds a nullable INT column, (a), (b),
+                (c), (e) exact against the goldens and the in-memory engine,
+                (a) launching the scan once a segment, the added column
+                read as NULL; write and load seconds, first-run and warm
+                ms; the directory removed.  Then the residency sweep on
+                phase 4b's table at ~16 launches: the working set W of
+                (a) and (c) with an unbounded budget, an untiered engine
+                (hbm_cache_bytes=0) and legs at 0.5x, 1x and 4x (budgets
+                2W, W + 64 KiB, W/4), each exact, (a) launching with
+                mask_words in every launch; per leg warm medians, rows/s,
+                prefetch hits, stalls, hit rate, stall ms, evictions, and
+                the peak allocated bytes against the budget; the 4x leg
+                profiled once (the streams of the HtoD copies and of the
+                scan, pinned or pageable, busy as the union of device
+                events, idle share) and raced by an evictor; last, phase
+                4b's engines (default residency) against untiered engines
+                at the same launch budgets, in turns.
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
@@ -73,9 +93,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -703,6 +727,7 @@ def phase_main_path(args, dev):
     profiles = [("main_path_profile", {"query": name}, engine, sql) for name, sql in (
         ("a_config2", CONFIG2), ("b_filtered_agg", QUERY_B), ("c_two_dim_groupby", QUERY_C))]
     return {"launches": main_launches, "variants": main_variants, "engine": engine, "datas": datas,
+            "golden": {"a_config2": want_a, "b_filtered_agg": want_b, "c_two_dim_groupby": want_c},
             "profiles": profiles}
 
 
@@ -981,6 +1006,7 @@ def phase_dist_main_path(args, dev):
     profiles = [("dist_profile", {"engine": label, "query": name}, e, sql)
                 for label, e in engines.items() for name, sql in DIST_QUERIES.items()]
     return {"launches": launches, "variants": variants, "engines": engines, "stacked": stacked, "data": data,
+            "golden": want,
             "profiles": profiles}
 
 
@@ -1178,9 +1204,9 @@ def _transform_counted_run(engine, names, golden, kind: str, plans=None):
     return launches, variants, out
 
 
-def _wall_ms(engine, sql: str) -> dict:
+def _wall_ms(engine, sql: str, runs: int = 5) -> dict:
     ms = []
-    for _ in range(5):
+    for _ in range(runs):
         t0 = time.perf_counter()
         engine.query(sql)
         torch.cuda.synchronize()
@@ -1231,7 +1257,421 @@ def phase_transform_path(seg, dist):
             records[f"{label}/{name}"].update(_wall_ms(e, TRANSFORM_QUERIES[name]))
             profiles.append(("transform_profile", {"engine": label, "query": name}, e, TRANSFORM_QUERIES[name]))
     log("transform_check", exact=True, launches=launches, launches_by_engine=by_path, instantiations=variants)
-    return {"launches": launches, "variants": variants, "records": records, "profiles": profiles}
+    return {"launches": launches, "variants": variants, "records": records, "profiles": profiles,
+            "seg_golden": seg_golden}
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: storage — segment persistence on the segment engine, the
+# residency sweep on the distributed engine, on the tables phases 4 and 4b
+# built
+# ---------------------------------------------------------------------------
+REPO = os.path.dirname(os.path.abspath(__file__))
+STORAGE_QUERIES = {"a_config2": CONFIG2, "b_filtered_agg": QUERY_B, "c_two_dim_groupby": QUERY_C,
+                   "e_filter_groupby": TRANSFORM_QUERIES["e_filter_groupby"]}
+# a nullable INT column added to the table schema after the segments were built
+EVOLVED_QUERIES = {
+    "added_count_sum": "SELECT COUNT(lo_added), SUM(lo_added), COUNT(*) FROM lineorder",
+    "added_is_null": "SELECT COUNT(*) FROM lineorder WHERE lo_added IS NULL",
+}
+# the residency sweep (bench.py _working_set_sweep at phase 4b's table):
+# about 16 launches, and each leg's cache budget from the working set W
+SWEEP_LAUNCHES = 16
+SWEEP_QUERIES = ("a_bench", "c_min_max_groupby")
+SWEEP_LEGS = (("0.5x", lambda w: 2 * w), ("1x", lambda w: w + (64 << 10)), ("4x", lambda w: w // 4))
+RACING_RUNS = 6
+RACING_PERIOD_S = 0.002
+
+
+def _rows_exact(name: str, rows, want) -> bool:
+    return (sorted(rows) if name in ("a_config2", "a_bench", "e_filter_groupby") else list(rows)) == want
+
+
+def _counters():
+    from pinot_tpu_torch.ops import fused_scan
+
+    return fused_scan.LAUNCHES, fused_scan.MASK_WORDS_LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES)
+
+
+def _zero_counters():
+    from pinot_tpu_torch.ops import fused_scan
+
+    fused_scan.LAUNCHES = fused_scan.MASK_WORDS_LAUNCHES = 0
+    fused_scan.VARIANT_LAUNCHES.clear()
+
+
+def _storage_persistence(seg, transform):
+    """save the segment engine's 8 segments, load each verified into a fresh
+    QueryEngine() under the table schema plus one added nullable column, and
+    run (a), (b), (c), (e) and the added column's queries, exact."""
+    from pinot_tpu_torch.query.engine import QueryEngine
+    from pinot_tpu_torch.segment.segment import ImmutableSegment
+    from pinot_tpu_torch.spi.schema import DataType, FieldRole, FieldSpec, Schema
+
+    mem = seg["engine"]
+    state = mem.tables["lineorder"]
+    golden = dict(seg["golden"], e_filter_groupby=transform["seg_golden"]["e_filter_groupby"])
+    total = sum(s.num_docs for s in state.segments)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="storage_segments_", dir=os.path.join(REPO, "build"))
+    try:
+        t0 = time.perf_counter()
+        paths = []
+        for s in state.segments:
+            paths.append(os.path.join(root, s.name))
+            s.save(paths[-1])
+        write_s = time.perf_counter() - t0
+        disk_bytes = sum(os.path.getsize(os.path.join(p, f)) for p in paths for f in os.listdir(p))
+        evolved = Schema("lineorder", list(state.schema.fields) + [
+            FieldSpec("lo_added", DataType.INT, role=FieldRole.METRIC, nullable=True)])
+        loaded = QueryEngine()  # device None: CUDA, raising without it
+        loaded.register_table(evolved, state.config)
+        t1 = time.perf_counter()
+        for p in paths:
+            loaded.add_segment("lineorder", ImmutableSegment.load(p, verify=True))
+        load_s = time.perf_counter() - t1
+
+        # the counted run: counts set to 0 just before, read just after; each
+        # query's first run copies its columns from the mmaps
+        _zero_counters()
+        rows, first_ms, per = {}, {}, {}
+        for name, sql in STORAGE_QUERIES.items():
+            before = _counters()
+            t = time.perf_counter()
+            rows[name] = loaded.query(sql).rows
+            torch.cuda.synchronize()
+            first_ms[name] = (time.perf_counter() - t) * 1e3
+            after = _counters()
+            per[name] = {"launches": after[0] - before[0],
+                         "instantiations": {k: v - before[2].get(k, 0) for k, v in after[2].items()
+                                            if v != before[2].get(k, 0)}}
+        launches, variants = _counters()[0], _counters()[2]
+        evolved_rows = {name: loaded.query(sql).rows for name, sql in EVOLVED_QUERIES.items()}
+        for name, want in golden.items():
+            if not _rows_exact(name, rows[name], want):
+                raise AssertionError(f"loaded-segment query {name} differs from the numpy golden")
+            if sorted(rows[name]) != sorted(mem.query(STORAGE_QUERIES[name]).rows):
+                raise AssertionError(f"loaded-segment query {name} differs from the in-memory engine")
+        n_seg = len(paths)
+        if per["a_config2"] != {"launches": n_seg, "instantiations": {"p16/i32/shared": n_seg}}:
+            raise AssertionError(f"loaded query (a) did not launch the fused scan once a segment: {per['a_config2']}")
+        want_evolved = {"added_count_sum": [(0, None, total)], "added_is_null": [(total,)]}
+        if evolved_rows != want_evolved:
+            raise AssertionError(f"schema evolution: {evolved_rows} vs {want_evolved}")
+        warm = {name: _wall_ms(loaded, sql) for name, sql in STORAGE_QUERIES.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for s in loaded.tables["lineorder"].segments:
+        s.release_device()
+    return {"segments": n_seg, "rows": total, "disk_bytes": disk_bytes, "write_s": write_s,
+            "verify_and_load_s": load_s, "first_query_ms": first_ms, "warm": warm, "launches": launches,
+            "instantiations": variants, "per_query": per, "schema_evolution": evolved_rows}
+
+
+def _trace_streams(engine, sql: str) -> dict:
+    """One profiled run: the streams of the host-to-device copies and of the
+    fused scan, pinned vs pageable copies, and the device's busy time as
+    the union of its events over the wall (copies and kernels overlap on
+    two streams, so a sum would double-count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.query(sql)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(REPO, "build", "storage_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    os.remove(path)
+
+    def union(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def length(spans):
+        return sum(b - a for a, b in spans)
+
+    def stream(e):
+        return (e.get("args") or {}).get("stream", e.get("tid"))
+
+    htod = [e for e in events if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    scans = [e for e in events if e["cat"] == "kernel" and "fused_scan" in e["name"]]
+    kernels = union([(e["ts"], e["ts"] + e["dur"]) for e in events if e["cat"] == "kernel"])
+    copies = union([(e["ts"], e["ts"] + e["dur"]) for e in htod])
+    # the copies' time that a kernel covers (both unions are sorted, disjoint)
+    both, i, j = 0.0, 0, 0
+    while i < len(copies) and j < len(kernels):
+        both += max(0.0, min(copies[i][1], kernels[j][1]) - max(copies[i][0], kernels[j][0]))
+        if copies[i][1] < kernels[j][1]:
+            i += 1
+        else:
+            j += 1
+    busy_ms = length(union([(e["ts"], e["ts"] + e["dur"]) for e in events])) / 1e3
+    htod_streams = sorted({stream(e) for e in htod}, key=str)
+    scan_streams = sorted({stream(e) for e in scans}, key=str)
+    return {
+        "profiled_wall_ms": wall_ms,
+        "device_events": len(events),
+        "htod_copies": len(htod),
+        "htod_pinned": sum("Pinned" in e["name"] for e in htod),
+        "htod_pageable": sum("Pageable" in e["name"] for e in htod),
+        "htod_ms": length(copies) / 1e3,
+        "htod_streams": htod_streams,
+        "scan_launches_captured": len(scans),
+        "scan_streams": scan_streams,
+        "copies_on_another_stream": bool(htod_streams) and not set(htod_streams) & set(scan_streams),
+        "copy_ms_overlapped_by_kernels": both / 1e3,
+        "device_busy_ms": busy_ms if events else "not measured",
+        "device_idle_share": 1.0 - busy_ms / wall_ms if events else "not measured",
+    }
+
+
+def _sweep_leg(label, eng, stacked, sqls, want, ref_rows, n):
+    """One budget: a cold pass, the counted run of (a) (launches with
+    mask_words), warm medians of 5 with the staging counters around them,
+    and the peak allocated bytes over the leg's starting allocation."""
+    from pinot_tpu_torch.sql.parser import parse_query
+    from pinot_tpu_torch.utils.metrics import METRICS
+
+    nb = len(eng._plan(parse_query(sqls["a_bench"]), stacked).batch_offsets)
+    evictions = METRICS.counter("residency.evictions")  # every engine's manager is named "residency"
+    ev0 = evictions.value
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for name, sql in sqls.items():  # cold: stages every slice once
+        if not _rows_exact(name, eng.query(sql).rows, want[name]):
+            raise AssertionError(f"{label} leg: cold {name} differs from the numpy golden")
+    _zero_counters()
+    res = eng.query(sqls["a_bench"])
+    torch.cuda.synchronize()
+    launches, mask_words, variants = _counters()
+    if not _rows_exact("a_bench", res.rows, want["a_bench"]) or launches != nb or mask_words != nb:
+        raise AssertionError(f"{label} leg: (a) launched {launches} ({mask_words} with mask_words), want {nb}")
+    h0 = METRICS.counter("engine.prefetchHits").value
+    s0 = METRICS.counter("engine.stagingStalls").value
+    st0 = METRICS.histogram("residency.stagingStallMs")._snap()
+    ev_warm0 = evictions.value
+    timings = {}
+    for name, sql in sqls.items():
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rows = eng.query(sql).rows
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if rows != ref_rows[name]:
+                raise AssertionError(f"{label} leg: {name} differs from the untiered engine")
+        med = statistics.median(ms)
+        timings[name] = {"median_ms": med, "rows_per_s": n / (med / 1e3), "runs_ms": ms}
+    hits = METRICS.counter("engine.prefetchHits").value - h0
+    stalls = METRICS.counter("engine.stagingStalls").value - s0
+    st1 = METRICS.histogram("residency.stagingStallMs")._snap()
+    snap = eng.residency.snapshot()
+    return {
+        "budget_bytes": eng.residency.budget.budget_bytes,
+        "batches": nb,
+        "scan_launches_a": launches,
+        "mask_words_launches_a": mask_words,
+        "instantiations_a": variants,
+        "warm": timings,
+        "prefetch_hits": hits,
+        "staging_stalls": stalls,
+        "prefetch_hit_rate": hits / (hits + stalls) if hits + stalls else "no streamed batch",
+        "staging_stall_ms": st1["count"] * st1["meanMs"] - st0["count"] * st0["meanMs"],
+        "evictions_in_leg": evictions.value - ev0,
+        "evictions_in_warm_runs": evictions.value - ev_warm0,
+        "resident_bytes": snap["residentBytes"],
+        "budget_peak_bytes": eng.residency.budget.peak,
+        "allocated_at_start": base,
+        "peak_allocated_over_start": torch.cuda.max_memory_allocated() - base,
+        "exact": True,
+    }
+
+
+def _racing_evictor(eng, sql: str, want_rows) -> dict:
+    """RACING_RUNS runs of `sql` while a thread evicts every resident group
+    every RACING_PERIOD_S: every run exact."""
+    stop = threading.Event()
+    evicted = [0]
+
+    def evictor():
+        while not stop.is_set():
+            evicted[0] += eng.residency.evict_matching(lambda g: True)
+            time.sleep(RACING_PERIOD_S)
+
+    th = threading.Thread(target=evictor, daemon=True)
+    th.start()
+    try:
+        exact = [eng.query(sql).rows == want_rows for _ in range(RACING_RUNS)]
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        th.join(timeout=30)
+    if not all(exact) or th.is_alive():
+        raise AssertionError(f"racing evictor: exact {exact}, evictor alive {th.is_alive()}")
+    return {"runs": RACING_RUNS, "exact": True, "groups_evicted": evicted[0]}
+
+
+def _drop_slices(eng, plan_sqls, stacked, dev):
+    """Remove an engine's doc slices from the table's device cache (the
+    table's cache is shared by every engine on the device)."""
+    from pinot_tpu_torch.sql.parser import parse_query
+
+    for sql in plan_sqls:
+        plan = eng._plan(parse_query(sql), stacked)
+        for off, _ in plan.batch_offsets:
+            stacked.evict_slice(dev, (off, off + plan.batch_docs))
+
+
+def _storage_sweep(dist, dev):
+    """Phase 4b's table at about 16 launches: W of (a) and (c) with an
+    unbounded budget, then legs at 0.5x, 1x and 4x (budget 2W, W + 64 KiB,
+    W / 4), each exact against the golden and the untiered engine; the 4x
+    leg profiled once and raced by an evictor."""
+    from pinot_tpu_torch.parallel.engine import DistributedEngine
+
+    stacked = dist["stacked"]
+    n = stacked.num_docs
+    sqls = {name: DIST_QUERIES[name] for name in SWEEP_QUERIES}
+    want = {name: dist["golden"][name] for name in SWEEP_QUERIES}
+    bytes_per_doc = sum(
+        (c.code_bits / 8.0 if c.code_bits and c.packed is not None else c.codes.dtype.itemsize)
+        if c.codes is not None else c.values.dtype.itemsize
+        for c in stacked.columns.values())
+    table_bytes = int(bytes_per_doc * stacked.num_shards * stacked.docs_per_shard)
+    launch_bytes = table_bytes // SWEEP_LAUNCHES + 1
+
+    untiered = DistributedEngine(launch_bytes=launch_bytes, hbm_cache_bytes=0)
+    untiered.register_table("lineorder", stacked)
+    ref_rows = {name: untiered.query(sql).rows for name, sql in sqls.items()}
+    for name in sqls:
+        if not _rows_exact(name, ref_rows[name], want[name]):
+            raise AssertionError(f"untiered sweep engine: {name} differs from the numpy golden")
+    _drop_slices(untiered, sqls.values(), stacked, dev)
+
+    probe = DistributedEngine(launch_bytes=launch_bytes, hbm_cache_bytes=1 << 40)
+    probe.register_table("lineorder", stacked)
+    for name, sql in sqls.items():
+        if probe.query(sql).rows != ref_rows[name]:
+            raise AssertionError(f"unbounded tiered probe: {name} differs from the untiered engine")
+    w = int(probe.residency.resident_bytes)
+    probe.residency.evict_matching(lambda g: True)
+    probe.residency.shutdown()
+    log("storage_sweep_setup", rows=n, table_bytes=table_bytes, launch_bytes=launch_bytes, working_set_bytes=w,
+        cut=("table 2^27 rows (about SSB SF22, ~1 GB on the card) and budgets scaled with it: the ratio of "
+             "working set to budget is what the sweep measures; a table larger than the card needs more "
+             "host RAM and build time than the run has"))
+
+    legs, launches, variants, extra = {}, 0, {}, {}
+    for label, budget_of in SWEEP_LEGS:
+        eng = DistributedEngine(launch_bytes=launch_bytes, hbm_cache_bytes=budget_of(w))
+        eng.register_table("lineorder", stacked)
+        try:
+            legs[label] = _sweep_leg(label, eng, stacked, sqls, want, ref_rows, n)
+            launches += legs[label]["scan_launches_a"]
+            for k, v in legs[label]["instantiations_a"].items():
+                variants[k] = variants.get(k, 0) + v
+            log("storage_leg", leg=label, working_set_bytes=w, **legs[label])
+            if label == "4x":
+                extra["profile_4x_a"] = _trace_streams(eng, sqls["a_bench"])
+                log("storage_profile", leg=label, query="a_bench", **extra["profile_4x_a"])
+                extra["racing_4x_c"] = _racing_evictor(eng, sqls["c_min_max_groupby"], ref_rows["c_min_max_groupby"])
+                log("storage_racing_evictor", leg=label, query="c_min_max_groupby", **extra["racing_4x_c"])
+        finally:
+            eng.residency.evict_matching(lambda g: True)
+            eng.residency.shutdown()
+    four = legs["4x"]
+    if four["evictions_in_warm_runs"] <= 0:
+        raise AssertionError(f"4x leg: no eviction in the warm runs: {four}")
+    for label, leg in legs.items():  # every streamed batch consumed once: a hit or a stall
+        if leg["prefetch_hits"] + leg["staging_stalls"] != 5 * len(sqls) * leg["batches"]:
+            raise AssertionError(f"{label} leg: {leg['prefetch_hits']} hits + {leg['staging_stalls']} stalls "
+                                 f"for {5 * len(sqls)} queries of {leg['batches']} batches")
+    prof = extra["profile_4x_a"]
+    if prof["htod_copies"] and not (prof["copies_on_another_stream"] and prof["htod_pageable"] == 0):
+        raise AssertionError(f"4x leg: the staging copies did not run pinned on a stream of their own: {prof}")
+    return {"working_set_bytes": w, "launch_bytes": launch_bytes, "legs": legs, "launches": launches,
+            "variants": variants, **extra}
+
+
+def _residency_walls(dist) -> dict:
+    """Phase 4b's engines (default residency, 8 GiB: the table fits) against
+    untiered engines at the same launch budgets, in turns (tiered,
+    untiered, untiered, tiered; 3 runs a turn): the cost of the staging
+    path when every slice is resident."""
+    from pinot_tpu_torch.parallel.engine import DistributedEngine
+
+    out = {}
+    for label, e in dist["engines"].items():
+        flat = DistributedEngine(launch_bytes=e.launch_bytes, hbm_cache_bytes=0)
+        flat.register_table("lineorder", dist["stacked"])
+        for name in ("a_bench", "b_filtered_agg", "c_min_max_groupby"):
+            sql = DIST_QUERIES[name]
+            if flat.query(sql).rows != e.query(sql).rows:
+                raise AssertionError(f"{label} {name}: the untiered engine differs from the tiered one")
+            ms = {"tiered": [], "untiered": []}
+            for turn in ("tiered", "untiered", "untiered", "tiered"):
+                eng = e if turn == "tiered" else flat
+                ms[turn].extend(_wall_ms(eng, sql, runs=3)["runs_ms"])
+            out[f"{label}/{name}"] = {k: {"median_ms": statistics.median(v), "runs_ms": v} for k, v in ms.items()}
+    return out
+
+
+def _copy_rates(dev, nbytes: int = 512 << 20, chunk: int = 64 << 20) -> dict:
+    """GB/s of the staging path's pieces on this machine, medians of 3 over
+    `nbytes` in `chunk` pieces: a host copy into a pinned buffer by numpy
+    (one thread) and by torch (intra-op threads), and a copy to the card
+    from the pinned buffer and from pageable memory."""
+    src = np.random.default_rng(0).integers(0, 255, nbytes, dtype=np.uint8)
+    src_t = torch.from_numpy(src)
+    pinned = torch.empty(chunk, dtype=torch.uint8, pin_memory=True)
+    pinned_np = pinned.numpy()
+    dst = torch.empty(chunk, dtype=torch.uint8, device=dev)
+    steps = {
+        "host_to_pinned_numpy": lambda off: pinned_np.__setitem__(slice(None), src[off: off + chunk]),
+        "host_to_pinned_torch": lambda off: pinned.copy_(src_t[off: off + chunk]),
+        "pinned_to_device": lambda off: dst.copy_(pinned, non_blocking=True),
+        "pageable_to_device": lambda off: dst.copy_(src_t[off: off + chunk]),
+    }
+    out = {}
+    for name, step in steps.items():
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for off in range(0, nbytes, chunk):
+                step(off)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        out[name] = nbytes / statistics.median(ts) / 1e9
+    return out
+
+
+def phase_storage(seg, dist, transform, dev) -> dict:
+    t0 = time.perf_counter()
+    log("storage_copy_rates", unit="GB/s", torch_threads=torch.get_num_threads(), **_copy_rates(dev))
+    persist = _storage_persistence(seg, transform)
+    log("storage_persistence", exact=True, **persist)
+    # wall timings before the sweep's profiler session
+    log("storage_default_residency_walls", **_residency_walls(dist))
+    sweep = _storage_sweep(dist, dev)
+    storage_s = time.perf_counter() - t0
+    log("storage_check", exact=True, loaded_launches=persist["launches"], tiered_launches=sweep["launches"],
+        storage_s=storage_s)
+    variants = dict(persist["instantiations"])
+    for k, v in sweep["variants"].items():
+        variants[k] = variants.get(k, 0) + v
+    return {"launches": persist["launches"] + sweep["launches"], "variants": variants, "storage_s": storage_s}
+
 
 
 def run_profiles(tasks) -> dict:
@@ -1253,6 +1693,7 @@ def main() -> int:
     ap.add_argument("--segments", type=int, default=8)
     ap.add_argument("--rows-per-segment", type=int, default=1 << 23)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -1282,17 +1723,19 @@ def main() -> int:
     seg_timing = timings[1]  # the segment main path's shape (the single numbers up to slice 2)
 
     # 4. main paths: the segment engine's, the distributed engine's, then
-    # the transform path over the tables they built; their profiles after
-    # all their wall timings
+    # the transform path and the storage phase over the tables they built;
+    # the query profiles after all their wall timings
     seg = phase_main_path(args, dev)
     dist = phase_dist_main_path(args, dev)
     transform = phase_transform_path(seg, dist)
+    storage = phase_storage(seg, dist, transform, dev)
     main_variants = dict(seg["variants"])
-    for part in (dist, transform):
+    for part in (dist, transform, storage):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
-    main_launches = sse_launches + dist_launches + transform_launches
+    storage_launches = storage["launches"]
+    main_launches = sse_launches + dist_launches + transform_launches + storage_launches
     profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"])
     for key, rec in transform["records"].items():
         engine, _, query = key.partition("/")
@@ -1301,7 +1744,9 @@ def main() -> int:
             device_busy_ms=prof.get("device_busy_ms", "not run"), device_idle_share=prof.get("device_idle_share",
                                                                                              "not run"))
     dist["stacked"].release_device()
-    del seg, dist, transform
+    for e in dist["engines"].values():
+        e.residency.shutdown()
+    del seg, dist, transform, storage
     torch.cuda.empty_cache()
 
     # 5. profile
@@ -1318,7 +1763,7 @@ def main() -> int:
         "launches": main_launches,
         "launches_on_main_path": main_launches,
         "launches_by_path": {"segment_engine": sse_launches, "distributed_engine": dist_launches,
-                             "transform_path": transform_launches},
+                             "transform_path": transform_launches, "storage": storage_launches},
         "max_abs_err": worst,
         "shape": timing["shape"],
         "ms": timing["kernel_ms"],
@@ -1337,6 +1782,7 @@ def main() -> int:
         "specialised_vs_generic": generic,
         "flush_check": flush_check,
     }]
+    log("script", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

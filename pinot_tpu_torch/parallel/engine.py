@@ -25,12 +25,27 @@ as there).  Each launch's row mask turns into global doc ids on the device,
 only the fresh part of a re-covering tail window counting, and only the ids
 come home; the rows gather on the host (StackedTable.decoded_rows).
 
+Residency (segment/residency.py): by default the table's doc slices live
+in a byte-budgeted device cache (`default_residency()`: 8 GiB, or
+PINOT_TPU_HBM_CACHE_BYTES; `hbm_cache_bytes=` / `residency=` set it, 0
+turns it off).  With it, batch k+1's slices and range-index words stage on
+the residency manager's one staging thread while batch k scans, evicting
+cost-ranked slices when the budget is full; on CUDA that thread copies on
+the engine's own stream from pinned memory (parallel/staging.py) and the
+launch waits on the batch's copy event.  Without it (hbm_cache_bytes=0)
+every batch stages before the first launch on the compute stream, with
+pageable copies: the untiered path the tiered one is held against.
+
+Every query is counted (`dist.queries`, `dist.queryLatency`) and recorded
+in the perf ledger (utils/perf.PERF_LEDGER) with its analytic kernel bytes.
+
 Not ported, each raising NotImplementedError naming its ROADMAP Queue 1
-item: sketches (item 4), residency tiering and prefetch (item 3),
-cross-query batching `execute_many` (item 6), joins (item 8).
+item: sketches (item 4), cross-query batching `execute_many` (item 6),
+joins (item 8).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import itertools
 import os
 import time
@@ -57,7 +72,10 @@ from pinot_tpu_torch.query.result import (
     ResultTable,
     SelectionSegmentResult,
 )
-from pinot_tpu_torch.query.shape import column_info_from, params_structure
+from pinot_tpu_torch.query.shape import column_info_from, params_structure, shape_digest
+from pinot_tpu_torch.segment.residency import default_residency
+from pinot_tpu_torch.utils import perf
+from pinot_tpu_torch.utils.metrics import METRICS
 
 
 # the launch schedule's params: a launch's first doc column, and its first
@@ -134,7 +152,11 @@ class DistributedEngine:
     device: None means CUDA and raises without it; "cpu" runs the plain
     PyTorch path.  launch_bytes: the bytes of table one launch may cover
     (macro-batching threshold, default PINOT_TPU_LAUNCH_BYTES or 2 GiB).
-    pipeline_depth: launches in flight before the first drain (default 2)."""
+    pipeline_depth: launches in flight before the first drain, and batches
+    staged ahead (default 2).  residency: a caller-owned ResidencyManager;
+    else hbm_cache_bytes > 0 makes one of that budget, 0 turns tiering off,
+    and None takes default_residency() (8 GiB unless
+    PINOT_TPU_HBM_CACHE_BYTES says otherwise), as in the JAX package."""
 
     def __init__(
         self,
@@ -144,11 +166,6 @@ class DistributedEngine:
         hbm_cache_bytes: Optional[int] = None,
         residency=None,
     ):
-        if hbm_cache_bytes is not None or residency is not None:
-            raise NotImplementedError(
-                "residency tiering (hbm_cache_bytes, residency) is a later slice of the port "
-                "(ROADMAP Queue 1 item 3)"
-            )
         self.device = resolve_device(device)
         self.tables: Dict[str, Any] = {}
         self._plan_cache = planner._PlanCache()
@@ -161,6 +178,20 @@ class DistributedEngine:
         )
         self.pipeline_depth = int(pipeline_depth)
         self._qid_seq = itertools.count(1)
+        if residency is not None:
+            self.residency = residency
+        elif hbm_cache_bytes is not None and hbm_cache_bytes > 0:
+            from pinot_tpu_torch.cluster.admission import ResourceBudget
+
+            self.residency = default_residency(
+                budget=ResourceBudget(hbm_cache_bytes, gauge="residency.reservedBytes")
+            )
+        elif hbm_cache_bytes is not None:
+            self.residency = None
+        else:
+            self.residency = default_residency()
+        # the tiered path's CUDA copy stream and pinned ring (made at first use)
+        self._copy_stream = None
 
     @property
     def num_devices(self) -> int:
@@ -194,13 +225,26 @@ class DistributedEngine:
         )
         misses = self.plan_misses
         plan = self._plan(ctx, stacked)
-        if self.plan_misses != misses:
+        cache_hit = self.plan_misses == misses
+        if not cache_hit:
             stats.compile_ms = (time.perf_counter() - t0) * 1000.0
         stats.add_index_uses(plan.index_uses)
         result = self._run(ctx, plan, stacked, stats)
         out = reduce_mod.reduce_results(ctx, [result], stats)
         out.stats.time_ms = (time.perf_counter() - t0) * 1000
         out.stats.query_id = f"dist_{next(self._qid_seq)}"
+        METRICS.counter("dist.queries").inc()
+        METRICS.histogram("dist.queryLatency").update(out.stats.time_ms)
+        perf.PERF_LEDGER.record(
+            ctx.table,
+            shape_digest(ctx.shape_fingerprint(column_info_from(stacked))),
+            rows=out.stats.num_docs_scanned,
+            time_ms=out.stats.time_ms,
+            kernel_bytes=out.stats.kernel_bytes,
+            compile_ms=out.stats.compile_ms,
+            cache_hit=cache_hit,
+            engine="dist",
+        )
         return out
 
     def execute_many(self, ctxs: List[QueryContext]) -> List[ResultTable]:
@@ -460,28 +504,42 @@ class DistributedEngine:
             if k not in plan.row_sharded_params and k not in _SCHEDULE_PARAMS
         }
 
-    def _stage_batch(self, plan: _DistPlan, stacked, j: int, shared) -> Tuple[Dict, Dict]:
-        """Macro-batch j's device inputs: the table's doc slice (cached on
-        the table) and this launch's params."""
+    def _copier(self):
+        """The tiered path's host-to-device copy: on CUDA through the
+        engine's copy stream (parallel/staging.py), on the CPU None (the
+        table's plain copy)."""
+        if self.device.type != "cuda":
+            return None
+        if self._copy_stream is None:
+            from pinot_tpu_torch.parallel.staging import CopyStream
+
+            self._copy_stream = CopyStream(self.device, self.launch_bytes)
+        return self._copy_stream.copy
+
+    def _stage_batch(self, plan: _DistPlan, stacked, j: int, shared, prefetch: bool = False):
+        """Macro-batch j's device inputs: (cols, params, ready).  The table's
+        doc slice comes from the table's cache; with residency it rides the
+        budgeted cache and, on CUDA, the copy stream, and `ready` is the
+        event after its copies (None otherwise).  Runs on the residency
+        staging thread when the pipeline prefetches."""
         off, fresh = plan.batch_offsets[j]
+        copy = self._copier() if self.residency is not None else None
         cols, _ = stacked.to_device(
             self.device, plan.needed_columns, doc_slice=(off, off + plan.batch_docs),
-            with_valid=False, packed_codes=True,
+            with_valid=False, packed_codes=True, residency=self.residency, prefetch=prefetch, copy=copy,
         )
         params = dict(shared)
         for k, v in self.batch_params(plan, off, fresh).items():
             if k in _SCHEDULE_PARAMS:
                 params[k] = int(v)
-            elif k not in shared:
+            elif k in shared:
+                continue
+            elif copy is not None:
+                params[k] = copy(np.ascontiguousarray(executor.param_array(v)))
+            else:
                 params[k] = executor._param_tensor(v, self.device)
-        return cols, params
-
-    def device_batches(self, plan: _DistPlan, stacked) -> List[Tuple[Dict, Dict]]:
-        """Device-placed (cols, params) of every macro-batch launch.  A copy
-        from host memory waits for the device, so _run stages every batch
-        before its first launch, keeping copies out of the launch loop."""
-        shared = self._shared_params(plan)
-        return [self._stage_batch(plan, stacked, j, shared) for j in range(len(plan.batch_offsets))]
+        ready = self._copy_stream.record() if copy is not None else None
+        return cols, params, ready
 
     @staticmethod
     def _combine_partials(parts_list):
@@ -513,17 +571,81 @@ class DistributedEngine:
     def _run(self, ctx, plan: _DistPlan, stacked, stats: ExecutionStats):
         dev = self.device
         depth = max(1, int(self.pipeline_depth))
-        batches = self.device_batches(plan, stacked)
+        n_batches = len(plan.batch_offsets)
+        shared = self._shared_params(plan)
+        # Staging pipeline.  With residency, batch j+1's copies run on the
+        # residency manager's staging thread while batch j scans (on CUDA
+        # on the engine's copy stream; the launch waits on the batch's copy
+        # event).  The single staging worker keeps stages FIFO, so consuming
+        # j never waits behind a stage issued for j+1.  Without residency
+        # every batch stages before the first launch: a pageable copy on
+        # the compute stream would wait behind the queued launches.
+        use_stream = self.residency is not None and n_batches > 1
+        staged: Dict[int, Any] = {}
+        if self.residency is None:
+            staged.update((j, self._stage_batch(plan, stacked, j, shared)) for j in range(n_batches))
+
+        def _ensure(j: int, prefetch: bool) -> None:
+            if j >= n_batches or j in staged:
+                return
+            if use_stream:
+                staged[j] = self.residency.submit(self._stage_batch, plan, stacked, j, shared, prefetch)
+            else:
+                staged[j] = self._stage_batch(plan, stacked, j, shared)
+
+        def _consume(j: int):
+            item = staged.pop(j)
+            if use_stream:
+                if item.done():
+                    METRICS.counter("engine.prefetchHits").inc()
+                    item = item.result()
+                else:
+                    # the staging stream is behind the launches: timed stall
+                    tw0 = time.perf_counter()
+                    item = item.result()
+                    METRICS.counter("engine.stagingStalls").inc()
+                    METRICS.histogram("residency.stagingStallMs").update((time.perf_counter() - tw0) * 1000.0)
+            cols, params, ready = item
+            if ready is not None:
+                compute = torch.cuda.current_stream(dev)
+                compute.wait_event(ready)
+                # the caching allocator must not hand a block of a slice
+                # evicted mid-scan to the next copy before this scan is done
+                for entry in cols.values():
+                    for t in entry.values():
+                        t.record_stream(compute)
+                for t in params.values():
+                    if isinstance(t, torch.Tensor):
+                        t.record_stream(compute)
+            return cols, params
+
         batch_outs: List[Any] = []
         pending: List[Any] = []
         tl0 = time.perf_counter()
-        for cols, params in batches:
-            pending.append((plan.fn(cols, params, dev), self._completion()))
-            if len(pending) >= depth:
+        try:
+            _ensure(0, False)
+            for i in range(n_batches):
+                for j in range(i + 1, min(i + 1 + depth, n_batches)):
+                    _ensure(j, True)
+                cols, params = _consume(i)
+                pending.append((plan.fn(cols, params, dev), self._completion()))
+                if len(pending) >= depth:
+                    batch_outs.append(self._drain(pending.pop(0)))
+            while pending:
                 batch_outs.append(self._drain(pending.pop(0)))
-        while pending:
-            batch_outs.append(self._drain(pending.pop(0)))
+        except BaseException:
+            # a failed stage (re-raised by its future) or launch: no stage of
+            # this query runs on after it; the failed stage has unwound its
+            # charge (abort_stage)
+            futures = [f for f in staged.values() if isinstance(f, concurrent.futures.Future)]
+            for f in futures:
+                f.cancel()
+            concurrent.futures.wait(futures)
+            raise
         stats.device_ms += (time.perf_counter() - tl0) * 1000.0
+        stats.kernel_bytes += n_batches * stacked.num_shards * plan.batch_docs * perf.analytic_bytes_per_row(
+            (stacked.column(n) for n in plan.needed_columns), bitmap_params=len(plan.row_sharded_params)
+        )
 
         if plan.kind == "aggregation":
             return AggSegmentResult(partials=list(executor._to_host(self._combine_partials(batch_outs))))

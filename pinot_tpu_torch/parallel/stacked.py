@@ -10,25 +10,33 @@ straddles a shard and the engine can slice words per macro-batch.
 ``to_device(device, columns, doc_slice, packed_codes)`` ships the doc slice
 [:, lo:hi] of each needed column to the device as a dict of torch tensors
 ({col: {"codes" | "codes_packed", "dict", "values", "nulls"}}) and caches it
-per (backing array, slice, packed) — one plain cache, no budget.  Residency
-tiering and prefetch (segment/residency.py) and multi-value columns are
-later slices of the port (ROADMAP Queue 1 items 3 and 5).
+per (backing array, slice, packed).  With a residency manager
+(segment/residency.py) each doc slice is a cache group charged to a byte
+budget and evicted as a unit, and the copies may go through a caller's
+`copy` function (the distributed engine's CUDA copy stream).  Multi-value
+columns are a later slice of the port (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
+import functools
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from pinot_tpu_torch.device import DeviceLike, resolve_device
 from pinot_tpu_torch.segment import packing
+from pinot_tpu_torch.segment import residency as res_mod
 from pinot_tpu_torch.segment.dictionary import Dictionary, min_code_dtype
-from pinot_tpu_torch.segment.segment import _to_tensor
+from pinot_tpu_torch.segment.segment import pageable_copy, tensor_source
 from pinot_tpu_torch.segment.stats import ColumnStats
 from pinot_tpu_torch.spi.schema import DataType, FieldRole, Schema
+from pinot_tpu_torch.utils.crashpoints import crash_point
+
+# a host-to-device copy of one host array (segment.tensor_source output)
+CopyFn = Callable[[np.ndarray], torch.Tensor]
 
 
 @dataclass
@@ -78,6 +86,9 @@ class StackedTable:
         # {"inverted"|"range": {column: index}} over the flat padded doc space
         self.indexes: Dict[str, Dict[str, Any]] = indexes or {}
         self._device_cache: Dict[str, Dict[Any, Any]] = {}
+        # residency group -> the cache keys it staged (evicted together)
+        self._group_keys: Dict[Tuple, Set[Any]] = {}
+        # guards both dicts; never held across a device copy
         self._device_lock = threading.Lock()
         # per-instance nonce in signature(): plans bake row-data dependent
         # params (sorted doc ranges, index words), so two tables with equal
@@ -215,30 +226,130 @@ class StackedTable:
             and sl[1] % (32 // c.code_bits) == 0
         )
 
-    def _stage_column(self, c: StackedColumn, sl, use_packed: bool, dicts, device) -> Dict[str, torch.Tensor]:
-        """One column's doc slice [:, lo:hi], host -> device."""
+    @staticmethod
+    def _col_key(c: StackedColumn, sl, use_packed: bool):
+        # cache by BACKING-ARRAY identity, not name, as the JAX package does
+        arr_id = id(c.codes if c.codes is not None else c.values)
+        return (arr_id, sl, "#packed") if use_packed else (arr_id, sl)
+
+    def device_group(self, device: DeviceLike, sl) -> Tuple:
+        """Residency cache-group key: ONE doc slice of this table on one
+        device.  Slices evict independently (a working set over budget
+        rotates through the cache), but all flavours of a slice drop as a
+        unit."""
+        return ("stacked", id(self), str(resolve_device(device)), sl)
+
+    def _plan_missing(self, dev: torch.device, cols, sl, packed_codes: bool, with_valid: bool):
+        """(missing column specs, valid missing?, bytes to charge)."""
+        span = sl[1] - sl[0]
+        need = []
+        nbytes = 0
+        need_valid = False
+        with self._device_lock:
+            cache = self._device_cache.get(str(dev), {})
+            for cname in cols:
+                c = self.column(cname)
+                use_packed = self._use_packed(c, sl, packed_codes)
+                ck = self._col_key(c, sl, use_packed)
+                if ck in cache:
+                    continue
+                dkey = cached_dict = None
+                if c.codes is not None and c.dictionary is not None:
+                    dvals = c.dictionary.device_values()
+                    if dvals is not None:
+                        dkey = (id(c.dictionary), "dict")
+                        cached_dict = cache.get(dkey)
+                        if cached_dict is None:
+                            nbytes += dvals.nbytes
+                        else:
+                            dkey = None  # already staged (and charged) once
+                if use_packed:
+                    f = 32 // c.code_bits
+                    nbytes += c.packed[:, sl[0] // f: sl[1] // f].nbytes
+                elif c.codes is not None:
+                    nbytes += c.codes[:, sl[0]: sl[1]].nbytes
+                for arr in (c.values, c.nulls):
+                    if arr is not None:
+                        nbytes += arr.itemsize * arr.shape[0] * span
+                need.append((cname, ck, use_packed, dkey, cached_dict))
+            if with_valid:
+                vk = (id(self.valid), sl)
+                if vk not in cache:
+                    need_valid = True
+                    nbytes += self.valid[:, sl[0]: sl[1]].nbytes
+        return need, need_valid, nbytes
+
+    def _stage_slice(self, need, need_valid: bool, sl, copy: CopyFn) -> Dict[Any, Any]:
+        """Host->device copies of one slice's missing entries, each host
+        array through `copy` (NO locks held: the staging-stream body)."""
 
         def rows(a: np.ndarray) -> np.ndarray:
-            return a if sl == (0, self.docs_per_shard) else np.ascontiguousarray(a[:, sl[0]:sl[1]])
+            return tensor_source(a if sl == (0, self.docs_per_shard) else a[:, sl[0]: sl[1]])
 
-        entry: Dict[str, torch.Tensor] = {}
-        if use_packed:
-            f = 32 // c.code_bits
-            entry["codes_packed"] = packing.words_to_torch(c.packed[:, sl[0] // f: sl[1] // f], device)
-        elif c.codes is not None:
-            entry["codes"] = _to_tensor(rows(c.codes), device)
-        if c.dictionary is not None:
-            dvals = c.dictionary.device_values()
-            if dvals is not None:
-                dkey = (id(c.dictionary), "dict")
-                if dkey not in dicts:
-                    dicts[dkey] = _to_tensor(dvals, device)
-                entry["dict"] = dicts[dkey]
-        if c.values is not None:
-            entry["values"] = _to_tensor(rows(c.values), device)
-        if c.nulls is not None:
-            entry["nulls"] = _to_tensor(rows(c.nulls), device)
-        return entry
+        staged: Dict[Any, Any] = {}
+        for cname, ck, use_packed, dkey, cached_dict in need:
+            c = self.columns[cname]
+            entry: Dict[str, torch.Tensor] = {}
+            if use_packed:
+                f = 32 // c.code_bits
+                entry["codes_packed"] = copy(packing.word_view(c.packed[:, sl[0] // f: sl[1] // f]))
+            elif c.codes is not None:
+                entry["codes"] = copy(rows(c.codes))
+            if dkey is not None:
+                staged[dkey] = entry["dict"] = copy(tensor_source(c.dictionary.device_values()))
+            elif cached_dict is not None:
+                entry["dict"] = cached_dict
+            if c.values is not None:
+                entry["values"] = copy(rows(c.values))
+            if c.nulls is not None:
+                entry["nulls"] = copy(rows(c.nulls))
+            staged[ck] = entry
+        if need_valid:
+            staged[(id(self.valid), sl)] = copy(rows(self.valid))
+        return staged
+
+    def _publish(self, dev: torch.device, group: Tuple, staged: Dict[Any, Any]) -> None:
+        """First-wins publish + group-key registration in ONE critical
+        section, so eviction drops exactly this group's entries."""
+        with self._device_lock:
+            cache = self._device_cache.setdefault(str(dev), {})
+            for k, v in staged.items():
+                cache.setdefault(k, v)
+            self._group_keys.setdefault(group, set()).update(staged.keys())
+
+    def _assemble(self, dev: torch.device, cols, sl, packed_codes: bool, with_valid: bool):
+        """(cols, valid) read out of the cache in ONE critical section; None
+        if a racing eviction removed any needed entry (the caller re-stages
+        the whole group, never observing a half-evicted slice)."""
+        with self._device_lock:
+            cache = self._device_cache.get(str(dev), {})
+            out: Dict[str, Dict[str, torch.Tensor]] = {}
+            for cname in cols:
+                c = self.column(cname)
+                ck = self._col_key(c, sl, self._use_packed(c, sl, packed_codes))
+                if ck not in cache:
+                    return None
+                out[cname] = cache[ck]
+            if not with_valid:
+                # the distributed engine masks padding from num_docs in the
+                # launch: the [S, D] bool array never ships
+                return out, None
+            vk = (id(self.valid), sl)
+            if vk not in cache:
+                return None
+            return out, cache[vk]
+
+    def evict_slice(self, device: DeviceLike, sl) -> None:
+        """Atomic flavour invalidation of one slice group: every cache key
+        the group staged — raw, #packed, valid, the dictionaries it staged —
+        drops in one critical section (the residency eviction callback)."""
+        dev = resolve_device(device)
+        group = self.device_group(dev, sl)
+        with self._device_lock:
+            keys = self._group_keys.pop(group, set())
+            cache = self._device_cache.get(str(dev), {})
+            for k in keys:
+                cache.pop(k, None)
 
     def to_device(
         self,
@@ -249,6 +360,8 @@ class StackedTable:
         packed_codes: bool = False,
         residency=None,
         prefetch: bool = False,
+        query_id: Optional[str] = None,
+        copy: Optional[CopyFn] = None,
     ):
         """Ship the doc slice [:, lo:hi] (default: all docs) of `columns` to
         `device` (None: CUDA, raising without it).  Returns (cols, valid):
@@ -257,36 +370,74 @@ class StackedTable:
         packed_codes and the slice is lane-aligned); valid is the [S, hi -
         lo] bool tensor, or None when with_valid is False.  Entries are
         cached per device, keyed by the backing array, the slice and the
-        packed flavour: the table is immutable."""
-        if residency is not None or prefetch:
-            raise NotImplementedError(
-                "residency tiering and prefetch are a later slice of the port (ROADMAP Queue 1 item 3)"
-            )
+        packed flavour: the table is immutable.
+
+        With `residency` the device cache is a byte-budgeted tier over the
+        host arrays: each doc slice is a cache group that charges the budget
+        before copying (evicting cost-ranked victim slices to make room), at
+        most one thread stages a group while the rest park on its event,
+        and `prefetch=True` marks a stage issued ahead of need (the engine's
+        staging stream) for the prefetch-hit accounting.  `copy` makes each
+        device tensor from its host array (default: a copy on the current
+        stream); it returns before the copy completes when it issues the
+        copy on a stream of its own, and the caller orders its launches
+        after it."""
         dev = resolve_device(device)
+        copy = copy or functools.partial(pageable_copy, device=dev)
         cols = columns or list(self.columns)
         sl = doc_slice if doc_slice is not None else (0, self.docs_per_shard)
-        out: Dict[str, Dict[str, torch.Tensor]] = {}
-        with self._device_lock:
-            cache = self._device_cache.setdefault(str(dev), {})
-            for cname in cols:
-                c = self.column(cname)
-                use_packed = self._use_packed(c, sl, packed_codes)
-                arr_id = id(c.codes if c.codes is not None else c.values)
-                key = (arr_id, sl, "#packed") if use_packed else (arr_id, sl)
-                if key not in cache:
-                    cache[key] = self._stage_column(c, sl, use_packed, cache, dev)
-                out[cname] = cache[key]
-            valid = None
-            if with_valid:
-                vk = (id(self.valid), sl)
-                if vk not in cache:
-                    cache[vk] = _to_tensor(self.valid[:, sl[0]:sl[1]], dev)
-                valid = cache[vk]
-        return out, valid
+        group = self.device_group(dev, sl)
+
+        if residency is None:
+            # the plain cache: no budget, no eviction
+            while True:
+                need, need_valid, _ = self._plan_missing(dev, cols, sl, packed_codes, with_valid)
+                if need or need_valid:
+                    self._publish(dev, group, self._stage_slice(need, need_valid, sl, copy))
+                out = self._assemble(dev, cols, sl, packed_codes, with_valid)
+                if out is not None:
+                    return out
+
+        while True:
+            need, need_valid, _ = self._plan_missing(dev, cols, sl, packed_codes, with_valid)
+            st, entry = residency.begin_stage(
+                group, self.schema.name, lambda: self.evict_slice(dev, sl), prefetch=prefetch
+            )
+            if st == res_mod.WAIT:
+                residency.wait(entry)
+                continue
+            if st == res_mod.HIT:
+                if not need and not need_valid:
+                    out = self._assemble(dev, cols, sl, packed_codes, with_valid)
+                    if out is not None:
+                        return out
+                    continue  # evicted between plan and read: re-stage
+                st2, entry2 = residency.begin_grow(group)
+                if st2 == res_mod.WAIT:
+                    residency.wait(entry2)
+                    continue
+                if st2 == res_mod.RETRY:
+                    continue
+            # OWN: charge, copy (no locks held), publish, commit
+            try:
+                need, need_valid, nbytes = self._plan_missing(dev, cols, sl, packed_codes, with_valid)
+                residency.charge(group, nbytes, query_id=query_id)
+                crash_point("segment.stage.after_charge")
+                staged = self._stage_slice(need, need_valid, sl, copy)
+                crash_point("segment.stage.after_copy")
+                self._publish(dev, group, staged)
+            except BaseException:
+                residency.abort_stage(group)
+                raise
+            residency.finish_stage(group)
+            out = self._assemble(dev, cols, sl, packed_codes, with_valid)
+            if out is not None:
+                return out
 
     def release_device(self) -> None:
         with self._device_lock:
             self._device_cache.clear()
+            self._group_keys.clear()
 
     # -- host decode -----------------------------------------------------
     def decoded_flat(self, name: str) -> np.ndarray:

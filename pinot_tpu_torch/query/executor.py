@@ -34,6 +34,7 @@ from pinot_tpu_torch.query.result import (
 )
 from pinot_tpu_torch.query.transform import eval_expr_host
 from pinot_tpu_torch.segment.segment import ImmutableSegment
+from pinot_tpu_torch.utils import perf
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +54,7 @@ def _top_level_predicates(node: Optional[FilterNode]):
 
 
 def prune_segment(ctx: QueryContext, segment: ImmutableSegment) -> bool:
-    """True if the segment provably matches no rows (value pruner)."""
+    """True if the segment provably matches no rows (value/bloom pruner)."""
     for p in _top_level_predicates(ctx.filter):
         if not p.lhs.is_column or p.lhs.op == "*" or p.lhs.op not in segment.columns:
             continue
@@ -72,6 +73,9 @@ def prune_segment(ctx: QueryContext, segment: ImmutableSegment) -> bool:
                         return True
                 except TypeError:
                     pass
+            bloom = segment.indexes.get("bloom", {}).get(p.lhs.op)
+            if bloom is not None and not bloom.might_contain(v):
+                return True
         elif p.ptype is PredicateType.IN:
             if c.has_dictionary and all(c.dictionary.index_of(v) < 0 for v in p.values):
                 return True
@@ -93,13 +97,16 @@ def prune_segment(ctx: QueryContext, segment: ImmutableSegment) -> bool:
 # ---------------------------------------------------------------------------
 # Execution
 # ---------------------------------------------------------------------------
-def _param_tensor(v, device: torch.device) -> torch.Tensor:
-    """Host param (numpy array or scalar) -> tensor on `device`; uint32
-    bitmap words travel as their int32 view."""
+def param_array(v) -> np.ndarray:
+    """Host param (numpy array or scalar) as the array its tensor is made
+    from: uint32 bitmap words as their int32 view."""
     a = np.asarray(v)
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def _param_tensor(v, device: torch.device) -> torch.Tensor:
+    """Host param -> tensor on `device` (a copy on the current stream)."""
+    return torch.from_numpy(np.ascontiguousarray(param_array(v))).to(device)
 
 
 def launch_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.device):
@@ -113,6 +120,9 @@ def launch_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.d
     )
     plan = planner.plan_segment(ctx, segment, device)
     stats.filter_index_uses = tuple(plan.index_uses)
+    stats.kernel_bytes = segment.num_docs * perf.analytic_bytes_per_row(
+        segment.column(n) for n in plan.needed_columns
+    )
     cols = segment.to_device(device, columns=plan.needed_columns, packed_codes=True)
     params = {k: _param_tensor(v, device) for k, v in plan.params.items()}
     out = plan.fn(cols, params, device)

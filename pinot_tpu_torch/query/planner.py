@@ -272,6 +272,15 @@ def const_bound_columns(ctx: QueryContext) -> frozenset:
     return frozenset(out)
 
 
+def _all_column_names(table_like) -> List[str]:
+    """All queryable columns, INCLUDING schema-evolution virtuals that the
+    segment's own (older) schema does not list."""
+    cols = getattr(table_like, "columns", None)
+    if isinstance(cols, dict):
+        return list(cols)
+    return table_like.schema.column_names
+
+
 def _needed_columns(ctx: QueryContext, segment: ImmutableSegment) -> List[str]:
     cols: List[str] = []
     if ctx.filter:
@@ -308,7 +317,7 @@ def _needed_columns(ctx: QueryContext, segment: ImmutableSegment) -> List[str]:
     seen, out = set(), []
     for c in cols:
         if c == "*":  # SELECT *
-            for name in segment.schema.column_names:
+            for name in _all_column_names(segment):
                 if name not in seen:
                     seen.add(name)
                     out.append(name)
@@ -913,7 +922,7 @@ def selection_items(ctx: QueryContext, table_like) -> Tuple[List[Any], List[str]
         if s.kind.name == "CALL" and s.op == "unnest":
             raise NotImplementedError("UNNEST (the MV explode) is a later slice of the port (ROADMAP Queue 1 item 5)")
         if s.is_column and s.op == "*":
-            select_exprs.extend(Expr.col(n) for n in table_like.schema.column_names)
+            select_exprs.extend(Expr.col(n) for n in _all_column_names(table_like))
         else:
             select_exprs.append(s)
     return select_exprs, [e.op for e in select_exprs if isinstance(e, Expr) and e.is_column]

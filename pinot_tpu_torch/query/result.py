@@ -1,8 +1,9 @@
 """Result containers flowing segment -> reduce -> client.
 
 Trimmed copy of pinot_tpu/query/result.py: the aggregation, group-by and
-selection results of single-table SQL, and ExecutionStats without the TPU cost
-model (the device-time metrics of the port come from chip runs).  Results
+selection results of single-table SQL, and ExecutionStats with the analytic
+byte model's kernel_bytes (utils/perf.py) in place of the TPU cost model
+(the device-time metrics of the port come from chip runs).  Results
 are columnar numpy end to end.
 """
 from __future__ import annotations
@@ -29,6 +30,9 @@ class ExecutionStats:
     # of the launch loop (launches through the last drain)
     compile_ms: float = 0.0
     device_ms: float = 0.0
+    # bytes the scans stream under the packed-storage model
+    # (perf.analytic_bytes_per_row x rows scanned, summed over launches)
+    kernel_bytes: float = 0.0
     # (column, "sorted"|"range"|"inverted") per index-accelerated predicate
     filter_index_uses: Tuple = ()
     # selection: bytes of matched doc ids copied from the device

@@ -44,6 +44,7 @@ plan before reusing its closure.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 from pinot_tpu_torch.query.ir import (
@@ -295,3 +296,10 @@ def shape_fingerprint(ctx: QueryContext, column_info: Optional[ColumnInfo] = Non
         "|".join(f"{op}:{al}:{c.fingerprint()}" for op, al, c in ctx.set_ops),
     ]
     return "\x1f".join(parts)
+
+
+def shape_digest(fingerprint: str) -> str:
+    """Short stable digest of a shape fingerprint (the perf ledger's key;
+    full fingerprints can embed literal values, the digest never does more
+    than identify)."""
+    return hashlib.sha1(fingerprint.encode("utf-8", "replace")).hexdigest()[:12]

@@ -1,12 +1,13 @@
 """Segment builder: column data -> immutable columnar segment.
 
 Trimmed copy of pinot_tpu/segment/builder.py: null extraction, the sorted
-column, dictionaries, bit-packed forward indexes, column stats, and the
-inverted and range indexes.  Bloom/JSON/text/vector/star-tree indexes and
-partition metadata come with later slices (the port's TableConfig has no
-field for them yet); a schema with multi-value columns raises
-NotImplementedError here rather than building a segment that silently
-differs from the JAX package's.
+column, dictionaries, bit-packed forward indexes, column stats, the
+inverted, range and bloom indexes, the time range of the table's time
+column, and `output_dir=` (the segment is saved there as it is built).
+JSON/text/vector/star-tree indexes and partition metadata come with later
+slices (the port's TableConfig has no field for them yet); a schema with
+multi-value columns raises NotImplementedError here rather than building a
+segment that silently differs from the JAX package's.
 
 Encoding policy (as in the JAX package):
   * STRING/BYTES/JSON: always dictionary-encoded — the device sees codes only.
@@ -16,10 +17,12 @@ Encoding policy (as in the JAX package):
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 
+from pinot_tpu_torch.indexes.bloom import BloomFilter
 from pinot_tpu_torch.indexes.inverted import CompressedInvertedIndex, InvertedIndex, RangeEncodedIndex
 from pinot_tpu_torch.segment import packing
 from pinot_tpu_torch.segment.dictionary import Dictionary, min_code_dtype
@@ -91,8 +94,10 @@ def build_segment(
     data: Dict[str, ColumnInput],
     segment_name: str,
     table_config: Optional[TableConfig] = None,
+    output_dir: Optional[str] = None,
 ) -> ImmutableSegment:
-    """Build an immutable segment from column-major data."""
+    """Build an immutable segment from column-major data; with output_dir,
+    also save it there, as Pinot saves a segment when its build ends."""
     cfg = table_config or TableConfig(name=schema.name)
     _refuse_unported(schema)
     idx_cfg: IndexingConfig = cfg.indexing
@@ -150,15 +155,30 @@ def build_segment(
             card = int(len(np.unique(arr)))
             stats = collect_stats(f.name, f.data_type, arr, nmask, card, False)
             columns[f.name] = ColumnData(f.name, f.data_type, None, None, narrow_ints(arr, nmask), nmask, stats)
+        if f.name in idx_cfg.bloom_filter_columns:
+            c = columns[f.name]
+            uniq = c.dictionary.values if c.dictionary is not None else np.unique(arr)
+            indexes.setdefault("bloom", {})[f.name] = BloomFilter.build(list(uniq))
 
-    return ImmutableSegment(
+    time_range = None
+    tc = cfg.segments.time_column
+    if tc and tc in columns:
+        s = columns[tc].stats
+        time_range = (s.min_value, s.max_value)
+
+    seg = ImmutableSegment(
         name=segment_name,
         table_name=cfg.name,
         schema=schema,
         columns=columns,
         num_docs=num_docs,
         indexes=indexes,
+        creation_time_ms=int(time.time() * 1000),
+        time_range=time_range,
     )
+    if output_dir is not None:
+        seg.save(output_dir)
+    return seg
 
 
 def _wants_dictionary(f, idx_cfg: IndexingConfig) -> bool:

@@ -1,7 +1,7 @@
 """Sorted per-column value dictionaries.
 
-Copy of pinot_tpu/segment/dictionary.py without the persistence regions
-(segment save/load is a later slice of the port).  Reference parity:
+Copy of pinot_tpu/segment/dictionary.py, persistence regions included (the
+same regions, so either package loads the other's segments).  Reference parity:
 pinot-segment-local SegmentDictionaryCreator + the typed readers
 (pinot-segment-spi Dictionary.java:38 — indexOf/insertionIndexOf/get*).
 The dictionary is SORTED, which is the load-bearing trick the port keeps:
@@ -127,3 +127,35 @@ class Dictionary:
         ):
             return vals.astype(np.int32)
         return vals
+
+    # -- serde (store.py writes these regions) ---------------------------
+    def to_regions(self, prefix: str):
+        """Yield (name, ndarray) regions. Strings become a utf-8 blob +
+        int64 offsets — the V3-single-file analog of Pinot's var-length
+        dictionary layout."""
+        if self.data_type.is_string_like:
+            if self.data_type is DataType.BYTES:
+                encoded = [bytes(v) for v in self.values]
+            else:
+                encoded = [str(v).encode("utf-8") for v in self.values]
+            blob = b"".join(encoded)
+            offsets = np.zeros(len(encoded) + 1, dtype=np.int64)
+            np.cumsum([len(e) for e in encoded], out=offsets[1:])
+            yield f"{prefix}.dict.blob", np.frombuffer(blob, dtype=np.uint8)
+            yield f"{prefix}.dict.offsets", offsets
+        else:
+            yield f"{prefix}.dict.values", np.asarray(self.values)
+
+    @staticmethod
+    def from_regions(data_type: DataType, regions, prefix: str) -> "Dictionary":
+        if data_type.is_string_like:
+            blob = regions[f"{prefix}.dict.blob"].tobytes()
+            offsets = regions[f"{prefix}.dict.offsets"]
+            if data_type is DataType.BYTES:
+                vals = [blob[offsets[i]: offsets[i + 1]] for i in range(len(offsets) - 1)]
+            else:
+                vals = [blob[offsets[i]: offsets[i + 1]].decode("utf-8") for i in range(len(offsets) - 1)]
+            values = np.asarray(vals, dtype=object)
+        else:
+            values = np.asarray(regions[f"{prefix}.dict.values"], dtype=data_type.np_dtype)
+        return Dictionary(data_type=data_type, values=values)

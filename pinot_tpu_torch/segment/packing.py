@@ -68,9 +68,18 @@ def unpack_codes(words: np.ndarray, bits: int, n: int, dtype=np.uint32) -> np.nd
     return lanes.reshape(-1)[:n].astype(dtype, copy=False)
 
 
+def word_view(words: np.ndarray) -> np.ndarray:
+    """uint32 words as their contiguous int32 view (same bits): the host
+    array a device tensor of the words is made from."""
+    return np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+
+
 def words_to_torch(words: np.ndarray, device: torch.device) -> torch.Tensor:
-    """uint32 words -> int32 tensor view on `device` (same bits)."""
-    arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+    """uint32 words -> int32 tensor view on `device` (same bits); a
+    read-only mmap is copied into writable memory first."""
+    arr = word_view(words)
+    if not arr.flags.writeable:
+        arr = arr.copy()
     return torch.from_numpy(arr).to(device)
 
 

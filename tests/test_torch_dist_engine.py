@@ -312,10 +312,12 @@ def test_unported_paths_raise():
         pe.query("SELECT PERCENTILE(rev, 50) FROM t")
     with pytest.raises(NotImplementedError, match="item 6"):
         pe.execute_many([port_parse(BENCH_Q)])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        PortDist(device="cpu", hbm_cache_bytes=1 << 20)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ps.to_device("cpu", ["d"], prefetch=True)
+    # residency (item 3) is ported: a budget makes a manager, and a
+    # prefetch without one takes the plain cache, as in the JAX package
+    assert PortDist(device="cpu", hbm_cache_bytes=1 << 20).residency.budget.budget_bytes == 1 << 20
+    assert PortDist(device="cpu", hbm_cache_bytes=0).residency is None
+    cols, _ = ps.to_device("cpu", ["d"], prefetch=True)
+    assert set(cols) == {"d"}
 
 
 def test_device_none_means_cuda(monkeypatch):

@@ -4,9 +4,10 @@ The port's builder must reproduce the JAX builder's arrays exactly on the
 same data: dictionaries, codes, bit-packed words, null masks, stats, range
 prefix bitmaps and inverted bitmaps — with nulls, a sorted column, and
 dictionary cardinalities on the 16/17/256/257 lane boundaries.
-segment_from_numpy must carry a JAX-built segment across so that it equals
-the port's own build and answers queries as the JAX segment does.  The
-torch unpackers must equal the JAX ones exactly.
+A JAX-built segment carried across (saved by the JAX package, loaded by the
+port: the packages share one on-disk format) must equal the port's own build
+and answer queries as the JAX segment does.  The torch unpackers must equal
+the JAX ones exactly.
 """
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ from pinot_tpu_torch.ops import segmented
 from pinot_tpu_torch.query.engine import QueryEngine as PortEngine
 from pinot_tpu_torch.segment import packing
 from pinot_tpu_torch.segment.builder import build_segment as port_build
-from pinot_tpu_torch.segment.convert import segment_from_numpy
+from pinot_tpu_torch.segment.segment import ImmutableSegment as PortSegment
 from pinot_tpu_torch.spi import config as port_config
 from pinot_tpu_torch.spi import schema as port_schema
 
@@ -78,34 +79,12 @@ def _config(C):
     )
 
 
-def jax_segment_state(seg):
-    """Host state of a pinot_tpu segment as (meta, arrays) for
-    segment_from_numpy — the one place the two packages meet."""
-    meta = {
-        "segmentName": seg.name,
-        "tableName": seg.table_name,
-        "numDocs": seg.num_docs,
-        "schema": seg.schema.to_dict(),
-        "columns": {},
-        "indexes": {kind: sorted(by_col) for kind, by_col in seg.indexes.items()},
-    }
-    arrays = {}
-    for name, c in seg.columns.items():
-        meta["columns"][name] = {"stats": c.stats.to_dict(), "codeBits": c.code_bits}
-        if c.dictionary is not None:
-            arrays[f"{name}.dict"] = np.asarray(c.dictionary.values)
-            arrays[f"{name}.codes"] = np.asarray(c.codes)
-            if c.packed is not None:
-                arrays[f"{name}.packed"] = np.asarray(c.packed)
-        else:
-            arrays[f"{name}.values"] = np.asarray(c.values)
-        if c.nulls is not None:
-            arrays[f"{name}.nulls"] = np.asarray(c.nulls)
-    for name, idx in seg.indexes.get("range", {}).items():
-        arrays[f"{name}.range.prefix"] = np.asarray(idx.prefix)
-    for name, idx in seg.indexes.get("inverted", {}).items():
-        arrays[f"{name}.inverted.bitmaps"] = np.stack([idx.doc_bitmap([c]) for c in range(idx.cardinality)])
-    return meta, arrays
+def carried(jseg, tmp_path_factory):
+    """A JAX-built segment carried into the port: saved by the JAX package,
+    loaded (verified) by the port."""
+    path = str(tmp_path_factory.mktemp("carried") / jseg.name)
+    jseg.save(path)
+    return PortSegment.load(path, verify=True)
 
 
 @pytest.fixture(scope="module")
@@ -155,20 +134,19 @@ def test_builder_matches_jax_builder(built):
     _assert_same_segment(jseg, tseg)
 
 
-def test_segment_from_numpy_equals_port_build(built):
+def test_segment_from_numpy_equals_port_build(built, tmp_path_factory):
     jseg, tseg = built
-    carried = segment_from_numpy(*jax_segment_state(jseg))
-    _assert_same_segment(tseg, carried)
+    _assert_same_segment(tseg, carried(jseg, tmp_path_factory))
 
 
-def test_carried_segment_answers_as_jax(built):
+def test_carried_segment_answers_as_jax(built, tmp_path_factory):
     jseg, _ = built
-    carried = segment_from_numpy(*jax_segment_state(jseg))
+    port_segment = carried(jseg, tmp_path_factory)
     jax_engine, port_engine = JaxEngine(), PortEngine(device="cpu")
     jax_engine.register_table(_schema(jax_schema), _config(jax_config))
     port_engine.register_table(_schema(port_schema), _config(port_config))
     jax_engine.add_segment("seg", jseg)
-    port_engine.add_segment("seg", carried)
+    port_engine.add_segment("seg", port_segment)
     for sql in (
         "SELECT c257, COUNT(*), SUM(m_big) FROM seg WHERE c16 < 9 GROUP BY c257 LIMIT 300",
         "SELECT c17, SUM(m_nullable), COUNT(m_nullable) FROM seg WHERE c256 IN (1, 2, 3, 200) "
