@@ -59,6 +59,22 @@ Phases, in order; any failure raises and the process exits non-zero:
                 their wall timings; then one transform_path line per query
                 and engine: wall, device busy and idle share, launches,
                 masks, bytes of doc ids copied home, exact.
+ 4e. sketch_path (runs between 4c and 4d) - on the same tables: the funnel
+                kernel held exactly against its plain version at 2^20 rows
+                (S = 3 and 4); then (k) BASELINE config 3 (DISTINCTCOUNTHLL
+                and PERCENTILETDIGEST beside COUNT/SUM on the fused scan),
+                (l) DISTINCTCOUNT / HLL / PERCENTILEKLL / MODE, (m) theta,
+                COVAR_POP, CORR, EXPR_MAX, LASTWITHTIME and HISTOGRAM by
+                lo_discount, (n) the ordered funnel (the funnel kernel, one
+                launch a segment or engine launch) on both engines, and (o)
+                the sparse (d) group-by with DISTINCTCOUNTHLL(lo_revenue, 5)
+                on the distributed engine; each counted once and held
+                against a numpy golden (sketch fields equal, float
+                statistics to rtol 1e-9), then warm medians and a profile;
+                the funnel kernel held exactly against its plain version on
+                one segment's rows (the segment engine's launch shape), then
+                timed at (n)'s shape on the stacked table beside its plain
+                version and its byte bound.
  4d. storage  - on the same tables: the segment engine's 8 segments saved
                 (segment/store.py format) into a directory under build/,
                 loaded with verify=True (CRC) into a fresh QueryEngine()
@@ -86,7 +102,7 @@ Phases, in order; any failure raises and the process exits non-zero:
                 the segment main path's shape, after a write flush and after
                 a read flush, scan_ms beside a float32 sum and a device copy
                 of the same input bytes.
-  6. summary  - one {"kernels": [...]} JSON line, the card's nvidia-smi line,
+  6. summary  - one {"kernels": [...]} JSON line (fused_scan, funnel_scan), the card's nvidia-smi line,
                 and last the {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
@@ -735,10 +751,10 @@ def _profile_once(engine, sql: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from pinot_tpu_torch.ops import fused_scan
+    from pinot_tpu_torch.ops import funnel_scan, fused_scan
 
     torch.cuda.synchronize()
-    before = fused_scan.LAUNCHES
+    before, funnel_before = fused_scan.LAUNCHES, funnel_scan.LAUNCHES
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.query(sql)
@@ -758,6 +774,8 @@ def _profile_once(engine, sql: str) -> dict:
         "device_busy_ms": sum(r[0] for r in rows) if rows else "not measured",
         "scan_launches": {"made": fused_scan.LAUNCHES - before,
                           "captured": sum(n for _ms, n, k in rows if "fused_scan_kernel" in k)},
+        "funnel_scan_launches": {"made": funnel_scan.LAUNCHES - funnel_before,
+                                 "captured": sum(n for _ms, n, k in rows if "funnel_scan_kernel" in k)},
         "top_device_ops": [{"ms": ms, "calls": n, "name": k[:90]} for ms, n, k in rows[:8]],
     }
     if rows:
@@ -1262,6 +1280,450 @@ def phase_transform_path(seg, dist):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: sketches and the extended aggregations on the tables phases 4
+# and 4b built; the ordered funnel's CUDA row scan
+# ---------------------------------------------------------------------------
+SKETCH_QUERIES = {
+    "k_config3": (
+        "SELECT lo_discount, lo_quantity, DISTINCTCOUNTHLL(lo_orderdate), PERCENTILETDIGEST(lo_revenue, 95), "
+        "COUNT(*), SUM(lo_revenue) FROM lineorder WHERE lo_quantity < 25 GROUP BY lo_discount, lo_quantity "
+        "ORDER BY lo_discount, lo_quantity LIMIT 300"
+    ),
+    "l_distinct_agg": (
+        "SELECT DISTINCTCOUNT(lo_orderdate), DISTINCTCOUNT(lo_revenue), DISTINCTCOUNTHLL(lo_revenue), "
+        "PERCENTILEKLL(lo_revenue, 99), MODE(lo_discount) FROM lineorder WHERE lo_quantity < 25"
+    ),
+    "m_stats_groupby": (
+        "SELECT lo_discount, DISTINCTCOUNTTHETA(lo_revenue), COVAR_POP(lo_quantity, lo_revenue), "
+        "CORR(lo_quantity, lo_revenue), EXPR_MAX(lo_orderdate, lo_revenue), "
+        "LASTWITHTIME(lo_revenue, lo_orderdate, 'LONG'), HISTOGRAM(lo_quantity, 0, 50, 10) FROM lineorder "
+        "GROUP BY lo_discount ORDER BY lo_discount LIMIT 20"
+    ),
+    "n_ordered_funnel": (
+        "SELECT FUNNELCOUNT(STEPS(lo_discount = 0, lo_quantity < 10, lo_discount >= 8), CORRELATEBY(lo_revenue), "
+        "TIMESTAMPBY(lo_orderdate), 400) FROM lineorder"
+    ),
+    "o_sparse_hll": (
+        "SET numGroupsLimit = 2000000; SELECT lo_orderdate, lo_quantity, lo_discount, SUM(lo_revenue), COUNT(*), "
+        "DISTINCTCOUNTHLL(lo_revenue, 5) FROM lineorder WHERE lo_quantity < 25 "
+        "GROUP BY lo_orderdate, lo_quantity, lo_discount ORDER BY SUM(lo_revenue) DESC LIMIT 100"
+    ),
+}
+SKETCH_DIST_ONLY = ("o_sparse_hll",)
+# the queries whose dense group-by launches the fused scan once a launch of
+# the engine (the presence table, and (k)'s COUNT/SUM, beside the sketches)
+SKETCH_SCANS = ("k_config3", "m_stats_groupby")
+FUNNEL_WINDOW = 400.0
+FUNNEL_CHECK_ROWS = 1 << 20
+SKETCH_RTOL = 1e-9
+
+
+def _np_hash32(x):
+    """murmur3 finalizer on uint32 numpy lanes (the golden's own hash)."""
+    with np.errstate(over="ignore"):
+        h = x.astype(np.uint32)
+        h ^= h >> np.uint32(16)
+        h *= np.uint32(0x85EBCA6B)
+        h ^= h >> np.uint32(13)
+        h *= np.uint32(0xC2B2AE35)
+        h ^= h >> np.uint32(16)
+    return h
+
+
+def _np_hash_int(v, itemsize, seed=0):
+    """The device hash of integers stored `itemsize` bytes wide: an 8-byte
+    value hashes its two 32-bit words, a narrower one its int32 bits."""
+    s = np.uint32(seed)
+    v = np.asarray(v).astype(np.int64)
+    if itemsize < 8:
+        return _np_hash32(v.astype(np.int32).view(np.uint32) ^ s)
+    w0 = (v & 0xFFFFFFFF).astype(np.uint32)
+    w1 = ((v >> 32) & 0xFFFFFFFF).astype(np.uint32)
+    return _np_hash32((w0 ^ s) ^ _np_hash32(w1 ^ s))
+
+
+def _np_hash62(v, itemsize):
+    h1, h2 = _np_hash_int(v, itemsize), _np_hash_int(v, itemsize, 0x9E3779B9)
+    return ((h1 & np.uint32(0x7FFFFFFF)).astype(np.int64) << 31) | (h2 >> np.uint32(1)).astype(np.int64)
+
+
+def _np_device_rho(w, nbits):
+    """The JAX package's float32 floor(log2 w) as the port defines it:
+    floor(f32(log(f32 w)) * f32(1/ln 2)); the log in float64 on the CPU."""
+    wf = np.maximum(w, 1).astype(np.float32).astype(np.float64)
+    lg32 = torch.log(torch.from_numpy(wf)).numpy().astype(np.float32) * np.float32(1.0 / np.log(2.0))
+    lg = np.floor(lg32).astype(np.int32)
+    return np.where(w > 0, nbits - lg, nbits + 1).astype(np.int32)
+
+
+def _np_dict_hll_tables(values, log2m):
+    """(bucket, rho) per dictionary value: splitmix64 over the value's bits."""
+    u = values.astype(np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        z = u + np.uint64(0x9E3779B97F4A7C15)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        h = z ^ (z >> np.uint64(31))
+    w = h >> np.uint64(log2m)
+    lg = np.floor(np.log2(np.maximum(w, 1).astype(np.float64))).astype(np.int32)
+    nbits = 64 - log2m
+    return (h & np.uint64((1 << log2m) - 1)).astype(np.int64), np.where(w > 0, nbits - lg, nbits + 1).astype(np.int32)
+
+
+def _np_hll_final(regs):
+    regs = np.asarray(regs, dtype=np.float64)
+    m = regs.shape[-1]
+    alpha = 0.7213 / (1 + 1.079 / m)
+    est = alpha * m * m / np.sum(np.exp2(-regs), axis=-1)
+    zeros = np.sum(regs == 0, axis=-1)
+    with np.errstate(divide="ignore"):
+        lc = m * np.log(np.where(zeros > 0, m / np.maximum(zeros, 1), 1.0))
+    return np.rint(np.where((est <= 2.5 * m) & (zeros > 0), lc, est)).astype(np.int64)
+
+
+def _np_percentile(hist, lo, hi, rank):
+    bins = hist.shape[-1]
+    total = hist.sum()
+    if total == 0:
+        return None
+    target = rank / 100.0 * total
+    cum = np.cumsum(hist.astype(np.float64))
+    idx = min(int(np.searchsorted(cum, target, side="left")), bins - 1)
+    prev = cum[idx - 1] if idx > 0 else 0.0
+    frac = (target - prev) / hist[idx] if hist[idx] > 0 else 0.0
+    return lo + (hi - lo) / bins * (idx + frac)
+
+
+def _np_funnel_reach(key, ts, flags, num_steps, cells, window):
+    """Deepest ordered funnel step per key (int32 [cells]): rows in stable
+    (key, ts) order (one sort of key | ts | row packed into int64), then the
+    chain DP over every key's run at once, one position at a time; the runs
+    sorted longest first, so the runs still going are a prefix."""
+    n = len(key)
+    rb = max(1, int(n - 1).bit_length())
+    tsn = ts.astype(np.int64) - int(ts.min())
+    tb = max(1, int(tsn.max()).bit_length())
+    packed = (key.astype(np.int64) << (tb + rb)) | (tsn << rb) | np.arange(n, dtype=np.int64)
+    order = np.sort(packed) & ((1 << rb) - 1)
+    ks, tss, fs = key[order], ts[order].astype(np.float64), flags[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    counts = np.diff(np.r_[starts, n])
+    longest = np.argsort(-counts, kind="stable")
+    starts, counts = starts[longest], counts[longest]
+    neg = -float(2 ** 62)
+    carry = np.full((num_steps, len(starts)), neg)
+    for j in range(int(counts[0])):
+        na = int(np.searchsorted(-counts, -j, side="left"))  # runs longer than j
+        idx = starts[:na] + j
+        t, f = tss[idx], fs[idx].astype(np.int32)
+        for s in range(num_steps - 1, 0, -1):  # step s reads carry[s - 1] before its update
+            lower, cur = carry[s - 1, :na], carry[s, :na]
+            ext = (((f >> s) & 1) == 1) & (lower > neg) & (t - lower <= window)
+            carry[s, :na] = np.where(ext, np.maximum(cur, lower), cur)
+        carry[0, :na] = np.where((f & 1) == 1, t, carry[0, :na])
+    out = np.zeros(cells, np.int32)
+    out[ks[starts]] = (carry > neg).sum(axis=0)  # the live carries only grow
+    return out
+
+
+def _funnel_inputs(d, base):
+    """(key, ts, step flags) of query (n) over one table's columns."""
+    disc, q = d["lo_discount"], d["lo_quantity"]
+    flags = ((disc == 0).astype(np.uint8) | ((q < 10).astype(np.uint8) << 1) | ((disc >= 8).astype(np.uint8) << 2))
+    return (d["lo_revenue"] - base).astype(np.int32), d["lo_orderdate"], flags
+
+
+def sketch_golden(parts, funnel_parts, rev_lo, rev_hi, rev_bytes):
+    """Numpy goldens of (k)-(n) over a table given as a list of column
+    dicts (the segments, or the stacked table as one part).  funnel_parts:
+    the row sets the funnel's reach is computed over before the max merge
+    (one per segment, or one per launch).  rev_bytes: the width lo_revenue
+    is stored in on the table (the builder narrows it to int32 when its
+    range fits), which the device hash reads."""
+    cols = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]} if len(parts) > 1 else parts[0]
+    od, q, disc, rev = cols["lo_orderdate"], cols["lo_quantity"], cols["lo_discount"], cols["lo_revenue"]
+    odc = od - 19920101
+    m = q < 25
+    out = {}
+    # (k): groups disc * 50 + (q - 1) over the dictionaries' codes
+    g = (disc[m] * 50 + (q[m] - 1)).astype(np.int64)
+    if all((np.bincount(p["lo_orderdate"] - 19920101, minlength=2406) > 0).all() for p in parts):
+        # one lo_orderdate dictionary everywhere: host hash tables over it
+        buckets, rhos = _np_dict_hll_tables(19920101 + np.arange(2406), 12)
+        b_k, r_k = buckets[odc[m]], rhos[odc[m]]
+    else:  # dictionaries differ: the column binds as a value range, hashed on the device
+        h = _np_hash_int(od[m], 4)
+        b_k, r_k = (h & np.uint32(4095)).astype(np.int64), _np_device_rho((h >> np.uint32(12)).astype(np.int64), 20)
+    regs = np.zeros(550 * 4096, np.int32)
+    np.maximum.at(regs, g * 4096 + b_k, r_k)
+    est = _np_hll_final(regs.reshape(550, 4096))
+    lo, hi = float(rev_lo), float(rev_hi)
+    b = np.floor((rev[m].astype(np.float32) - np.float32(lo)) * np.float32(2048 / (hi - lo))).astype(np.int64)
+    hist = np.bincount(g * 2048 + np.clip(b, 0, 2047), minlength=550 * 2048).reshape(550, 2048)
+    cnt = np.bincount(g, minlength=550)
+    sm = np.bincount(g, weights=rev[m], minlength=550)
+    out["k_config3"] = [(int(i // 50), int(i % 50 + 1), int(est[i]), float(_np_percentile(hist[i], lo, hi, 95.0)),
+                         int(cnt[i]), float(sm[i])) for i in np.nonzero(cnt)[0]]
+    # (l)
+    revm = rev[m]
+    hb = _np_hash_int(revm, rev_bytes)
+    regs_l = np.zeros(4096, np.int32)
+    np.maximum.at(regs_l, (hb & np.uint32(4095)).astype(np.int64), _np_device_rho((hb >> np.uint32(12)).astype(np.int64), 20))
+    kll = _kll_golden(revm, 99.0)
+    mode = int(np.argmax(np.bincount(disc[m], minlength=11)))
+    out["l_distinct_agg"] = [(int((np.bincount(odc[m], minlength=2406) > 0).sum()),
+                              int((np.bincount(revm - int(rev_lo), minlength=int(rev_hi - rev_lo) + 1) > 0).sum()),
+                              int(_np_hll_final(regs_l)), float(kll), float(mode))]
+    del revm, hb
+    # (m): per lo_discount
+    out["m_stats_groupby"] = _stats_golden(odc, q, disc, rev, rev_bytes)
+    # (n): reach per part, max-merged
+    reach = None
+    for p in funnel_parts:
+        key, ts, flags = _funnel_inputs(p, int(rev_lo))
+        r = _np_funnel_reach(key, ts, flags, 3, int(rev_hi - rev_lo) + 1, FUNNEL_WINDOW)
+        reach = r if reach is None else np.maximum(reach, r)
+    out["n_ordered_funnel"] = [([int((reach > s).sum()) for s in range(3)],)]
+    return out
+
+
+def _kll_golden(v, rank):
+    """PERCENTILEKLL's log-bucket sketch (alpha 0.01) of positive values."""
+    import math
+
+    alpha = 0.01
+    gamma = (1.0 + alpha) / (1.0 - alpha)
+    lg = math.log(gamma)
+    bins = int(math.ceil(math.log(1e12 / 1e-9) / lg)) + 1
+    min_idx = int(math.floor(math.log(1e-9) / lg))
+    idx = np.clip((np.log(v.astype(np.float64)) / lg).astype(np.int32) - min_idx, 0, bins - 1)
+    hist = np.bincount(bins + 1 + idx, minlength=2 * bins + 1).astype(np.float64)
+    cum = np.cumsum(hist)
+    gi = min(int(np.searchsorted(cum, rank / 100.0 * hist.sum(), side="left")), 2 * bins)
+    i = gi - bins - 1
+    return math.exp((i + min_idx) * lg) * (2.0 * gamma / (gamma + 1.0))
+
+
+def _stats_golden(odc, q, disc, rev, rev_bytes):
+    rows = []
+    dd = disc.astype(np.int64)
+    n = np.bincount(dd, minlength=11).astype(np.float64)
+    qf, rf = q.astype(np.float64), rev.astype(np.float64)
+    sx, sy = np.bincount(dd, qf, 11), np.bincount(dd, rf, 11)
+    sxy, ssx, ssy = np.bincount(dd, qf * rf, 11), np.bincount(dd, qf * qf, 11), np.bincount(dd, rf * rf, 11)
+    cov = sxy / n - (sx / n) * (sy / n)
+    corr = (sxy - sx * sy / n) / np.sqrt((ssx - sx * sx / n) * (ssy - sy * sy / n))
+    # EXPR_MAX(lo_orderdate, lo_revenue): ties on revenue take the latest date;
+    # LASTWITHTIME(lo_revenue, lo_orderdate): ties on the date take the largest revenue
+    best_m = np.zeros(11, np.int64)
+    np.maximum.at(best_m, dd, (rev << 12) | odc)
+    best_t = np.zeros(11, np.int64)
+    np.maximum.at(best_t, dd, (odc.astype(np.int64) << 20) | rev)
+    hist = np.bincount(dd * 10 + np.minimum(q // 5, 9), minlength=110).reshape(11, 10)
+    # DISTINCTCOUNTTHETA: the 256 smallest distinct 62-bit hashes of a group
+    pres = np.bincount(dd * 1_000_000 + rev, minlength=11_000_000).reshape(11, 1_000_000) > 0
+    for g in range(11):
+        h = np.sort(np.partition(_np_hash62(np.flatnonzero(pres[g]), rev_bytes), 255)[:256])
+        theta = float(h[-1]) / float(1 << 62)
+        rows.append((g, float(255 / theta), float(cov[g]), float(corr[g]), float(19920101 + (best_m[g] & 4095)),
+                     float(best_t[g] & ((1 << 20) - 1)), [float(c) for c in hist[g]]))
+    return rows
+
+
+def sparse_hll_golden(d, top_rows, rev_bytes):
+    """(o): the (d) golden's top 100 groups with DISTINCTCOUNTHLL(lo_revenue, 5)."""
+    od, q, disc, rev = d["lo_orderdate"] - 19920101, d["lo_quantity"], d["lo_discount"], d["lo_revenue"]
+    m = q < 25
+    key = od[m].astype(np.int64) * 550 + (q[m] - 1) * 11 + disc[m]
+    want_keys = np.asarray([(r[0] - 19920101) * 550 + (r[1] - 1) * 11 + r[2] for r in top_rows], np.int64)
+    sel = np.isin(key, want_keys)
+    rank = np.searchsorted(np.sort(want_keys), key[sel])
+    h = _np_hash_int(rev[m][sel], rev_bytes)
+    regs = np.zeros(len(want_keys) * 32, np.int32)
+    np.maximum.at(regs, rank * 32 + (h & np.uint32(31)).astype(np.int64), _np_device_rho((h >> np.uint32(5)).astype(np.int64), 27))
+    est = _np_hll_final(regs.reshape(len(want_keys), 32))
+    by_key = dict(zip(np.sort(want_keys).tolist(), est.tolist()))
+    return [tuple(r) + (int(by_key[int(k)]),) for r, k in zip(top_rows, want_keys)]
+
+
+def _sketch_exact(got, want) -> bool:
+    import math
+
+    def same(a, b):
+        if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, float) and isinstance(b, float):
+            return math.isclose(a, b, rel_tol=SKETCH_RTOL, abs_tol=0.0)
+        return a == b and type(a) is type(b)
+
+    return same([tuple(r) for r in got], [tuple(r) for r in want])
+
+
+def _funnel_kernel_checks(dev, seed):
+    """The funnel kernel against its plain version at 2^20 rows, S = 3 and
+    4 (exact), on random keys, steps and times with ties."""
+    from pinot_tpu_torch.ops import funnel_scan
+
+    rng = np.random.default_rng(seed)
+    n, keys = FUNNEL_CHECK_ROWS, 20_000
+    worst = 0
+    for s in (3, 4):
+        codes = torch.from_numpy(rng.integers(0, keys, n).astype(np.int32)).to(dev)
+        ts = torch.from_numpy(rng.integers(0, 2406, n).astype(np.int64)).to(dev)
+        steps = [torch.from_numpy(rng.random(n) < 0.3).to(dev) for _ in range(s)]
+        mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        prep = funnel_scan.prepare(codes, steps, ts, mask, keys)
+        got = funnel_scan.scan_runs(*prep, s, keys, FUNNEL_WINDOW)
+        torch.cuda.synchronize()
+        ref = funnel_scan.scan_runs_reference(*prep, s, keys, FUNNEL_WINDOW)
+        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        log("funnel_kernel_check", rows=n, steps=s, keys=keys, max_abs_err=err, keys_reached=int((ref > 0).sum()))
+        if err:
+            raise AssertionError(f"funnel scan differs from its plain version at S = {s}: {err}")
+        if s == 3:
+            flush = _flushes(dev)["write"]
+            small = {"shape": f"{n} rows, {keys} keys, S = 3",
+                     "kernel_ms": _time_cuda(lambda: funnel_scan.scan_runs(*prep, s, keys, FUNNEL_WINDOW), flush),
+                     "plain_ms": _time_cuda(lambda: funnel_scan.scan_runs_reference(*prep, s, keys, FUNNEL_WINDOW),
+                                            flush)}
+    return worst, small
+
+
+def _funnel_prepared(d, dev):
+    """Query (n)'s sorted rows and runs over one table's columns, and its
+    table's cell count."""
+    from pinot_tpu_torch.ops import funnel_scan
+
+    base = int(d["lo_revenue"].min())
+    cells = int(d["lo_revenue"].max()) - base + 1
+    key, ts, flags = _funnel_inputs(d, base)
+    steps = [torch.from_numpy(((flags >> s) & 1).astype(bool)).to(dev) for s in range(3)]
+    prep = funnel_scan.prepare(torch.from_numpy(key).to(dev), steps, torch.from_numpy(ts).to(dev),
+                               torch.ones(len(key), dtype=torch.bool, device=dev), cells)
+    return prep, cells
+
+
+def _funnel_exact(prep, cells, shape):
+    """max_abs_err of the kernel against its plain version on the same
+    sorted rows; raises where they differ."""
+    from pinot_tpu_torch.ops import funnel_scan
+
+    got = funnel_scan.scan_runs(*prep, 3, cells, FUNNEL_WINDOW)
+    ref = funnel_scan.scan_runs_reference(*prep, 3, cells, FUNNEL_WINDOW)
+    err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    log("funnel_kernel_check", shape=shape, rows=int(prep[1].shape[0]), steps=3, keys=int(prep[0].shape[0]),
+        max_abs_err=err, keys_reached=int((ref > 0).sum()))
+    if err:
+        raise AssertionError(f"funnel scan differs from its plain version at {shape}: {err}")
+    return err
+
+
+def _funnel_timing(seg_d, d, dev):
+    """The scan at the segment engine's launch shape (one segment's rows),
+    exact against its plain version; then at query (n)'s shape on the
+    stacked table: the kernel (the wrapper call) and the plain version on
+    the same sorted rows, exact against each other, with the byte bound."""
+    from pinot_tpu_torch.ops import funnel_scan
+
+    prep, cells = _funnel_prepared(seg_d, dev)
+    seg_err = _funnel_exact(prep, cells, "query (n) on one segment")
+    del prep
+    prep, cells = _funnel_prepared(d, dev)
+    flush = _flushes(dev)["write"]
+    err = max(seg_err, _funnel_exact(prep, cells, "query (n) on the stacked table"))
+    rows, runs = int(prep[1].shape[0]), int(prep[0].shape[0])
+    # bytes the scan must move: the sorted ts (8) and flags (1) of every
+    # row, each run's key, start and count (4 + 8 + 8) read once, the table
+    # (4 a cell) written once
+    bound = (rows * 9 + runs * 20 + cells * 4) / HBM_BYTES_PER_S * 1e3
+    out = {
+        "shape": f"{rows} rows sorted by (key, ts), {runs} keys, {cells} cells, S = 3",
+        "kernel_ms": _time_cuda(lambda: funnel_scan.scan_runs(*prep, 3, cells, FUNNEL_WINDOW), flush),
+        "plain_ms": _time_cuda(lambda: funnel_scan.scan_runs_reference(*prep, 3, cells, FUNNEL_WINDOW), flush),
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": None, "max_abs_err": err,
+        "max_run_rows": int(prep[4].max()),
+    }
+    out["scan_ms"] = _device_ms(lambda: funnel_scan.scan_runs(*prep, 3, cells, FUNNEL_WINDOW), flush,
+                                "funnel_scan_kernel")
+    del prep
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sketch_counted_run(engine, names, golden_rows, label, scans_per_query):
+    """Each query once, the scan counters set to 0 just before and read
+    just after; rows held against the goldens, the kernels' launches checked."""
+    from pinot_tpu_torch.ops import funnel_scan, fused_scan
+
+    fused_scan.LAUNCHES = funnel_scan.LAUNCHES = 0
+    fused_scan.VARIANT_LAUNCHES.clear()
+    out = {}
+    for name in names:
+        before = (fused_scan.LAUNCHES, funnel_scan.LAUNCHES)
+        t0 = time.perf_counter()
+        res = engine.query(SKETCH_QUERIES[name])
+        torch.cuda.synchronize()
+        out[name] = {"first_ms": (time.perf_counter() - t0) * 1e3,
+                     "fused_scan_launches": fused_scan.LAUNCHES - before[0],
+                     "funnel_scan_launches": funnel_scan.LAUNCHES - before[1],
+                     "rows": len(res.rows), "exact": _sketch_exact(res.rows, golden_rows[name])}
+        if not out[name]["exact"]:
+            raise AssertionError(f"{label} sketch query {name} differs from the numpy golden: "
+                                 f"{list(res.rows)[:2]} vs {golden_rows[name][:2]}")
+    for name, r in out.items():
+        want_scan = scans_per_query if name in SKETCH_SCANS else 0
+        want_funnel = scans_per_query if name == "n_ordered_funnel" else 0
+        if r["fused_scan_launches"] != want_scan or r["funnel_scan_launches"] != want_funnel:
+            raise AssertionError(f"{label} {name}: launches {r}, want fused {want_scan}, funnel {want_funnel}")
+    return fused_scan.LAUNCHES, funnel_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES), out
+
+
+def phase_sketch_path(seg, dist, dev, seed):
+    """(k)-(n) on the segment engine's 8 x 2^23 rows and (k)-(o) on the
+    distributed engine's 2^27-row table at one launch: each query once
+    counted and held against its numpy golden, then warm wall times; the
+    funnel kernel against its plain version at 2^20 rows and timed at query
+    (n)'s shape.  Returns the launches and the profiles to run."""
+    t0 = time.perf_counter()
+    worst, small = _funnel_kernel_checks(dev, seed)
+    datas, d = seg["datas"], dist["data"]
+    seg_lo = min(int(p["lo_revenue"].min()) for p in datas)
+    seg_hi = max(int(p["lo_revenue"].max()) for p in datas)
+    seg_bytes = seg["engine"].tables["lineorder"].segments[0].column("lo_revenue").values.dtype.itemsize
+    dist_bytes = dist["stacked"].column("lo_revenue").values.dtype.itemsize
+    seg_golden = sketch_golden(datas, datas, seg_lo, seg_hi, seg_bytes)
+    dist_golden_rows = sketch_golden([d], [d], int(d["lo_revenue"].min()), int(d["lo_revenue"].max()), dist_bytes)
+    dist_golden_rows["o_sparse_hll"] = sparse_hll_golden(d, dist["golden"]["d_sparse_groupby"], dist_bytes)
+    log("sketch_setup", golden_s=time.perf_counter() - t0, lo_revenue_bytes={"segment": seg_bytes, "stacked": dist_bytes})
+
+    engine_d = dist["engines"]["one_batch"]
+    runs = [("segment_engine", seg["engine"], [n for n in SKETCH_QUERIES if n not in SKETCH_DIST_ONLY],
+             seg_golden, len(seg["datas"])),
+            ("dist_one_batch", engine_d, list(SKETCH_QUERIES), dist_golden_rows, 1)]
+    records, fused, funnel, variants, profiles = {}, 0, 0, {}, []
+    for label, e, names, golden_rows, per_query in runs:
+        nf, nu, nv, per = _sketch_counted_run(e, names, golden_rows, label, per_query)
+        fused += nf
+        funnel += nu
+        for k, v in nv.items():
+            variants[k] = variants.get(k, 0) + v
+        for name, r in per.items():
+            records[f"{label}/{name}"] = r
+    for label, e, names, _g, _n in runs:
+        for name in names:
+            records[f"{label}/{name}"].update(_wall_ms(e, SKETCH_QUERIES[name], runs=3 if name == "o_sparse_hll" else 5))
+            profiles.append(("sketch_profile", {"engine": label, "query": name}, e, SKETCH_QUERIES[name]))
+    timing = _funnel_timing(datas[0], d, dev)
+    timing.update(max_abs_err=max(worst, timing["max_abs_err"]), check_shape=small)
+    log("sketch_check", exact=True, fused_scan_launches=fused, funnel_scan_launches=funnel, instantiations=variants,
+        sketch_s=time.perf_counter() - t0)
+    log("funnel_timing", **timing)
+    return {"launches": fused, "funnel_launches": funnel, "variants": variants, "records": records,
+            "profiles": profiles, "funnel": timing}
+
+
+# ---------------------------------------------------------------------------
 # phase 4d: storage — segment persistence on the segment engine, the
 # residency sweep on the distributed engine, on the tables phases 4 and 4b
 # built
@@ -1728,25 +2190,34 @@ def main() -> int:
     seg = phase_main_path(args, dev)
     dist = phase_dist_main_path(args, dev)
     transform = phase_transform_path(seg, dist)
+    sketch = phase_sketch_path(seg, dist, dev, args.seed + 2)
     storage = phase_storage(seg, dist, transform, dev)
     main_variants = dict(seg["variants"])
-    for part in (dist, transform, storage):
+    for part in (dist, transform, sketch, storage):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
-    storage_launches = storage["launches"]
-    main_launches = sse_launches + dist_launches + transform_launches + storage_launches
-    profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"])
+    storage_launches, sketch_launches = storage["launches"], sketch["launches"]
+    main_launches = sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
+    profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"])
     for key, rec in transform["records"].items():
         engine, _, query = key.partition("/")
         prof = profiles.get(("transform_profile", engine, query), {})
         log("transform_path", engine=engine, query=query, **rec,
             device_busy_ms=prof.get("device_busy_ms", "not run"), device_idle_share=prof.get("device_idle_share",
                                                                                              "not run"))
+    for key, rec in sketch["records"].items():
+        engine, _, query = key.partition("/")
+        prof = profiles.get(("sketch_profile", engine, query), {})
+        log("sketch_path", engine=engine, query=query, **rec,
+            device_busy_ms=prof.get("device_busy_ms", "not run"),
+            device_idle_share=prof.get("device_idle_share", "not run"),
+            top_device_ops=prof.get("top_device_ops", "not run"))
+    funnel, funnel_launches = sketch["funnel"], sketch["funnel_launches"]
     dist["stacked"].release_device()
     for e in dist["engines"].values():
         e.residency.shutdown()
-    del seg, dist, transform, storage
+    del seg, dist, transform, sketch, storage
     torch.cuda.empty_cache()
 
     # 5. profile
@@ -1763,7 +2234,8 @@ def main() -> int:
         "launches": main_launches,
         "launches_on_main_path": main_launches,
         "launches_by_path": {"segment_engine": sse_launches, "distributed_engine": dist_launches,
-                             "transform_path": transform_launches, "storage": storage_launches},
+                             "transform_path": transform_launches, "sketch_path": sketch_launches,
+                             "storage": storage_launches},
         "max_abs_err": worst,
         "shape": timing["shape"],
         "ms": timing["kernel_ms"],
@@ -1781,6 +2253,26 @@ def main() -> int:
         "shapes": timings,
         "specialised_vs_generic": generic,
         "flush_check": flush_check,
+    }, {
+        "name": "funnel_scan",
+        "route": "cuda",
+        "source": "pinot_tpu_torch/ops/csrc/funnel_scan.cu",
+        "replaces": "pinot_tpu/query/aggs_stats.py:489",
+        "replaces_function": "_ordered_funnel_reach (its lax.scan over the sorted rows; not a pallas_call)",
+        "exact": funnel["max_abs_err"] == 0,
+        "launches": funnel_launches,
+        "launches_on_main_path": funnel_launches,
+        "launches_by_path": {"sketch_path": funnel_launches},
+        "max_abs_err": funnel["max_abs_err"],
+        "shape": funnel["shape"],
+        "ms": funnel["kernel_ms"],
+        "kernel_ms": funnel["kernel_ms"],
+        "plain_ms": funnel["plain_ms"],
+        "bound_ms": funnel["bound_ms"],
+        "bound_by": funnel["bound_by"],
+        "library_ms": None,
+        "scan_ms": funnel["scan_ms"],
+        "check_shape": funnel["check_shape"],
     }]
     log("script", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -121,6 +121,11 @@ def load() -> ctypes.CDLL:
             lib.pinot_device_smem_optin.restype = ctypes.c_int
             lib.pinot_fused_scan_params_size.argtypes = []
             lib.pinot_fused_scan_params_size.restype = ctypes.c_int
+            vp = ctypes.c_void_p
+            lib.pinot_funnel_scan.argtypes = [
+                vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_double, vp, vp,
+            ]
+            lib.pinot_funnel_scan.restype = ctypes.c_int
             lib.pinot_cuda_error_string.argtypes = [ctypes.c_int]
             lib.pinot_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -138,6 +138,17 @@ def group_count(mask, codes, num_groups: int):
     )
 
 
+def group_register_max(values, mask, codes, num_groups: int):
+    """int32[num_groups] max of non-negative int32 values where mask, 0 for
+    a group with no row: the HLL register update.  The JAX package takes
+    an f64 group_max and clamps at 0; an int32 amax on a zero table gives
+    the same registers at a quarter of the bytes."""
+    v = torch.where(mask, values.to(torch.int32), torch.zeros((), dtype=torch.int32, device=mask.device))
+    return torch.zeros(num_groups, dtype=torch.int32, device=mask.device).scatter_reduce_(
+        0, _idx(codes), v, reduce="amax", include_self=True
+    )
+
+
 def _group_extreme(values, mask, codes, num_groups: int, is_min: bool):
     ident = _POS_INF if is_min else _NEG_INF
     v = torch.where(mask, values.to(torch.float64), torch.full((), ident, dtype=torch.float64, device=values.device))

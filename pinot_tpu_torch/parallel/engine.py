@@ -39,9 +39,17 @@ pageable copies: the untiered path the tiered one is held against.
 Every query is counted (`dist.queries`, `dist.queryLatency`) and recorded
 in the perf ledger (utils/perf.PERF_LEDGER) with its analytic kernel bytes.
 
+Sketch and extended aggregations bind on the stacked table, which has one
+dictionary per column, so "dict" bindings are always aligned
+(`_inject_sketch_info`).  Their partials combine across macro-batches on
+the device before the one copy home: vector fields by their names' max /
+add, and the coupled partials (KMV, tuple sketches, (t, v), (m, v)) by the
+function's pairwise merge, on device tensors.  The JAX engine refuses the
+pairwise ones outside the sparse path (its in-graph psum cannot take
+them); this engine has no psum and merges them like the segment engine.
+
 Not ported, each raising NotImplementedError naming its ROADMAP Queue 1
-item: sketches (item 4), cross-query batching `execute_many` (item 6),
-joins (item 8).
+item: cross-query batching `execute_many` (item 6), joins (item 8).
 """
 from __future__ import annotations
 
@@ -61,7 +69,7 @@ from pinot_tpu_torch.ops.sparse_merge import merge_sparse_tables
 from pinot_tpu_torch.query import executor, planner
 from pinot_tpu_torch.query import reduce as reduce_mod
 from pinot_tpu_torch.query.filter import FilterCompiler
-from pinot_tpu_torch.query.functions import FIELD_COMBINE, combine_field
+from pinot_tpu_torch.query.functions import FIELD_COMBINE, combine_field, for_spec
 from pinot_tpu_torch.query.ir import Expr, QueryContext
 from pinot_tpu_torch.query.planner import GroupDim
 from pinot_tpu_torch.query.result import (
@@ -217,6 +225,7 @@ class DistributedEngine:
         if ctx.table not in self.tables:
             raise KeyError(f"table {ctx.table!r} not registered (have {list(self.tables)})")
         stacked = self.tables[ctx.table]
+        self._inject_sketch_info(ctx, stacked)
         stats = ExecutionStats(
             num_segments_queried=stacked.num_shards,
             num_segments_processed=stacked.num_shards,
@@ -249,6 +258,24 @@ class DistributedEngine:
 
     def execute_many(self, ctxs: List[QueryContext]) -> List[ResultTable]:
         raise NotImplementedError("cross-query batching is a later slice of the port (ROADMAP Queue 1 item 6)")
+
+    @staticmethod
+    def _inject_sketch_info(ctx: QueryContext, stacked) -> None:
+        """Stacked tables are aligned by construction (one dictionary per
+        column): publish that, the dictionary values and the global range
+        for the sketch bindings (planner.column_binding)."""
+        for spec in ctx.aggregations:
+            if spec.expr is None or not spec.expr.is_column:
+                continue
+            if not for_spec(spec).needs_binding:
+                continue
+            col = spec.expr.op
+            c = stacked.column(col)
+            ctx.options.setdefault(f"__dictfp__{col}", c.dictionary.fingerprint() if c.has_dictionary else "")
+            if c.has_dictionary:
+                ctx.options.setdefault(f"__dictvals__{col}", c.dictionary.values)
+            if c.stats.min_value is not None and not c.data_type.is_string_like:
+                ctx.options.setdefault(f"__range__{col}", (c.stats.min_value, c.stats.max_value))
 
     # ------------------------------------------------------------------
     def _plan(self, ctx: QueryContext, stacked) -> _DistPlan:
@@ -319,7 +346,6 @@ class DistributedEngine:
         """Plan one query over the stacked table.  With `cached` (a plan
         cache hit) only the params and metadata are rebuilt; the closure and
         the merge function are the cached plan's."""
-        planner._refuse_later_slices(ctx)
         ndev = self.num_devices
         L = stacked.num_shards // ndev
         D_full = stacked.docs_per_shard
@@ -360,6 +386,7 @@ class DistributedEngine:
         agg_specs = list(ctx.aggregations)
         aggs = planner.bind_aggs(agg_specs, stacked, ctx)
         agg_filter_fns = [fc.compile(s.filter) if s.filter is not None else None for s in agg_specs]
+        agg_subfilter_fns = planner.compile_subfilters(fc, aggs)
 
         kind, group_dims, num_groups = planner.plan_groups(ctx, view, aggs)
         select_columns: List[str] = []
@@ -378,7 +405,8 @@ class DistributedEngine:
         def _flat(cols):
             return planner.overlay_unpacked(flatten_cols(cols), packed_meta, local_rows)
 
-        _agg_inputs = planner.make_agg_inputs(agg_specs, aggs, agg_filter_fns, view, ctx.null_handling)
+        _agg_inputs = planner.make_agg_inputs(
+            agg_specs, aggs, agg_filter_fns, view, ctx.null_handling, agg_subfilter_fns)
 
         def _filtered(cols, params, dev):
             """The filter's row mask, padding and covered tail rows off."""
@@ -438,7 +466,8 @@ class DistributedEngine:
             # device merge across launches when every aggregation merges
             # field-wise and any ORDER BY-aware trim is expressible on the
             # device (kernel_order_spec); otherwise the host merge remains
-            merge_ok = all(not getattr(fn, "pairwise_merge", False) for fn in aggs)
+            # (sketches' vector and coupled fields, as in the JAX package)
+            merge_ok = all(fn.field_kinds is not None and not fn.pairwise_merge for fn in aggs)
             morder = None
             if merge_ok and planner.order_by_agg_index(ctx) is not None:
                 if order_spec is None:
@@ -542,12 +571,16 @@ class DistributedEngine:
         return cols, params, ready
 
     @staticmethod
-    def _combine_partials(parts_list):
+    def _combine_partials(aggs, parts_list):
         """Fold per-launch partials (a list over launches of per-agg field
-        dicts) with the add / min / max semantics of their field names."""
+        dicts) on their device: the add / min / max of the field names, or
+        the function's pairwise merge for coupled fields."""
         out = parts_list[0]
         for nxt in parts_list[1:]:
-            out = [{f: combine_field(f, p[f], q[f]) for f in p} for p, q in zip(out, nxt)]
+            out = [
+                fn.merge(p, q) if fn.pairwise_merge else {f: combine_field(f, p[f], q[f]) for f in p}
+                for fn, p, q in zip(aggs, out, nxt)
+            ]
         return out
 
     def _completion(self):
@@ -648,7 +681,8 @@ class DistributedEngine:
         )
 
         if plan.kind == "aggregation":
-            return AggSegmentResult(partials=list(executor._to_host(self._combine_partials(batch_outs))))
+            host = executor._to_host(self._combine_partials(plan.aggs, batch_outs))
+            return AggSegmentResult(partials=[fn.host_partial(p) for fn, p in zip(plan.aggs, host)])
 
         if plan.kind == "selection":
             # each launch's mask -> global flat doc ids on the device (the
@@ -667,7 +701,7 @@ class DistributedEngine:
             presence = batch_outs[0][0]
             for p, _ in batch_outs[1:]:
                 presence = presence + p
-            presence, partials = executor._to_host((presence, self._combine_partials([p for _, p in batch_outs])))
+            presence, partials = executor._to_host((presence, self._combine_partials(plan.aggs, [p for _, p in batch_outs])))
             shim = SimpleNamespace(group_dims=plan.group_dims, aggs=plan.aggs)
             dense = DenseGroupData(
                 presence=presence, partials=partials, key_space=executor._key_space_id(shim),

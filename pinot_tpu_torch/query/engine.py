@@ -15,7 +15,10 @@ eviction heat.
 ``QueryEngine(device=None)`` runs on CUDA and raises without it;
 ``device="cpu"`` runs the plain PyTorch path.  Aggregations, group-bys
 (over columns and expressions, with FILTER (WHERE ...)), and selections
-(columns, expressions, ORDER BY, OFFSET, window functions) run; EXPLAIN,
+(columns, expressions, ORDER BY, OFFSET, window functions) run, and the
+sketch and extended aggregations, whose per-column bindings read the
+table-global ranges and dictionary consensus injected before planning
+(``_inject_global_ranges``); EXPLAIN,
 subqueries, set operations, joins and gap-filling are later slices of the
 port.
 """
@@ -28,6 +31,7 @@ from typing import Dict, List, Optional
 
 from pinot_tpu_torch.device import DeviceLike, resolve_device
 from pinot_tpu_torch.query import executor, planner, reduce as reduce_mod
+from pinot_tpu_torch.query.functions import for_spec
 from pinot_tpu_torch.query.ir import Expr, QueryContext
 from pinot_tpu_torch.query.result import ExecutionStats, ResultTable
 from pinot_tpu_torch.query.shape import shape_digest
@@ -71,6 +75,7 @@ class QueryEngine:
             )
         t0 = time.perf_counter()
         state = self.table(ctx.table)
+        self._inject_global_ranges(ctx, state.segments)
         stats = ExecutionStats()
         star = any(isinstance(s, Expr) and s.is_column and s.op == "*" for s in ctx.select_list)
         pending = []
@@ -109,6 +114,47 @@ class QueryEngine:
             engine="sse",  # no compile step and no plan-cache outcome on this engine
         )
         return out
+
+    @staticmethod
+    def _inject_global_ranges(ctx: QueryContext, segments: List[ImmutableSegment]) -> None:
+        """Table-global facts per sketch-aggregated column, injected as ctx
+        options so every segment binds identically:
+          __range__<col>   - global [min, max]: histogram bin edges must be
+                             the same everywhere for partials to add
+          __dictfp__<col>  - dictionary-fingerprint consensus; "MIXED" tells
+                             planner.column_binding the code space is NOT
+                             shared, so code-indexed partials must not merge
+          __dictvals__<col> - the shared dictionary's values (reduce-time
+                             decode, bind_reduce)"""
+        for spec in ctx.aggregations:
+            if spec.expr is None or not spec.expr.is_column:
+                continue
+            if not for_spec(spec).needs_binding:
+                continue
+            col = spec.expr.op
+            rkey, fkey = f"__range__{col}", f"__dictfp__{col}"
+            if rkey in ctx.options and fkey in ctx.options:
+                continue
+            mins, maxs = [], []
+            fps = set()
+            dict_values = None
+            for seg in segments:
+                if col not in seg.columns:
+                    continue
+                c = seg.column(col)
+                fps.add(c.dictionary.fingerprint() if c.has_dictionary else None)
+                if c.has_dictionary and dict_values is None:
+                    dict_values = c.dictionary.values
+                if c.stats.min_value is not None and not c.data_type.is_string_like:
+                    mins.append(c.stats.min_value)
+                    maxs.append(c.stats.max_value)
+            if mins:
+                ctx.options.setdefault(rkey, (min(mins), max(maxs)))
+            if fps:
+                only = next(iter(fps)) if len(fps) == 1 else None
+                ctx.options.setdefault(fkey, "MIXED" if len(fps) > 1 else (only or ""))
+                if len(fps) == 1 and dict_values is not None:
+                    ctx.options.setdefault(f"__dictvals__{col}", dict_values)
 
     def query(self, sql: str) -> ResultTable:
         """SQL front door."""

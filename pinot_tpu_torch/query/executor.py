@@ -154,7 +154,7 @@ def collect_segment(state):
         return _gather_selection(ctx, plan, segment, docids), stats
     host = _to_host(out)
     if plan.kind == "aggregation":
-        return AggSegmentResult(partials=list(host)), stats
+        return AggSegmentResult(partials=[fn.host_partial(p) for fn, p in zip(plan.aggs, host)]), stats
     if plan.kind == "groupby_sparse":
         uniq, partials = host
         res = sparse_tables_to_result(
@@ -281,19 +281,28 @@ def sparse_tables_to_result(
 
     first = np.maximum(mat[:, 0], 0)
     out: List[Dict[str, np.ndarray]] = []
-    for p in partials:
+    for fn, p in zip(aggs, partials):
         rows: Dict[str, np.ndarray] = {}
         for fname, arr in p.items():
             a = np.asarray(arr)[present]
             rows[fname] = a if keep is None else a[keep]
         acc = {f: a[first] for f, a in rows.items()}
+        # one fold level per extra slot of a key: scalar fields, vector
+        # fields ([slots, W] presence/registers/histograms) and pairwise
+        # coupled partials (KMV, (t, v)) all ride it
         for j in range(1, maxc):
             validj = mat[:, j] >= 0
             if not validj.any():
                 break
             idx = np.maximum(mat[:, j], 0)
+            other = {f: a[idx] for f, a in rows.items()}
+            if fn.pairwise_merge:
+                merged = fn.merge(acc, other)
+            else:
+                merged = {f: combine_field(f, acc[f], other[f]) for f in acc}
             for f in acc:
-                acc[f] = np.where(validj, combine_field(f, acc[f], rows[f][idx]), acc[f])
+                v = validj.reshape((-1,) + (1,) * (acc[f].ndim - 1))
+                acc[f] = np.where(v, merged[f], acc[f])
         out.append(acc)
 
     if order_trim is not None and n_groups > num_groups_limit:

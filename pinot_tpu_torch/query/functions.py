@@ -2,10 +2,14 @@
 
 Port of pinot_tpu/query/functions.py: the ten core functions (COUNT, SUM,
 MIN, MAX, AVG, MINMAXRANGE, VARIANCE/VARSAMP, STDDEV/STDDEVSAMP) with their
-partials on torch tensors and merge/final on host numpy.  The sketch and
-extended families of the JAX registry come with a later slice; their names
-are known (ALL_AGG_NAMES) so SQL parses as in the JAX package and fails at
-plan time.
+partials on torch tensors and merge/final on host numpy, plus the hooks the
+sketch and extended families use (literal arguments, column binding, reduce
+binding, host partials, extra expressions, sub-filters, pairwise merges).
+Those families register from query/sketches.py, query/aggs_extra.py and
+query/aggs_stats.py, imported at the bottom in the JAX package's order.
+The multi-value forms (*MV) need MV columns (ROADMAP Queue 1 item 5); their
+names are known (ALL_AGG_NAMES) so SQL parses as in the JAX package and
+fails at plan time.
 
 Reference parity: pinot-core AggregationFunction contract
 (.../query/aggregation/function/AggregationFunction.java:44 — aggregate /
@@ -44,6 +48,19 @@ FIELD_COMBINE = {
     "sumsq": "add",
     "min": "min",
     "max": "max",
+    # sketch fields (query/sketches.py): presence bitmaps and HLL registers
+    # union via max; histograms add; bin-range bookkeeping via min/max
+    "present": "max",
+    "hll": "max",
+    "hist": "add",
+    "lo": "min",
+    "hi": "max",
+    # covariance tuple fields (query/aggs_stats.py) — all additive
+    "sumx": "add",
+    "sumy": "add",
+    "sumxy": "add",
+    "sumsqx": "add",
+    "sumsqy": "add",
 }
 
 
@@ -69,9 +86,44 @@ class AggFunction:
     """Base: one aggregation function's device/host contract."""
 
     name: str = ""
+    # static partial field names (keys of partial()/partial_grouped() output)
+    fields: tuple = ()
+    # the planner feeds dictionary codes / range-offset ints instead of values
+    needs_codes: bool = False
+    # the planner must call bind_column() with per-column constants first
+    needs_binding: bool = False
+    # partial fields are per-group VECTORS (presence/registers/histograms)
+    vector_fields: bool = False
+    # partials merge ONLY via pairwise fn.merge (coupled fields, e.g.
+    # LASTWITHTIME's (t, v) or theta's KMV set): the field-name elementwise
+    # combines must not touch them
+    pairwise_merge: bool = False
+    # spec.extra_exprs evaluate alongside expr; partial() receives the tuple
+    # (values, extra0, ...) instead of a single array
+    needs_extra_exprs: bool = False
+    # theta sub-filter set expressions: partial() receives (values, mask_1, ...)
+    subfilter_args: bool = False
+    # how a needs_codes function's input is fed: "codes" | "values_offset" |
+    # "values_hash" (planner.agg_input_codes)
+    input_kind: str = "codes"
     # field -> entry kind ("count"|"sum"|"sumsq"|"min"|"max") for the fused
-    # dense group-by scan (ops.fused_group_tables)
+    # dense group-by scan (ops.fused_group_tables); None = the function's own
+    # partial_grouped runs instead (sketch family)
     field_kinds = None
+
+    # -- binding (sketch functions override; see query/sketches.py) ------
+    def with_args(self, literal_args) -> "AggFunction":
+        """Specialize with SQL literal arguments (percentile rank, log2m)."""
+        return self
+
+    def bind_column(self, info) -> "AggFunction":
+        """Bind per-column constants (domain, hash tables, bin ranges)."""
+        return self
+
+    def bind_reduce(self, ctx, spec) -> "AggFunction":
+        """Bind reduce-time constants from engine-injected ctx options (e.g.
+        FREQUENTSTRINGS' dictionary values for its final decode)."""
+        return self
 
     # -- device: per-segment partials -----------------------------------
     def partial(self, values, mask) -> Partial:
@@ -79,6 +131,12 @@ class AggFunction:
 
     def partial_grouped(self, values, mask, keys, num_groups: int) -> Partial:
         raise NotImplementedError
+
+    # -- host: post-copy conversion hook ----------------------------------
+    def host_partial(self, p: Partial) -> Partial:
+        """A partial copied home in its host merge form (identity for tensor
+        partials; value-set sketches decode here)."""
+        return p
 
     # -- host: combine (partials arrive as numpy) ------------------------
     def merge(self, a: Partial, b: Partial) -> Partial:
@@ -90,6 +148,7 @@ class AggFunction:
 
 class CountFunction(AggFunction):
     name = "count"
+    fields = ("count",)
     field_kinds = {"count": "count"}
 
     def partial(self, values, mask):
@@ -109,6 +168,7 @@ class SumFunction(AggFunction):
     """Carries (sum, count) so SUM over zero matching rows is SQL NULL."""
 
     name = "sum"
+    fields = ("sum", "count")
     field_kinds = {"sum": "sum", "count": "count"}
 
     def partial(self, values, mask):
@@ -129,6 +189,7 @@ class SumFunction(AggFunction):
 
 class MinFunction(AggFunction):
     name = "min"
+    fields = ("min", "count")
     field_kinds = {"min": "min", "count": "count"}
 
     def partial(self, values, mask):
@@ -149,6 +210,7 @@ class MinFunction(AggFunction):
 
 class MaxFunction(AggFunction):
     name = "max"
+    fields = ("max", "count")
     field_kinds = {"max": "max", "count": "count"}
 
     def partial(self, values, mask):
@@ -171,6 +233,7 @@ class AvgFunction(AggFunction):
     """Carries (sum, count) — Pinot's AvgPair intermediate result."""
 
     name = "avg"
+    fields = ("sum", "count")
     field_kinds = {"sum": "sum", "count": "count"}
 
     def partial(self, values, mask):
@@ -195,6 +258,7 @@ class MinMaxRangeFunction(AggFunction):
     """MINMAXRANGE = max - min (Pinot MinMaxRangeAggregationFunction)."""
 
     name = "minmaxrange"
+    fields = ("min", "max", "count")
     field_kinds = {"min": "min", "max": "max", "count": "count"}
 
     def partial(self, values, mask):
@@ -228,6 +292,7 @@ class SumOfSquaresFunction(AggFunction):
     carries count/sum/sumOfSquares the same way)."""
 
     name = "_sumsq"
+    fields = ("count", "sum", "sumsq")
     field_kinds = {"count": "count", "sum": "sum", "sumsq": "sumsq"}
 
     def partial(self, values, mask):
@@ -345,14 +410,26 @@ def get_agg_function(name: str) -> AggFunction:
     if fn is None:
         if name.lower() in ALL_AGG_NAMES:
             raise NotImplementedError(
-                f"aggregation {name!r} is not ported yet (sketches and extended "
-                "aggregations are a later slice of the port)"
+                f"aggregation {name!r} runs over multi-value columns, a later slice "
+                "of the port (ROADMAP Queue 1 item 5)"
             )
         raise ValueError(f"unknown aggregation function {name!r} (have {sorted(_REGISTRY)})")
     return fn
 
 
 def for_spec(spec) -> AggFunction:
-    """Registry lookup for one AggregationSpec (the core functions take no
-    literal arguments)."""
-    return get_agg_function(spec.function)
+    """Registry lookup + literal-arg specialization for one AggregationSpec.
+    (Column binding is planner-side; merge/final never need it.)"""
+    return get_agg_function(spec.function).with_args(spec.literal_args)
+
+
+# Register the sketch family (import at bottom: sketches subclasses AggFunction)
+from pinot_tpu_torch.query import sketches  # noqa: E402,F401
+
+# Extended aggregations (KLL log-sketch, theta, MODE, FIRST/LAST_WITH_TIME);
+# must import AFTER sketches: percentilekll overrides the histogram stand-in
+from pinot_tpu_torch.query import aggs_extra  # noqa: E402,F401
+
+# Statistics long tail (HISTOGRAM, covariance family, EXPR_MIN/MAX,
+# FREQUENTSTRINGS, integer tuple sketches, funnels) — after aggs_extra
+from pinot_tpu_torch.query import aggs_stats  # noqa: E402,F401

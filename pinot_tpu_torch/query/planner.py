@@ -25,8 +25,11 @@ dictionary column a "derived" one.  A query with no aggregation and no
 GROUP BY is a "selection" plan: its closure returns the filter's row mask
 and the executor gathers the rows (window functions are computed at reduce).
 
-Sketches and the aggregations with extra arguments raise
-NotImplementedError here, naming ROADMAP Queue 1 item 4.
+Sketch and extended aggregations (query/sketches.py, aggs_extra.py,
+aggs_stats.py) bind per-column constants here (column_binding, bind_aggs),
+take dictionary codes, range offsets or raw values to hash
+(agg_input_codes), and fill their own grouped tables ("own" requests of
+grouped_partials, and over slot ids on the sparse path).
 """
 from __future__ import annotations
 
@@ -44,13 +47,15 @@ from pinot_tpu_torch.query import scalar
 from pinot_tpu_torch.query.filter import FilterCompiler
 from pinot_tpu_torch.query.functions import FIELD_COMBINE, AggFunction, field_identity, for_spec
 from pinot_tpu_torch.query.ir import AggregationSpec, Expr, QueryContext, WindowSpec
-from pinot_tpu_torch.query.transform import as_row_array, device_constant, eval_expr
+from pinot_tpu_torch.query.transform import as_row_array, column_values, device_constant, eval_expr
 from pinot_tpu_torch.query.shape import column_info_from, params_structure
 from pinot_tpu_torch.segment import packing
 from pinot_tpu_torch.segment.segment import ImmutableSegment
 from pinot_tpu_torch.spi.schema import DataType
 
 _INT_TYPES = (DataType.INT, DataType.LONG, DataType.TIMESTAMP, DataType.BOOLEAN)
+# raw ints bind as a dense "rawint" key space when (max - min + 1) is this small
+MAX_DENSE_RAW_INT_RANGE = 1 << 20
 
 
 @dataclass
@@ -202,6 +207,9 @@ def column_limb_sig(c) -> Optional[Tuple[int, bool]]:
 
 
 def _segment_signature(segment: ImmutableSegment, needed: List[str], const_cols: frozenset = frozenset()) -> Tuple:
+    """The plan-cache signature of a segment over the query's columns.
+    const_cols: columns whose dictionary-derived constants (sketch bindings,
+    derived remaps, expr ranges) the closure bakes in."""
     sig = [segment.num_docs, segment.valid_docs is not None]
     for name in sorted(needed):
         c = segment.column(name)
@@ -211,8 +219,9 @@ def _segment_signature(segment: ImmutableSegment, needed: List[str], const_cols:
             raw_range = (
                 (_sig_value(c.stats.min_value), _sig_value(c.stats.max_value)) if c.stats.num_docs else (0, 0)
             )
-        # columns whose dictionary-derived constants (derived remaps, expr
-        # ranges) the closure bakes in: the dictionary and range join the key
+        # columns whose dictionary-derived constants (sketch tables, derived
+        # remaps, expr ranges) the closure bakes in: the dictionary and
+        # range join the key
         const_extra = None
         if name in const_cols:
             const_extra = (
@@ -235,6 +244,16 @@ def _segment_signature(segment: ImmutableSegment, needed: List[str], const_cols:
             )
         )
     return tuple(sig)
+
+
+def sketch_bound_columns(ctx: QueryContext) -> frozenset:
+    """Columns whose sketch bindings bake per-segment constants (HLL hash
+    tables, histogram edges, code domains) into planned closures."""
+    out = set()
+    for spec in ctx.aggregations:
+        if spec.expr is not None and spec.expr.is_column and for_spec(spec).needs_binding:
+            out.add(spec.expr.op)
+    return frozenset(out)
 
 
 def const_bound_columns(ctx: QueryContext) -> frozenset:
@@ -291,8 +310,14 @@ def _needed_columns(ctx: QueryContext, segment: ImmutableSegment) -> List[str]:
         if isinstance(s, AggregationSpec):
             if s.expr is not None:
                 cols.extend(s.expr.columns())
+            for ex in s.extra_exprs:
+                cols.extend(ex.columns())
             if s.filter:
                 cols.extend(s.filter.columns())
+            fn_ = for_spec(s)
+            if fn_.subfilter_args:
+                for node in fn_.filter_nodes:
+                    cols.extend(node.columns())
         elif isinstance(s, WindowSpec):
             if s.expr is not None:
                 cols.extend(s.expr.columns())
@@ -344,14 +369,6 @@ def _non_filter_columns(ctx: QueryContext, segment) -> set:
         extra_aggregations=[strip(s) for s in ctx.extra_aggregations],
     )
     return set(_needed_columns(ctx2, segment))
-
-
-def _refuse_later_slices(ctx: QueryContext) -> None:
-    for spec in ctx.aggregations:
-        if spec.extra_exprs or spec.literal_args:
-            raise NotImplementedError(
-                f"{spec.function} with extra arguments is a later slice of the port (ROADMAP Queue 1 item 4)"
-            )
 
 
 def _group_dim(expr: Expr, segment: ImmutableSegment, null_handling: bool) -> GroupDim:
@@ -417,7 +434,10 @@ def _is_int(t: torch.Tensor) -> bool:
 def words_fusable(aggs) -> bool:
     """Every field of every aggregation is one the fused scan makes (count,
     sum, sum of squares), so a filter's packed words can go to the scan."""
-    return all(k in ("count", "sum", "sumsq") for fn in aggs for k in fn.field_kinds.values())
+    return all(
+        fn.field_kinds is not None and all(k in ("count", "sum", "sumsq") for k in fn.field_kinds.values())
+        for fn in aggs
+    )
 
 
 def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
@@ -426,8 +446,9 @@ def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
 
     All additive fields (presence, counts, sums, sums of squares) of ALL
     aggregations share ONE fused scan (ops.fused_group_tables); min/max
-    fields scatter.  Entries dedup by tensor identity, so COUNT(*) shares the
-    presence entry.  key_fn() returns the group-key codes; it is called only
+    fields scatter; sketch functions (field_kinds None) fill their own tables
+    (fn.partial_grouped).  Entries dedup by tensor identity, so COUNT(*)
+    shares the presence entry.  key_fn() returns the group-key codes; it is called only
     when something reads them — eager torch has no dead-code elimination, so
     a packed key (key_packed = (words, code_bits)) that the kernel reads
     in-register is never unpacked for nothing.
@@ -436,7 +457,8 @@ def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
     views) instead of folded into tmask and the input masks: the fused scan
     reads them in-register.  The min/max scatters never see packed words, so
     when any aggregation needs a field the scan does not make, the words are
-    unpacked here and ANDed into the masks (shared masks stay shared)."""
+    unpacked here and ANDed into the masks (shared masks stay shared); the
+    fused scan still makes the query's count and sum entries."""
     if mask_words is not None:
         if not words_fusable(aggs):
             row_mask = ops.unpack_bitmap_words(mask_words, int(tmask.shape[0]))
@@ -463,8 +485,11 @@ def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
         return idx
 
     presence_idx = entry_slot("count", None, tmask)
-    requests: List[Dict[str, Tuple[str, Optional[int]]]] = []
+    requests: List[Optional[Dict[str, Tuple[str, Optional[int]]]]] = []
     for i, (fn, (vals, mask)) in enumerate(zip(aggs, inputs)):
+        if fn.field_kinds is None:
+            requests.append(None)  # "own": the function's partial_grouped
+            continue
         fmap: Dict[str, Tuple[str, Optional[int]]] = {}
         for fname, kind in fn.field_kinds.items():
             if kind == "count":
@@ -501,7 +526,10 @@ def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
 
     presence = _as_table(presence_idx)
     partials: List[Dict] = []
-    for fmap, (vals, mask) in zip(requests, inputs):
+    for fmap, fn, (vals, mask) in zip(requests, aggs, inputs):
+        if fmap is None:
+            partials.append(fn.partial_grouped(vals, mask, key_fn(), num_groups))
+            continue
         p: Dict[str, Any] = {}
         for fname, (k2, idx) in fmap.items():
             if k2 == "fused":
@@ -514,18 +542,52 @@ def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
     return presence, partials
 
 
-def make_agg_inputs(agg_specs, aggs, agg_filter_fns, table_like, null_handling: bool):
+def agg_input_codes(spec, fn, table_like, cols, mask, null_handling: bool):
+    """(input, mask) of a needs_codes aggregation, by the bound function's
+    input_kind:
+      codes         - dictionary codes (a shared key space, or per-segment
+                      hash tables indexed by them)
+      values_offset - decoded numeric values minus the binding's base (a
+                      table-global int range, aligned by construction)
+      values_hash   - raw numeric values, hashed on the device"""
+    name = spec.expr.op
+    c = table_like.column(name)
+    entry = cols[name]
+    if c.nulls is not None and null_handling:
+        mask = mask & ~entry["nulls"]
+    kind = fn.input_kind
+    if kind == "codes":
+        if not c.has_dictionary:
+            raise ValueError(f"{spec.function} bound to codes but column {name} has no dictionary")
+        return entry["codes"].to(torch.int32), mask
+    vals, _ = column_values(name, table_like, cols)
+    if kind == "values_offset":
+        return (vals - fn.base).to(torch.int32), mask  # subtract in the storage dtype
+    return vals, mask  # values_hash
+
+
+def compile_subfilters(fc, aggs) -> List[Optional[List[Callable]]]:
+    """Each aggregation's compiled theta sub-filters (one mask each), or None."""
+    return [[fc.compile(node) for node in fn.filter_nodes] if fn.subfilter_args else None for fn in aggs]
+
+
+def make_agg_inputs(agg_specs, aggs, agg_filter_fns, table_like, null_handling: bool, agg_subfilter_fns=None):
     """Per-aggregation (values, mask) builder over a plan's device columns,
     with FILTER (WHERE ...) and null handling (the projection and transform
     step of the hot loop); shared by the segment plans and the distributed
     engine's.  agg_filter_fns holds each aggregation's compiled FILTER
-    clause or None.  Aggregations with the same FILTER clause share one
-    mask tensor, so the fused scan reads it once."""
+    clause or None; agg_subfilter_fns each aggregation's compiled theta
+    sub-filters or None.  Aggregations with the same FILTER clause share one
+    mask tensor, so the fused scan reads it once.  needs_codes functions
+    take codes / offsets / raw values (agg_input_codes), needs_extra_exprs
+    ones the tuple (values, extra0, ...), sub-filtered ones (values,
+    mask_1, ...)."""
+    sub_fns = agg_subfilter_fns or [None] * len(agg_specs)
 
     def _agg_inputs(cols, params, base_mask, dev):
         out = []
         filtered: Dict[str, torch.Tensor] = {}
-        for spec, fn, ffn in zip(agg_specs, aggs, agg_filter_fns):
+        for spec, fn, ffn, sfns in zip(agg_specs, aggs, agg_filter_fns, sub_fns):
             mask = base_mask
             if ffn is not None:
                 fp = spec.filter.fingerprint()
@@ -535,6 +597,8 @@ def make_agg_inputs(agg_specs, aggs, agg_filter_fns, table_like, null_handling: 
                 mask = filtered[fp]
             if spec.expr is None:
                 vals = mask  # COUNT(*): values unused
+            elif fn.needs_codes:
+                vals, mask = agg_input_codes(spec, fn, table_like, cols, mask, null_handling)
             elif fn.name == "count" and spec.expr.is_column:
                 # COUNT(col) needs only the null mask — works on strings too
                 vals = mask
@@ -546,6 +610,16 @@ def make_agg_inputs(agg_specs, aggs, agg_filter_fns, table_like, null_handling: 
                 vals = as_row_array(vals, mask)
                 if nulls is not None and null_handling:
                     mask = mask & ~nulls
+            if fn.needs_extra_exprs:
+                extras = []
+                for ex in spec.extra_exprs:
+                    ev, en = eval_expr(ex, table_like, cols, dev)
+                    extras.append(as_row_array(ev, mask))
+                    if en is not None and null_handling:
+                        mask = mask & ~en
+                vals = (vals, *extras)
+            if sfns:
+                vals = (vals, *[mask & sf(cols, params, dev)[0] for sf in sfns])
             out.append((vals, mask))
         return out
 
@@ -584,28 +658,67 @@ def order_by_agg_index(ctx: QueryContext) -> Optional[Tuple[int, bool]]:
 
 
 def guard_sparse_vector_fields(kind: str, aggs: List[AggFunction]) -> None:
-    """Pre-plan check for the sparse group path: only field-wise partials
-    (count/sum/sumsq/min/max fields) ride its scatters.  The sketch families
-    whose per-slot vector fields the JAX package scatters there are a later
-    slice of the port (slice 4)."""
+    """Pre-plan check for the sparse group path.  Vector-field sketches
+    (DISTINCTCOUNT/HLL/PERCENTILE/MODE/theta/...) ride it through their own
+    partial_grouped over slot ids (sparse_grouped_tables); only the forms
+    that cannot group raise, with a pointed message."""
     if kind != "groupby_sparse":
         return
+    from pinot_tpu_torch.query.sketches import DistinctCountValueSetFunction
+
     for fn in aggs:
-        if fn.field_kinds is None or getattr(fn, "pairwise_merge", False):
+        if isinstance(fn, DistinctCountValueSetFunction):
             raise NotImplementedError(
-                f"{fn.name} on the sparse group-by path is a later slice of the port (slice 4)"
+                "exact grouped DISTINCTCOUNT requires a shared dictionary across "
+                "segments; these segments' dictionaries differ — use DISTINCTCOUNTHLL"
             )
+        if fn.subfilter_args:
+            raise NotImplementedError("theta sub-filter set expressions do not support GROUP BY")
+
+
+def column_binding(spec, table_like, ctx: Optional[QueryContext] = None):
+    """Per-column constants for sketch aggregations (query/sketches.py).
+
+    Alignment: engine-injected options carry the table-global value range
+    ("__range__<col>") and the dictionary-fingerprint consensus
+    ("__dictfp__<col>", "MIXED" when segments disagree).  A dict column
+    whose key space is NOT shared across segments must not merge
+    code-indexed partials: numeric columns take a value-range ("rawint")
+    binding, everything else "raw" (hash-based sketches only)."""
+    from pinot_tpu_torch.query.sketches import ColumnBinding
+
+    e = spec.expr
+    if e is None or not e.is_column:
+        raise NotImplementedError(f"{spec.function} requires a bare column argument")
+    c = table_like.column(e.op)
+    mn, mx = c.stats.min_value, c.stats.max_value
+    aligned = True
+    if ctx is not None:
+        rng = ctx.options.get(f"__range__{e.op}")
+        if rng is not None:
+            mn, mx = rng
+        aligned = ctx.options.get(f"__dictfp__{e.op}", "") != "MIXED"
+    dict_values = c.dictionary.values if c.has_dictionary else None
+    if c.has_dictionary and aligned:
+        return ColumnBinding(
+            "dict", domain=c.dictionary.cardinality, dict_values=dict_values, min_value=mn, max_value=mx,
+        )
+    if c.data_type in _INT_TYPES and mn is not None:
+        rng_width = int(mx) - int(mn) + 1
+        if rng_width <= MAX_DENSE_RAW_INT_RANGE:
+            return ColumnBinding("rawint", domain=rng_width, base=int(mn), min_value=mn, max_value=mx)
+    # dict_values still flow through: value-based host hashing (HLL) stays
+    # correct across misaligned dictionaries
+    return ColumnBinding("raw", dict_values=dict_values, min_value=mn, max_value=mx)
 
 
 def bind_aggs(agg_specs, table_like, ctx: QueryContext) -> List[AggFunction]:
-    """The aggregation functions of one plan.  Column binding (the sketch
-    functions' per-column key spaces) comes with those functions, a later
-    slice of the port (slice 4)."""
+    """Specialize + column-bind the aggregation functions of one plan."""
     out = []
     for spec in agg_specs:
         fn = for_spec(spec)
-        if getattr(fn, "needs_binding", False):
-            raise NotImplementedError(f"{spec.function} needs column binding, a later slice of the port (slice 4)")
+        if fn.needs_binding:
+            fn = fn.bind_column(column_binding(spec, table_like, ctx))
         out.append(fn)
     return out
 
@@ -743,10 +856,22 @@ def sparse_grouped_tables(aggs, inputs, tmask, key, num_slots: int, order_spec=N
     uniq = torch.full((num_slots + 1,), SPARSE_EMPTY_KEY, dtype=torch.int64, device=dev).scatter_(
         0, torch.where(is_start, slot, overflow), skey
     )
+    def _perm(x):
+        return (x if x.dim() else x.expand(n))[perm]
+
     partials = []
     for fn, (vals, mask) in zip(aggs, inputs):
         m = mask[perm]
-        v = (vals if vals.dim() else vals.expand(n))[perm]
+        if fn.field_kinds is None:
+            # sketch / own-scatter family: the slot array IS a dense group
+            # key space of num_slots + 1 ids, so the function's own
+            # partial_grouped fills per-slot vector fields; the overflow
+            # slot is sliced off like the scalar tables
+            v = tuple(_perm(x) for x in vals) if isinstance(vals, tuple) else _perm(vals)
+            own = fn.partial_grouped(v, m, slot, num_slots + 1)
+            partials.append({f: t[:num_slots] for f, t in own.items()})
+            continue
+        v = _perm(vals)
         p: Dict[str, torch.Tensor] = {}
         for fname in fn.field_kinds:
             comb = FIELD_COMBINE[fname]
@@ -887,11 +1012,10 @@ def sparse_tables_fn(ctx: QueryContext, aggs, group_dims: List[GroupDim], num_gr
 
 def plan_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.device) -> SegmentPlan:
     """Plan one query over one segment for `device` (cached by shape)."""
-    _refuse_later_slices(ctx)
     needed = _needed_columns(ctx, segment)
     key = (
         ctx.shape_fingerprint(column_info_from(segment)),
-        _segment_signature(segment, needed, const_bound_columns(ctx)),
+        _segment_signature(segment, needed, sketch_bound_columns(ctx) | const_bound_columns(ctx)),
         backend_tag(device),
     )
     cached = _PLAN_CACHE.get(key)
@@ -940,8 +1064,10 @@ def _build_plan(
     filter_fn = fc.compile(ctx.filter)
     agg_specs = list(ctx.aggregations)
     aggs = bind_aggs(agg_specs, segment, ctx)
-    # per-aggregation FILTER (WHERE ...) clauses, compiled after the WHERE
+    # per-aggregation FILTER (WHERE ...) clauses, compiled after the WHERE;
+    # theta sub-filter strings compile through the same compiler
     agg_filter_fns = [fc.compile(spec.filter) if spec.filter is not None else None for spec in agg_specs]
+    agg_subfilter_fns = compile_subfilters(fc, aggs)
 
     # columns touched ONLY by index-resolved predicates never ship
     keep = _non_filter_columns(ctx, segment) | fc.used_columns
@@ -956,7 +1082,7 @@ def _build_plan(
         needed = [c for c in needed if c in fc.used_columns]
     packed_meta = packed_code_bits(segment, needed)
     num_docs = segment.num_docs
-    _agg_inputs = make_agg_inputs(agg_specs, aggs, agg_filter_fns, segment, null_handling)
+    _agg_inputs = make_agg_inputs(agg_specs, aggs, agg_filter_fns, segment, null_handling, agg_subfilter_fns)
 
     if kind == "aggregation":
 

@@ -56,7 +56,7 @@ def reduce_results(ctx: QueryContext, results: List[Any], stats: ExecutionStats)
 # Aggregation-only
 # ---------------------------------------------------------------------------
 def _reduce_aggregation(ctx: QueryContext, results: List[AggSegmentResult], stats: ExecutionStats) -> ResultTable:
-    aggs = [for_spec(a) for a in ctx.aggregations]
+    aggs = [for_spec(a).bind_reduce(ctx, a) for a in ctx.aggregations]
     merged: Optional[List[Dict[str, np.ndarray]]] = None
     for r in results:
         if merged is None:
@@ -112,7 +112,7 @@ def _register_agg_env(env: Dict[str, Any], spec: AggregationSpec, finals) -> Non
 # Group-by
 # ---------------------------------------------------------------------------
 def _reduce_groupby(ctx: QueryContext, results: List[GroupBySegmentResult], stats: ExecutionStats) -> ResultTable:
-    aggs = [for_spec(a) for a in ctx.aggregations]
+    aggs = [for_spec(a).bind_reduce(ctx, a) for a in ctx.aggregations]
     results = [r for r in results if r is not None]
     if not results:
         return ResultTable(columns=ctx.column_names_out(), rows=[], stats=stats)
@@ -124,11 +124,19 @@ def _reduce_groupby(ctx: QueryContext, results: List[GroupBySegmentResult], stat
         presence = np.zeros_like(d0.presence)
         merged_partials = [
             {f: np.full_like(arr, _ident_like(f, arr)) for f, arr in p.items()}
-            for p in d0.partials
+            if not fn.pairwise_merge
+            else None
+            for fn, p in zip(aggs, d0.partials)
         ]
         for r in results:
             presence = presence + r.dense.presence
-            for ai, p in enumerate(r.dense.partials):
+            for ai, (fn, p) in enumerate(zip(aggs, r.dense.partials)):
+                if fn.pairwise_merge:
+                    # coupled fields (LASTWITHTIME's (t, v), KMV): fn.merge
+                    # over the whole dense table, not per field
+                    cur = merged_partials[ai]
+                    merged_partials[ai] = p if cur is None else fn.merge(cur, p)
+                    continue
                 mp = merged_partials[ai]
                 for f in mp:
                     mp[f] = combine_field(f, mp[f], np.asarray(p[f]))
@@ -201,10 +209,15 @@ def _hash_merge(results: List[GroupBySegmentResult], aggs) -> Tuple[List[np.ndar
     Fast path: key tuples encode to dense int codes (np.unique per dim) and
     every partial field combines with ONE ufunc scatter (the FIELD_COMBINE
     name contract) — no per-row Python upsert.  First-seen key order is
-    preserved.  Incomparable mixed-type keys fall back to the loop."""
-    merged = _hash_merge_vectorized(results, aggs)
-    if merged is not None:
-        return merged
+    preserved.  Pairwise-merge aggregations (coupled fields) and
+    incomparable mixed-type keys fall back to the loop."""
+    if all(
+        not fn.pairwise_merge and all(f in FIELD_COMBINE for f in results[0].partials[ai])
+        for ai, fn in enumerate(aggs)
+    ):
+        merged = _hash_merge_vectorized(results, aggs)
+        if merged is not None:
+            return merged
     table: Dict[tuple, List[Dict[str, Any]]] = {}
     for r in results:
         n = len(r.keys[0]) if r.keys else 0

@@ -7,9 +7,10 @@ aggregation names (functions.ALL_AGG_NAMES), so one SQL text yields the
 same QueryContext in both packages; names the port does not implement
 fail at plan time.  CASE, FILTER (WHERE ...) and window functions
 (fn(...) OVER (PARTITION BY ... ORDER BY ... [ROWS|RANGE frame])) parse as
-in the JAX package.  EXPLAIN, joins, set operations, subqueries, GAPFILL and
-the funnel STEPS syntax raise NotImplementedError here, naming the later
-slice that brings them.
+in the JAX package, and so do the funnel family's STEPS, CORRELATEBY and
+TIMESTAMPBY arguments.  EXPLAIN, joins, set operations, subqueries and
+GAPFILL raise NotImplementedError here, naming the ROADMAP Queue 1 item
+that brings them.
 
 Reference parity: CalciteSqlParser (pinot-common/.../sql/parsers/
 CalciteSqlParser.java) compiling SQL text into the Thrift PinotQuery IR, plus
@@ -251,7 +252,7 @@ class _Parser:
     def parse(self) -> QueryContext:
         options = {}
         if self.cur.kind == "ident" and str(self.cur.value).lower() == "explain":
-            raise NotImplementedError("EXPLAIN is a later slice of the port")
+            raise NotImplementedError("EXPLAIN is a later slice of the port (ROADMAP Queue 1 item 12)")
         # Pinot option prelude: SET key = value; ... SELECT ...
         while self.at_kw("set"):
             self.advance()
@@ -263,7 +264,7 @@ class _Parser:
             self.expect_op(";")
         ctx = self.select_statement(options)
         if self.at_kw("union", "intersect", "except"):
-            raise NotImplementedError("set operations are a later slice of the port")
+            raise NotImplementedError("set operations are a later slice of the port (ROADMAP Queue 1 item 12)")
         self.accept_op(";")
         if self.cur.kind != "eof":
             self.fail("unexpected trailing input")
@@ -286,7 +287,7 @@ class _Parser:
         table = self.advance().value
         table_alias = self.table_alias()
         if self.at_kw("join", "inner", "left", "right", "full", "cross"):
-            raise NotImplementedError("JOIN queries are a later slice of the port (MSE joins)")
+            raise NotImplementedError("JOIN queries are a later slice of the port (MSE joins, ROADMAP Queue 1 item 8)")
 
         where = None
         if self.accept_kw("where"):
@@ -578,7 +579,7 @@ class _Parser:
         if isinstance(e, Expr) and e.kind.name == "CALL" and e.op in self._KNOWN_UNIMPLEMENTED_AGGS:
             self.fail(f"aggregation function {e.op!r} is not supported yet")
         if isinstance(e, Expr) and e.kind.name == "CALL" and e.op == "gapfill":
-            raise NotImplementedError("GAPFILL is a later slice of the port")
+            raise NotImplementedError("GAPFILL is a later slice of the port (ROADMAP Queue 1 item 12)")
         # window function: fn(...) OVER (PARTITION BY ... ORDER BY ...)
         if isinstance(e, Expr) and e.kind.name == "CALL" and self.at_kw("over"):
             if e.op not in self._WINDOW_FNS:
@@ -653,7 +654,33 @@ class _Parser:
         if e.op == "count" and len(args) == 1 and args[0].is_column and args[0].op == "*":
             return AggregationSpec("count", None)
         if e.op.replace("_", "") in ("funnelcount", "funnelcompletecount", "funnelmaxstep"):
-            raise NotImplementedError(f"{e.op.upper()} is a later slice of the port (slice 4)")
+            # FUNNELCOUNT(STEPS(c1, c2, ...), CORRELATEBY(col)) -> the
+            # correlate column is the (codes) input, the step conditions are
+            # extra boolean expressions (FunnelCountAggregationFunction)
+            steps = next((a for a in args if not a.is_literal and a.op == "steps"), None)
+            corr = next(
+                (a for a in args if not a.is_literal and a.op in ("correlateby", "correlatedby", "correlate_by")),
+                None,
+            )
+            if steps is None or corr is None or not steps.args or len(corr.args) != 1:
+                raise SqlParseError(f"{e.op.upper()} needs STEPS(cond, ...) and CORRELATEBY(column) arguments")
+            # TIMESTAMPBY(col) [, window] selects the ORDERED funnel: steps
+            # must occur in timestamp order per correlate key, optionally all
+            # within `window` (the timestamp column's units) of the chain's
+            # first step.  The ts expr rides as the LAST extra expr; the
+            # window literal flags ordered mode downstream.
+            tsby = next((a for a in args if not a.is_literal and a.op in ("timestampby", "timestamp_by")), None)
+            window = next((a.value for a in args if a.is_literal), None)
+            extra = tuple(steps.args)
+            lits = ()
+            if tsby is not None:
+                if len(tsby.args) != 1:
+                    raise SqlParseError(f"{e.op.upper()} TIMESTAMPBY takes exactly one column")
+                extra = extra + (tsby.args[0],)
+                lits = (float(window) if window is not None else float("inf"),)
+            elif window is not None:
+                raise SqlParseError(f"{e.op.upper()} window argument requires TIMESTAMPBY(column)")
+            return AggregationSpec(e.op, corr.args[0], extra_exprs=extra, literal_args=lits)
         expr = args[0] if args else None
         lits = tuple(a.value for a in args[1:] if a.is_literal)
         extra = tuple(a for a in args[1:] if not a.is_literal)
@@ -740,7 +767,7 @@ class _Parser:
         if self.accept_kw("in"):
             self.expect_op("(")
             if self.at_kw("select"):
-                raise NotImplementedError("IN (SELECT ...) subqueries are a later slice of the port")
+                raise NotImplementedError("IN (SELECT ...) subqueries are a later slice of the port (ROADMAP Queue 1 item 12)")
             vals = [self.literal_value()]
             while self.accept_op(","):
                 vals.append(self.literal_value())
@@ -892,8 +919,17 @@ class _Parser:
                     args.append(Expr.col("*"))
                     self.expect_op(")")
                     return Expr.call(name, *args)
+                # STEPS(cond, cond, ...) — the funnel family's step
+                # conditions are BOOLEAN expressions, converted through the
+                # CASE condition machinery into boolean expression ops
                 if str(name).lower() == "steps":
-                    raise NotImplementedError("funnel STEPS(...) is a later slice of the port (slice 4)")
+                    conds: List[Expr] = []
+                    if not self.at_op(")"):
+                        conds.append(_filter_to_expr(self.boolean_expr()))
+                        while self.accept_op(","):
+                            conds.append(_filter_to_expr(self.boolean_expr()))
+                    self.expect_op(")")
+                    return Expr.call("steps", *conds)
                 if not self.at_op(")"):
                     # DISTINCT inside agg: count(distinct x) -> distinctcount
                     if self.accept_kw("distinct"):
@@ -944,6 +980,16 @@ class _Parser:
             self.advance()
             return t.value
         self.fail("expected integer literal")
+
+
+def parse_filter_expression(text: str) -> FilterNode:
+    """Parse a standalone boolean expression (the sub-filter strings of
+    DISTINCTCOUNTTHETA)."""
+    p = _Parser(text)
+    node = p.boolean_expr()
+    if p.cur.kind != "eof":
+        p.fail("unexpected trailing input in filter expression")
+    return node
 
 
 def parse_query(sql: str) -> QueryContext:

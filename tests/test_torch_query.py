@@ -349,8 +349,8 @@ def test_plan_cache_reuses_closure_across_literals(lineorder):
 @pytest.mark.parametrize(
     "sql",
     [
-        "SELECT DISTINCTCOUNTHLL(city) FROM t",  # sketch
-        "SELECT PERCENTILE(v, 90) FROM t",  # extra arguments
+        "SELECT SUMMV(v) FROM t",  # multi-value aggregation (item 5)
+        "SELECT DISTINCTCOUNTMV(city) FROM t",
     ],
 )
 def test_later_slices_raise_not_implemented(engines, sql):
