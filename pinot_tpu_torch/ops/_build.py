@@ -122,10 +122,14 @@ def load() -> ctypes.CDLL:
             lib.pinot_fused_scan_params_size.argtypes = []
             lib.pinot_fused_scan_params_size.restype = ctypes.c_int
             vp = ctypes.c_void_p
+            ll = ctypes.c_longlong
             lib.pinot_funnel_scan.argtypes = [
-                vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_double, vp, vp,
+                vp, vp, vp, vp, vp, ll, ll, ll, ctypes.c_int, ll, ctypes.c_double, vp, vp, vp,
             ]
             lib.pinot_funnel_scan.restype = ctypes.c_int
+            for fn in (lib.pinot_funnel_window_rows, lib.pinot_funnel_run_cap):
+                fn.argtypes = []
+                fn.restype = ll
             lib.pinot_cuda_error_string.argtypes = [ctypes.c_int]
             lib.pinot_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -1,13 +1,14 @@
-"""The port stands alone: no file of pinot_tpu_torch/, and not chip_smoke.py,
-imports JAX or anything of the JAX package pinot_tpu (an AST scan of every
-import statement)."""
+"""The port stands alone: no file of pinot_tpu_torch/, and none of
+chip_smoke.py, funnel_ab.py and funnel_phases.py, imports JAX or anything of
+the JAX package pinot_tpu (an AST scan of every import statement)."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "pinot_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPTS = ("chip_smoke.py", "funnel_ab.py", "funnel_phases.py")
+FILES = sorted((ROOT / "pinot_tpu_torch").rglob("*.py")) + [ROOT / n for n in SCRIPTS]
 
 
 def _imported_modules(path: Path):
