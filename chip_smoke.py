@@ -100,6 +100,19 @@ Phases, in order; any failure raises and the process exits non-zero:
                 events, idle share) and raced by an evictor; last, phase
                 4b's engines (default residency) against untiered engines
                 at the same launch budgets, in turns.
+ 4f. index_path (after 4d) - an MV table of 4 x 2^22 rows (STRING and INT
+                MV columns) on both engines: ANY filters, the *MV
+                aggregations, ARRAYLENGTH, and on the segment engine the
+                GROUP BY explode (the fused scan, once a segment) and
+                UNNEST, the distributed engine refusing those as the JAX one
+                does; BASELINE config 4: 8 segments built by build_segment
+                from phase 4's arrays with a star-tree, each query against
+                its useStarTree=false twin; TEXT_MATCH / JSON_MATCH over 4 x
+                2^20 rows; VECTOR_SIMILARITY over 2^20 x 384 float32.  Every
+                result against a numpy golden, then warm medians.
+                Profiles (phases 4-4f) run last: in each of three sessions
+                the query runs once unmeasured, then once inside a
+                record_function range whose device events are summed.
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
@@ -424,7 +437,7 @@ def _timed_shape(label, ents, key, g, kw, flush):
 
 
 def _timed_shapes(seed: int, dev):
-    """The 6 timed shapes, each held exactly against the plain version and
+    """The 7 timed shapes, each held exactly against the plain version and
     timed with CUDA events."""
     from pinot_tpu_torch.ops import fused_scan
 
@@ -543,7 +556,7 @@ def _compile_report():
 
 
 def _shapes(seed: int, dev):
-    """(label, entries, key, num_groups, kwargs) of the 6 timed shapes, on
+    """(label, entries, key, num_groups, kwargs) of the 7 timed shapes, on
     the card, made from the seed."""
     from pinot_tpu_torch.ops import segmented
 
@@ -590,6 +603,17 @@ def _shapes(seed: int, dev):
     fmask = torch.from_numpy((disc2 >= 1) & (disc2 <= 3)).to(dev)
     revdisc = rev2 * torch.from_numpy(disc2).to(dev)
     filt = [("count", None, ones2, None), ("int_sum", rev2, fmask, plan), ("int_sum", revdisc, ones2, (4, True))]
+    # one MV segment's GROUP BY tags launch (phase 4f (t)): 2^22 rows x 8
+    # element slots exploded to 2^25 rows, the computed int32 key of the
+    # tag codes (300 groups), the row x length mask shared by the presence
+    # and COUNT(*) entries, and SUM(v) over int32 v broadcast along the
+    # element axis (planner.mv_explode)
+    nm, width = MV_ROWS, 8
+    mlen = rng.integers(0, width + 1, nm)
+    mv_mask = torch.from_numpy((np.arange(width)[None, :] < mlen[:, None]).reshape(-1)).to(dev)
+    mv_key = torch.from_numpy(rng.integers(0, MV_TAGS, nm * width).astype(np.int32)).to(dev)
+    mv_v = torch.from_numpy(np.repeat(rng.integers(0, 100, nm).astype(np.int32), width)).to(dev)
+    mv = [("count", None, mv_mask, None), ("int_sum", mv_v, mv_mask, segmented.sum_limb_plan(0, 99))]
     return [
         ("dist main path: n=2^27 packed16 G=2406 E=2, mask_words, all-true mask", dist, None, g,
          {"codes_packed": (words2, 16), "mask_words": torch.from_numpy(qbits.reshape(-1)).to(dev)}),
@@ -599,6 +623,8 @@ def _shapes(seed: int, dev):
         ("global path: n=2^23 int32 key G=8192 E=4 sums", e4, k8192, 8192, {}),
         ("dist FILTER launch: n=2^27 packed16 G=2406 E=3, mask_words, 2 masks (all-true, discount)", filt, None, g,
          {"codes_packed": (words2, 16), "mask_words": torch.from_numpy(qbits.reshape(-1)).to(dev)}),
+        ("MV explode: n=2^22 x 8 = 2^25 int32 key G=300 E=2, row x length mask, broadcast int32 v", mv, mv_key,
+         MV_TAGS, {}),
     ]
 
 
@@ -754,33 +780,42 @@ def phase_main_path(args, dev):
 
 
 def _profile_once(engine, sql: str) -> dict:
+    """One profiler session: the query once to open the trace (the first
+    device events of a session can go missing), then the measured run,
+    whose device events are those that start inside its
+    ``record_function`` range."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from pinot_tpu_torch.ops import funnel_scan, fused_scan
 
     torch.cuda.synchronize()
-    before, funnel_before = fused_scan.LAUNCHES, funnel_scan.LAUNCHES
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         engine.query(sql)
         torch.cuda.synchronize()
+        before, funnel_before = fused_scan.LAUNCHES, funnel_scan.LAUNCHES
+        t0 = time.perf_counter()
+        with record_function("measured_query"):
+            engine.query(sql)
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+        made, funnel_made = fused_scan.LAUNCHES - before, funnel_scan.LAUNCHES - funnel_before
+    events = prof.events()
+    start = min(e.time_range.start for e in events if e.name == "measured_query")
+    by_name = {}
+    for e in events:
+        # the range itself shows on the device timeline too: not device work
+        if e.device_type != DeviceType.CUDA or e.time_range.start < start or e.name == "measured_query":
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        rows.append((us / 1e3, e.count, e.key))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    rows = [(ms, n, name) for name, (ms, n) in by_name.items()]
     rows.sort(reverse=True)
     out = {
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": sum(r[0] for r in rows) if rows else "not measured",
-        "scan_launches": {"made": fused_scan.LAUNCHES - before,
-                          "captured": sum(n for _ms, n, k in rows if "fused_scan_kernel" in k)},
-        "funnel_scan_launches": {"made": funnel_scan.LAUNCHES - funnel_before,
+        "scan_launches": {"made": made, "captured": sum(n for _ms, n, k in rows if "fused_scan_kernel" in k)},
+        "funnel_scan_launches": {"made": funnel_made,
                                  "captured": sum(n for _ms, n, k in rows if "funnel_scan_kernel" in k)},
         "top_device_ops": [{"ms": ms, "calls": n, "name": k[:90]} for ms, n, k in rows[:8]],
     }
@@ -1880,6 +1915,545 @@ def phase_sketch_path(seg, dist, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: index_path — multi-value columns (the MV explode through the
+# fused scan), the star-tree on phase 4's lineorder rows (BASELINE config
+# 4), and the JSON, text and vector indexes
+# ---------------------------------------------------------------------------
+# the MV table, shaped after Apache Pinot's airlineStats quickstart (its
+# DivAirports / DivAirportIDs are STRING / INT multi-value columns)
+MV_SEGMENTS = 4
+MV_ROWS = 1 << 22
+MV_TAGS = 300
+MV_CITIES = 50
+MV_QUERIES = {
+    "p_any_filters": "SELECT COUNT(*) FILTER (WHERE tags = '{a}'), COUNT(*) FILTER (WHERE tags IN ('{b}', '{c}')), "
+                     "COUNT(*) FILTER (WHERE tags NOT IN ('{a}', '{b}')) FROM mv",
+    "q_scores_range": "SELECT COUNT(*), SUM(v) FROM mv WHERE scores BETWEEN 990 AND 1000",
+    "r_mv_aggs": "SELECT COUNTMV(scores), SUMMV(scores), MINMV(scores), MAXMV(scores), DISTINCTCOUNTMV(tags) FROM mv",
+    "s_city_summv": "SELECT city, SUMMV(scores), COUNTMV(scores) FROM mv GROUP BY city ORDER BY city LIMIT 100",
+    "t_explode": "SELECT tags, COUNT(*), SUM(v) FROM mv GROUP BY tags ORDER BY tags LIMIT 1000",
+    "u_city_tags": "SELECT city, tags, COUNT(*) FROM mv WHERE v < 50 GROUP BY city, tags ORDER BY city, tags "
+                   "LIMIT 20000",
+    "v_arraylength": "SELECT ARRAYLENGTH(tags), COUNT(*) FROM mv GROUP BY ARRAYLENGTH(tags) "
+                     "ORDER BY ARRAYLENGTH(tags) LIMIT 100",
+    "w_unnest": "SELECT city, UNNEST(tags) FROM mv WHERE v = 7 AND scores > 995 LIMIT 100000",
+}
+# the explode queries the distributed engine refuses (as the JAX package's
+# does), and UNNEST, a selection expression it refuses likewise
+MV_SEGMENT_ONLY = ("t_explode", "u_city_tags", "w_unnest")
+# BASELINE config 4: the star-tree over phase 4's lineorder segments
+STAR_CFG = {
+    "dimensionsSplitOrder": ["lo_discount", "lo_quantity", "lo_orderdate"],
+    "functionColumnPairs": ["COUNT__*", "SUM__lo_revenue", "MIN__lo_revenue", "MAX__lo_revenue"],
+}
+STAR_QUERIES = {  # (sql, the level it must come from)
+    "t1_config2": (CONFIG2, 3),
+    "t2_discount_sum": ("SELECT lo_discount, SUM(lo_revenue), COUNT(*) FROM lineorder WHERE lo_quantity < 25 "
+                        "GROUP BY lo_discount LIMIT 100", 2),
+    "t3_discount_extremes": ("SELECT lo_discount, MIN(lo_revenue), MAX(lo_revenue), AVG(lo_revenue) FROM lineorder "
+                             "GROUP BY lo_discount LIMIT 100", 1),
+    "t4_totals": ("SELECT SUM(lo_revenue), COUNT(*), MIN(lo_revenue), MAX(lo_revenue) FROM lineorder", 0),
+}
+STAR_RTOL = 1e-9
+TEXT_SEGMENTS = 4
+TEXT_ROWS = 1 << 20
+TEXT_VALUES = 1 << 16
+TEXT_WORDS = ["quick", "brown", "fox", "lazy", "dog", "jumps", "search", "engine", "analytics"]
+TEXT_QUERIES = {  # predicate, golden over (json doc, body)
+    "j1_tier": ("JSON_MATCH(meta, '\"$.user.tier\" = ''pro''')", lambda m, b: m["user"]["tier"] == "pro"),
+    "j2_score_tier": ("JSON_MATCH(meta, '\"$.score\" > 5 AND \"$.user.tier\" != ''free''')",
+                      lambda m, b: m["score"] > 5 and m["user"]["tier"] != "free"),
+    "j3_events": ("JSON_MATCH(meta, '\"$.events[*].kind\" IS NOT NULL')", lambda m, b: bool(m["events"])),
+    "x1_terms": ("TEXT_MATCH(body, 'quick fox')", lambda m, b: {"quick", "fox"} <= set(b.split())),
+    "x2_or_not": ("TEXT_MATCH(body, 'search engine OR analytics NOT lazy')",
+                  lambda m, b: {"search", "engine"} <= set(b.split())
+                  or ("analytics" in b.split() and "lazy" not in b.split())),
+    "x3_phrase": ("TEXT_MATCH(body, '\"quick brown\"')", lambda m, b: "quick brown" in b),
+    "x4_prefix": ("TEXT_MATCH(body, 'jump*')", lambda m, b: any(t.startswith("jump") for t in b.split())),
+    "x5_regex": ("TEXT_MATCH(body, '/qu.ck/')", lambda m, b: "quick" in b.split()),
+    "x6_wildcard": ("TEXT_MATCH(body, 'an*tics')", lambda m, b: "analytics" in b.split()),
+    "x7_fuzzy": ("TEXT_MATCH(body, 'quickk~1')", lambda m, b: "quick" in b.split()),
+}
+# one segment of 2^20 embeddings of 384 float32 (MiniLM sentence-embedding
+# width): 1.5 GiB resident
+VEC_ROWS = 1 << 20
+VEC_DIM = 384
+VEC_ATOL = 1e-5
+VEC_CASES = (("k10", 10, False), ("k1000", 1000, False), ("k10_v50", 10, True), ("k1000_v50", 1000, True))
+
+
+def mv_data(seed: int):
+    """MV_SEGMENTS segments' parts from the seed: tags (0-8 elements a row
+    over MV_TAGS three-letter codes, Zipf-skewed), scores (0-6 elements,
+    0-1000), city (MV_CITIES values), v (0-99); codes into the sorted
+    vocabularies, so a code's order is its value's."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    names = set()
+    while len(names) < MV_TAGS:
+        names.add("".join(rng.choice(letters, 3)))
+    vocab = np.array(sorted(names), dtype=object)
+    cities = np.array(sorted(f"city{i:02d}" for i in range(MV_CITIES)), dtype=object)
+    weights = 1.0 / (1.0 + rng.permutation(MV_TAGS)) ** 1.1
+    p = weights / weights.sum()
+    parts = []
+    for _ in range(MV_SEGMENTS):
+        tl = rng.integers(0, 9, MV_ROWS).astype(np.int32)
+        sl = rng.integers(0, 7, MV_ROWS).astype(np.int32)
+        parts.append({
+            "tags_len": tl, "tags": rng.choice(MV_TAGS, size=int(tl.sum()), p=p).astype(np.int32),
+            "scores_len": sl, "scores": rng.integers(0, 1001, int(sl.sum())).astype(np.int32),
+            "city": rng.integers(0, MV_CITIES, MV_ROWS).astype(np.int32),
+            "v": rng.integers(0, 100, MV_ROWS).astype(np.int32),
+        })
+    return vocab, cities, parts
+
+
+def _mv_inputs(part, vocab, cities):
+    from pinot_tpu_torch.segment.builder import RaggedColumn
+
+    return {"city": cities[part["city"]], "tags": RaggedColumn(vocab[part["tags"]], part["tags_len"]),
+            "scores": RaggedColumn(part["scores"], part["scores_len"]), "v": part["v"]}
+
+
+def _mv_schema():
+    from pinot_tpu_torch.spi.schema import DataType, FieldRole, FieldSpec, Schema
+
+    return Schema("mv", [
+        FieldSpec("city", DataType.STRING),
+        FieldSpec("tags", DataType.STRING, single_value=False),
+        FieldSpec("scores", DataType.INT, single_value=False),
+        FieldSpec("v", DataType.INT, role=FieldRole.METRIC),
+    ])
+
+
+def mv_golden(parts, vocab, cities, picks):
+    """Exact numpy answers of MV_QUERIES over the concatenated parts."""
+    cat = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    n = len(cat["v"])
+    trow = np.repeat(np.arange(n), cat["tags_len"])
+    srow = np.repeat(np.arange(n), cat["scores_len"])
+    tags, scores, city, v = cat["tags"], cat["scores"], cat["city"], cat["v"]
+
+    def any_rows(elem_mask, rows):
+        m = np.zeros(n, dtype=bool)
+        m[rows[elem_mask]] = True
+        return m
+
+    a, b, c = picks
+    out = {"p_any_filters": [(int(any_rows(tags == a, trow).sum()), int(any_rows(np.isin(tags, [b, c]), trow).sum()),
+                              int(any_rows(~np.isin(tags, [a, b]), trow).sum()))]}
+    m = any_rows((scores >= 990) & (scores <= 1000), srow)
+    out["q_scores_range"] = [(int(m.sum()), float(v[m].sum()))]
+    out["r_mv_aggs"] = [(len(scores), float(scores.sum()), float(scores.min()), float(scores.max()),
+                         len(np.unique(tags)))]
+    ssum = np.bincount(city[srow], weights=scores, minlength=MV_CITIES)
+    scnt = np.bincount(city[srow], minlength=MV_CITIES)
+    present = np.bincount(city, minlength=MV_CITIES) > 0
+    out["s_city_summv"] = [(cities[i], float(ssum[i]), int(scnt[i])) for i in np.nonzero(present)[0]]
+    tcnt = np.bincount(tags, minlength=MV_TAGS)
+    tsum = np.bincount(tags, weights=v[trow], minlength=MV_TAGS)
+    out["t_explode"] = [(vocab[i], int(tcnt[i]), float(tsum[i])) for i in np.nonzero(tcnt)[0]]
+    keep = v[trow] < 50
+    ck = np.bincount(city[trow][keep] * MV_TAGS + tags[keep], minlength=MV_CITIES * MV_TAGS)
+    out["u_city_tags"] = [(cities[i // MV_TAGS], vocab[i % MV_TAGS], int(ck[i])) for i in np.nonzero(ck)[0]]
+    lc = np.bincount(cat["tags_len"], minlength=9)
+    out["v_arraylength"] = [(i, int(lc[i])) for i in np.nonzero(lc)[0]]
+    rows = (v == 7) & any_rows(scores > 995, srow)
+    sel = rows[trow]
+    out["w_unnest"] = sorted(zip(cities[city[trow][sel]].tolist(), vocab[tags[sel]].tolist()))
+    return out
+
+
+def _mv_exact(name, got, want) -> bool:
+    if name == "w_unnest":
+        return sorted(map(tuple, got)) == want
+    return [tuple(r) for r in got] == want
+
+
+def _index_counted_run(engine, queries, golden, label, exact):
+    """Each query once, the fused scan's counters set to 0 just before and
+    read just after; rows held against the goldens."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    fused_scan.LAUNCHES = 0
+    fused_scan.VARIANT_LAUNCHES.clear()
+    out = {}
+    for name, sql in queries.items():
+        before = fused_scan.LAUNCHES
+        t0 = time.perf_counter()
+        res = engine.query(sql)
+        torch.cuda.synchronize()
+        out[name] = {"first_ms": (time.perf_counter() - t0) * 1e3, "fused_scan_launches": fused_scan.LAUNCHES - before,
+                     "rows": len(res.rows), "num_docs_scanned": res.stats.num_docs_scanned,
+                     "filter_index_uses": [list(u) for u in res.stats.filter_index_uses],
+                     "exact": exact(name, res.rows, golden[name])}
+        if not out[name]["exact"]:
+            raise AssertionError(f"{label} {name} differs from the numpy golden: {list(res.rows)[:3]} vs "
+                                 f"{golden[name][:3]}")
+    return fused_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES), out
+
+
+def _index_mv(dev, seed):
+    """The MV table on both engines: build, counted runs against the numpy
+    goldens, the refusals of the distributed engine, warm medians."""
+    from pinot_tpu_torch.parallel.engine import DistributedEngine
+    from pinot_tpu_torch.parallel.stacked import StackedTable
+    from pinot_tpu_torch.query.engine import QueryEngine
+    from pinot_tpu_torch.segment.builder import RaggedColumn, build_segment
+
+    t0 = time.perf_counter()
+    vocab, cities, parts = mv_data(seed)
+    tcnt = np.bincount(np.concatenate([p["tags"] for p in parts]), minlength=MV_TAGS)
+    order = np.argsort(-tcnt, kind="stable")
+    picks = (int(order[5]), int(order[20]), int(order[60]))  # tags of high, middle and low frequency
+    queries = {k: q.format(a=vocab[picks[0]], b=vocab[picks[1]], c=vocab[picks[2]]) for k, q in MV_QUERIES.items()}
+    gen_s = time.perf_counter() - t0
+    schema = _mv_schema()
+    engine = QueryEngine()
+    engine.register_table(schema)
+    t1 = time.perf_counter()
+    for i, part in enumerate(parts):
+        engine.add_segment("mv", build_segment(schema, _mv_inputs(part, vocab, cities), f"mv_{i}"))
+    seg_build_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cat = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    stacked = StackedTable.build(schema, {
+        "city": cities[cat["city"]], "tags": RaggedColumn(vocab[cat["tags"]], cat["tags_len"]),
+        "scores": RaggedColumn(cat["scores"], cat["scores_len"]), "v": cat["v"]}, num_shards=1)
+    stack_s = time.perf_counter() - t1
+    del cat
+    dist = DistributedEngine()
+    dist.register_table("mv", stacked)
+    golden = mv_golden(parts, vocab, cities, picks)
+    width = engine.table("mv").segments[0].column("tags").codes.shape[1]
+    log("index_mv_setup", segments=MV_SEGMENTS, rows=MV_SEGMENTS * MV_ROWS,
+        tag_elements=int(sum(len(p["tags"]) for p in parts)), score_elements=int(sum(len(p["scores"]) for p in parts)),
+        tags_width=width, generate_s=gen_s, segment_build_s=seg_build_s, stacked_build_s=stack_s,
+        setup_s=time.perf_counter() - t0)
+    del parts
+
+    n_seg, v_seg, rec_seg = _index_counted_run(engine, queries, golden, "mv segment engine", _mv_exact)
+    dist_q = {k: q for k, q in queries.items() if k not in MV_SEGMENT_ONLY}
+    n_dist, v_dist, rec_dist = _index_counted_run(dist, dist_q, golden, "mv distributed engine", _mv_exact)
+    if rec_seg["t_explode"]["fused_scan_launches"] != MV_SEGMENTS:
+        raise AssertionError(f"the MV explode launched the fused scan {rec_seg['t_explode']['fused_scan_launches']} "
+                             f"times on {MV_SEGMENTS} segments")
+    if v_seg.get("i32/i32/shared", 0) < MV_SEGMENTS:
+        raise AssertionError(f"the MV explode did not take the computed-key instantiation: {v_seg}")
+    refused = {}
+    for name in MV_SEGMENT_ONLY:
+        try:
+            dist.query(queries[name])
+        except NotImplementedError as err:
+            refused[name] = str(err)
+        else:
+            raise AssertionError(f"the distributed engine answered {name}, which the JAX package refuses")
+    records = {f"segment_engine/{k}": r for k, r in rec_seg.items()}
+    records.update({f"dist_one_batch/{k}": r for k, r in rec_dist.items()})
+    records["segment_engine/t_explode"]["exploded_rows_per_launch"] = MV_ROWS * width
+    records["segment_engine/u_city_tags"]["exploded_rows_per_launch"] = MV_ROWS * width
+    profiles = []
+    for label, e, qs in (("segment_engine", engine, queries), ("dist_one_batch", dist, dist_q)):
+        for name, sql in qs.items():
+            records[f"{label}/{name}"].update(_wall_ms(e, sql))
+            profiles.append(("index_profile", {"engine": label, "query": name}, e, sql))
+    variants = dict(v_seg)
+    for k, v in v_dist.items():
+        variants[k] = variants.get(k, 0) + v
+    log("index_mv_check", exact=True, fused_scan_launches={"segment_engine": n_seg, "dist_one_batch": n_dist},
+        instantiations=variants, refused_by_dist=refused)
+    return {"launches": n_seg + n_dist, "variants": variants, "records": records, "profiles": profiles,
+            "engines": (engine, dist), "stacked": stacked}
+
+
+def star_golden(datas):
+    """Exact numpy answers of STAR_QUERIES (t1 is phase 4's (a))."""
+    d = {k: np.concatenate([p[k] for p in datas]) for k in datas[0]}
+    disc, q, rev = d["lo_discount"], d["lo_quantity"], d["lo_revenue"]
+    m = q < 25
+    s2 = np.zeros(11, np.int64)
+    np.add.at(s2, disc[m], rev[m])
+    c2 = np.bincount(disc[m], minlength=11)
+    s3 = np.zeros(11, np.int64)
+    np.add.at(s3, disc, rev)
+    c3 = np.bincount(disc, minlength=11)
+    mn = np.full(11, np.iinfo(np.int64).max)
+    mx = np.full(11, np.iinfo(np.int64).min)
+    np.minimum.at(mn, disc, rev)
+    np.maximum.at(mx, disc, rev)
+    return {
+        "t2_discount_sum": [(i, float(s2[i]), int(c2[i])) for i in np.nonzero(c2)[0]],
+        "t3_discount_extremes": [(i, float(mn[i]), float(mx[i]), s3[i] / c3[i]) for i in np.nonzero(c3)[0]],
+        "t4_totals": [(float(rev.sum()), len(rev), float(rev.min()), float(rev.max()))],
+    }
+
+
+def _star_exact(name, got, want) -> bool:
+    got = sorted(tuple(r) for r in got)
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if name == "t3_discount_extremes":
+            if g[:3] != w[:3] or abs(g[3] - w[3]) > STAR_RTOL * abs(w[3]):
+                return False
+        elif g != tuple(w):
+            return False
+    return True
+
+
+def _index_star(seg):
+    """BASELINE config 4: new segments built by build_segment from phase 4's
+    own arrays with the star-tree config (the levels are built on the host,
+    as the builder builds everything else); every query of STAR_QUERIES
+    with the tree and with SET useStarTree=false, both exact against the
+    goldens, the star run scanning the right level's rows."""
+    import dataclasses
+
+    from pinot_tpu_torch.query.engine import QueryEngine
+    from pinot_tpu_torch.segment.builder import build_segment
+
+    state = seg["engine"].table("lineorder")
+    cfg = dataclasses.replace(state.config, indexing=dataclasses.replace(
+        state.config.indexing, star_tree_index_configs=[STAR_CFG]))
+    engine = QueryEngine()
+    engine.register_table(state.schema, cfg)
+    # the same build without the tree, once, so the levels' share shows
+    t0 = time.perf_counter()
+    build_segment(state.schema, dict(seg["datas"][0]), "lineorder_plain", table_config=state.config)
+    plain_build_s = time.perf_counter() - t0
+    build_s, level_rows = [], {}
+    for i, d in enumerate(seg["datas"]):
+        t0 = time.perf_counter()
+        s = build_segment(state.schema, dict(d), f"lineorder_star_{i}", table_config=cfg)
+        build_s.append(time.perf_counter() - t0)
+        if "st0" not in s.indexes.get("startree", {}):
+            raise AssertionError(f"no star-tree built on {s.name}")
+        for k, lvl in s.indexes["startree"]["st0"].levels.items():
+            level_rows.setdefault(k, []).append(lvl.num_rows)
+        engine.add_segment("lineorder", s)
+    golden = star_golden(seg["datas"])
+    golden["t1_config2"] = seg["golden"]["a_config2"]
+    log("index_star_setup", segments=len(build_s), rows=sum(s.num_docs for s in state.segments),
+        split_order=STAR_CFG["dimensionsSplitOrder"], pairs=STAR_CFG["functionColumnPairs"],
+        segment_build_s_per_segment=build_s, plain_segment_build_s=plain_build_s,
+        level_rows_per_segment={str(k): v for k, v in sorted(level_rows.items())})
+
+    star_q = {name: sql for name, (sql, _k) in STAR_QUERIES.items()}
+    scan_q = {name: "SET useStarTree=false; " + sql for name, sql in star_q.items()}
+    n_star, v_star, rec_star = _index_counted_run(engine, star_q, golden, "star-tree", _star_exact)
+    n_scan, v_scan, rec_scan = _index_counted_run(engine, scan_q, golden, "star-tree scan twin", _star_exact)
+    for name, (_sql, k) in STAR_QUERIES.items():
+        star, scan = rec_star[name], rec_scan[name]
+        if not any(u[1] == "startree" for u in star["filter_index_uses"]):
+            raise AssertionError(f"{name}: the star-tree did not serve the query: {star['filter_index_uses']}")
+        if star["num_docs_scanned"] != sum(level_rows[k]) or not star["num_docs_scanned"] < scan["num_docs_scanned"]:
+            raise AssertionError(f"{name}: star scanned {star['num_docs_scanned']} (level {k}: {sum(level_rows[k])}), "
+                                 f"scan {scan['num_docs_scanned']}")
+        star["level"] = k
+    records = {f"star/{k}": r for k, r in rec_star.items()}
+    records.update({f"scan/{k}": r for k, r in rec_scan.items()})
+    profiles = []
+    for label, qs in (("star", star_q), ("scan", scan_q)):
+        for name, sql in qs.items():
+            records[f"{label}/{name}"].update(_wall_ms(engine, sql))
+            profiles.append(("index_profile", {"engine": f"segment_engine_{label}", "query": name}, engine, sql))
+    variants = dict(v_star)
+    for k, v in v_scan.items():
+        variants[k] = variants.get(k, 0) + v
+    log("index_star_check", exact=True, fused_scan_launches={"star": n_star, "scan": n_scan}, instantiations=variants)
+    return {"launches": n_star + n_scan, "variants": variants, "records": records, "profiles": profiles,
+            "engine": engine}
+
+
+def text_part(rng):
+    """One segment's TEXT_VALUES distinct bodies and JSON docs, and its
+    rows' picks of them: a body is 4 words that spell its index in base 16
+    (distinct by construction) and 2 random words, over 64 words that
+    include TEXT_WORDS."""
+    words = np.array(TEXT_WORDS + [f"w{i:02d}" for i in range(64 - len(TEXT_WORDS))], dtype=object)
+    perm = rng.permutation(64)
+    i = np.arange(TEXT_VALUES)
+    idx = np.stack([perm[g * 16 + ((i >> (4 * g)) & 15)] for g in range(4)]
+                   + [rng.integers(0, 64, TEXT_VALUES) for _ in range(2)], axis=1)
+    idx = np.take_along_axis(idx, rng.random(idx.shape).argsort(axis=1), axis=1)  # shuffled word order
+    bodies = [" ".join(words[r]) for r in idx]
+    tiers = rng.integers(0, 3, TEXT_VALUES)
+    events = rng.integers(0, 3, TEXT_VALUES)
+    scores = np.round(rng.random(TEXT_VALUES) * 10, 2)
+    docs = [{"user": {"id": int(k), "tier": ("free", "pro", "ent")[int(tiers[k])]},
+             "events": [{"kind": "click"}] * int(events[k]), "score": float(scores[k])} for k in range(TEXT_VALUES)]
+    return {"bodies": np.array(bodies, dtype=object), "docs": docs,
+            "metas": np.array([json.dumps(d) for d in docs], dtype=object),
+            "body_of_row": rng.integers(0, TEXT_VALUES, TEXT_ROWS), "meta_of_row": rng.integers(0, TEXT_VALUES, TEXT_ROWS),
+            "v": rng.integers(0, 100, TEXT_ROWS).astype(np.int32)}
+
+
+def _index_text(seed):
+    """The docs table: 4 segments with a JSON and a text index; each query
+    exact against a per-value Python golden."""
+    from pinot_tpu_torch.query.engine import QueryEngine
+    from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.spi.config import IndexingConfig, TableConfig
+    from pinot_tpu_torch.spi.schema import DataType, FieldRole, FieldSpec, Schema
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    parts = [text_part(rng) for _ in range(TEXT_SEGMENTS)]
+    gen_s = time.perf_counter() - t0
+    schema = Schema("docs", [FieldSpec("meta", DataType.JSON), FieldSpec("body", DataType.STRING),
+                             FieldSpec("v", DataType.INT, role=FieldRole.METRIC)])
+    cfg = TableConfig("docs", indexing=IndexingConfig(json_index_columns=["meta"], text_index_columns=["body"]))
+    engine = QueryEngine()
+    engine.register_table(schema, cfg)
+    t1 = time.perf_counter()
+    for i, p in enumerate(parts):
+        engine.add_segment("docs", build_segment(schema, {"meta": p["metas"][p["meta_of_row"]],
+                                                          "body": p["bodies"][p["body_of_row"]], "v": p["v"]},
+                                                 f"docs_{i}", table_config=cfg))
+    build_s = time.perf_counter() - t1
+    queries, golden = {}, {}
+    for name, (pred, fn) in TEXT_QUERIES.items():
+        queries[name] = f"SELECT COUNT(*), SUM(v) FROM docs WHERE {pred}"
+        cnt, tot = 0, 0
+        for p in parts:
+            rows = np.array([fn(d, b) for d, b in zip(p["docs"], p["bodies"])], dtype=bool)
+            rows = rows[p["body_of_row"]] if name.startswith("x") else rows[p["meta_of_row"]]
+            cnt += int(rows.sum())
+            tot += int(p["v"][rows].sum())
+        golden[name] = [(cnt, float(tot) if cnt else None)]  # SUM over no row is NULL
+    log("index_text_setup", segments=TEXT_SEGMENTS, rows=TEXT_SEGMENTS * TEXT_ROWS,
+        distinct_values_per_segment=TEXT_VALUES, generate_s=gen_s, segment_build_s=build_s,
+        setup_s=time.perf_counter() - t0)
+    n, _v, rec = _index_counted_run(engine, queries, golden, "text/json",
+                                    lambda name, got, want: [tuple(r) for r in got] == want)
+    for name, r in rec.items():
+        want_use = ["meta", "json"] if name.startswith("j") else ["body", "text"]
+        if want_use not in r["filter_index_uses"]:
+            raise AssertionError(f"{name}: no {want_use[1]} index use: {r['filter_index_uses']}")
+    records, profiles = {}, []
+    for name, sql in queries.items():
+        rec[name].update(_wall_ms(engine, sql))
+        records[f"segment_engine/{name}"] = rec[name]
+    for name in ("j1_tier", "x2_or_not"):
+        profiles.append(("index_profile", {"engine": "segment_engine", "query": name}, engine, queries[name]))
+    log("index_text_check", exact=True, fused_scan_launches=n)
+    return {"launches": n, "records": records, "profiles": profiles, "engine": engine}
+
+
+def _vector_sql(q, k, filt):
+    qs = json.dumps([float(x) for x in q])
+    return (f"SELECT id FROM vec WHERE VECTOR_SIMILARITY(embedding, '{qs}', {k})"
+            f"{' AND v > 50' if filt else ''} LIMIT 5000")
+
+
+def _index_vector(dev, seed):
+    """One segment of VEC_ROWS x VEC_DIM float32 embeddings with a vector
+    index: VECTOR_SIMILARITY at k = 10 and 1000, alone and AND v > 50, the
+    selected ids held against a float64 numpy golden (rows within VEC_ATOL
+    of the k-th score may go either way); the matrix-vector product timed
+    against its byte bound."""
+    from pinot_tpu_torch.indexes.vector import similarity_mask
+    from pinot_tpu_torch.query.engine import QueryEngine
+    from pinot_tpu_torch.segment.builder import RaggedColumn, build_segment
+    from pinot_tpu_torch.spi.config import IndexingConfig, TableConfig
+    from pinot_tpu_torch.spi.schema import DataType, FieldRole, FieldSpec, Schema
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    mat = rng.standard_normal((VEC_ROWS, VEC_DIM), dtype=np.float32)
+    v = rng.integers(0, 100, VEC_ROWS).astype(np.int32)
+    q = (mat[VEC_ROWS // 3] + 0.5 * rng.standard_normal(VEC_DIM, dtype=np.float32)).astype(np.float32)
+    schema = Schema("vec", [FieldSpec("id", DataType.INT, role=FieldRole.METRIC),
+                            FieldSpec("v", DataType.INT, role=FieldRole.METRIC),
+                            FieldSpec("embedding", DataType.FLOAT, single_value=False)])
+    cfg = TableConfig("vec", indexing=IndexingConfig(vector_index_columns=["embedding"]))
+    t1 = time.perf_counter()
+    segv = build_segment(schema, {"id": np.arange(VEC_ROWS, dtype=np.int32), "v": v,
+                                  "embedding": RaggedColumn(mat.reshape(-1), np.full(VEC_ROWS, VEC_DIM, np.int32))},
+                         "vec_0", table_config=cfg)
+    build_s = time.perf_counter() - t1
+    engine = QueryEngine()
+    engine.register_table(schema, cfg)
+    engine.add_segment("vec", segv)
+    # float64 golden scores, in chunks
+    q64 = q.astype(np.float64) / np.linalg.norm(q.astype(np.float64))
+    scores = np.concatenate([
+        (lambda c: (c @ q64) / np.linalg.norm(c, axis=1))(mat[i: i + (1 << 17)].astype(np.float64))
+        for i in range(0, VEC_ROWS, 1 << 17)])
+    ranked = np.sort(scores)[::-1]
+    log("index_vector_setup", rows=VEC_ROWS, dim=VEC_DIM, matrix_bytes=mat.nbytes, segment_build_s=build_s,
+        setup_s=time.perf_counter() - t0)
+
+    from pinot_tpu_torch.ops import fused_scan
+
+    fused_scan.LAUNCHES = 0
+    records, profiles = {}, []
+    for name, k, filt in VEC_CASES:
+        sql = _vector_sql(q, k, filt)
+        t1 = time.perf_counter()
+        res = engine.query(sql)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t1) * 1e3
+        got = np.array(sorted(int(r[0]) for r in res.rows), dtype=np.int64)
+        kth = ranked[k - 1]
+        keep = (v > 50) if filt else np.ones(VEC_ROWS, dtype=bool)
+        sure_in = np.nonzero((scores > kth + VEC_ATOL) & keep)[0]
+        sure_out = (scores < kth - VEC_ATOL) | ~keep
+        exact = bool(np.isin(sure_in, got).all() and not sure_out[got].any())
+        records[f"segment_engine/{name}"] = {
+            "first_ms": first_ms, "rows": len(got), "sure_in": len(sure_in),
+            "near_kth": int(((np.abs(scores - kth) <= VEC_ATOL) & keep).sum()), "exact": exact,
+            "filter_index_uses": [list(u) for u in res.stats.filter_index_uses]}
+        if not exact:
+            raise AssertionError(f"vector {name}: the selected ids differ from the float64 golden")
+        if ["embedding", "vector"] not in records[f"segment_engine/{name}"]["filter_index_uses"]:
+            raise AssertionError(f"vector {name}: no vector index use")
+        records[f"segment_engine/{name}"].update(_wall_ms(engine, sql))
+        profiles.append(("index_profile", {"engine": "segment_engine", "query": name}, engine, sql))
+    # the matrix-vector product alone, and the whole predicate, on the
+    # segment's resident embedding rows
+    vals = segv.to_device(dev, ["embedding"])["embedding"]["values"]
+    vidx = segv.indexes["vector"]["embedding"]
+    qt = torch.from_numpy(vidx.normalize_query(q)).to(dev)
+    flush = _flushes(dev)["write"]
+    mv_ms = _time_cuda(lambda: torch.mv(vals, qt), flush)
+    mask_ms = _time_cuda(lambda: similarity_mask(vals, qt, vidx.dim, 1000), flush)
+    bound_ms = VEC_ROWS * VEC_DIM * 4 / HBM_BYTES_PER_S * 1e3
+    timing = {"mv_ms": mv_ms, "similarity_mask_ms": mask_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+              "mv_share_of_bound": bound_ms / mv_ms, "fused_scan_launches": fused_scan.LAUNCHES}
+    log("index_vector_check", exact=True, **timing)
+    return {"launches": fused_scan.LAUNCHES, "records": records, "profiles": profiles, "timing": timing,
+            "engine": engine}
+
+
+def phase_index_path(seg, dev, seed):
+    """Phase 4f: the MV table on both engines, the star-tree on phase 4's
+    lineorder rows, the text/JSON table and the vector segment; every
+    result against its numpy golden.  Returns the launches, records and
+    the profiles to run."""
+    t0 = time.perf_counter()
+    mv = _index_mv(dev, seed)
+    star = _index_star(seg)
+    text = _index_text(seed + 1)
+    vec = _index_vector(dev, seed + 2)
+    records = {f"mv/{k}": r for k, r in mv["records"].items()}
+    records.update({f"startree/{k}": r for k, r in star["records"].items()})
+    records.update({f"text/{k}": r for k, r in text["records"].items()})
+    records.update({f"vector/{k}": r for k, r in vec["records"].items()})
+    variants = dict(mv["variants"])
+    for k, v in star["variants"].items():
+        variants[k] = variants.get(k, 0) + v
+    launches = mv["launches"] + star["launches"] + text["launches"] + vec["launches"]
+    log("index_check", exact=True, fused_scan_launches={"mv": mv["launches"], "startree": star["launches"],
+                                                        "text": text["launches"], "vector": vec["launches"]},
+        index_s=time.perf_counter() - t0)
+    return {"launches": launches, "variants": variants, "records": records,
+            "profiles": mv["profiles"] + star["profiles"] + text["profiles"] + vec["profiles"],
+            "vector": vec["timing"], "mv_dist": mv["engines"][1]}
+
+
+# ---------------------------------------------------------------------------
 # phase 4d: storage — segment persistence on the segment engine, the
 # residency sweep on the distributed engine, on the tables phases 4 and 4b
 # built
@@ -2348,14 +2922,17 @@ def main() -> int:
     transform = phase_transform_path(seg, dist)
     sketch = phase_sketch_path(seg, dist, dev, args.seed + 2)
     storage = phase_storage(seg, dist, transform, dev)
+    index = phase_index_path(seg, dev, args.seed + 3)
     main_variants = dict(seg["variants"])
-    for part in (dist, transform, sketch, storage):
+    for part in (dist, transform, sketch, storage, index):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
-    storage_launches, sketch_launches = storage["launches"], sketch["launches"]
-    main_launches = sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
-    profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"])
+    storage_launches, sketch_launches, index_launches = storage["launches"], sketch["launches"], index["launches"]
+    main_launches = (sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
+                     + index_launches)
+    profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"]
+                            + index["profiles"])
     for key, rec in transform["records"].items():
         engine, _, query = key.partition("/")
         prof = profiles.get(("transform_profile", engine, query), {})
@@ -2369,11 +2946,19 @@ def main() -> int:
             device_busy_ms=prof.get("device_busy_ms", "not run"),
             device_idle_share=prof.get("device_idle_share", "not run"),
             top_device_ops=prof.get("top_device_ops", "not run"))
+    for key, rec in index["records"].items():
+        part, engine, query = key.split("/")
+        prof = profiles.get(("index_profile", engine if part != "startree" else f"segment_engine_{engine}", query), {})
+        log("index_path", table=part, engine=engine, query=query, **rec,
+            device_busy_ms=prof.get("device_busy_ms", "not run"),
+            device_idle_share=prof.get("device_idle_share", "not run"),
+            top_device_ops=prof.get("top_device_ops", "not run"))
     funnel, funnel_launches = sketch["funnel"], sketch["funnel_launches"]
     dist["stacked"].release_device()
-    for e in dist["engines"].values():
+    for e in list(dist["engines"].values()) + [index["mv_dist"]]:
         e.residency.shutdown()
-    del seg, dist, transform, sketch, storage
+    vector_timing = index["vector"]
+    del seg, dist, transform, sketch, storage, index
     torch.cuda.empty_cache()
 
     # 5. profile
@@ -2391,7 +2976,7 @@ def main() -> int:
         "launches_on_main_path": main_launches,
         "launches_by_path": {"segment_engine": sse_launches, "distributed_engine": dist_launches,
                              "transform_path": transform_launches, "sketch_path": sketch_launches,
-                             "storage": storage_launches},
+                             "storage": storage_launches, "index_path": index_launches},
         "max_abs_err": worst,
         "shape": timing["shape"],
         "ms": timing["kernel_ms"],
@@ -2404,6 +2989,8 @@ def main() -> int:
         "segment_path_shape": {k: seg_timing[k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
         "filter_launch_shape": {k: timings[5][k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
+        "mv_explode_shape": {k: timings[6][k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
         "instantiations_on_main_path": main_variants,
         "shapes": timings,
@@ -2434,6 +3021,7 @@ def main() -> int:
             "max_abs_err")} for name, v in funnel["shapes"].items()},
         "huge_key": funnel["huge_key"],
     }]
+    log("vector_similarity", **vector_timing)
     log("script", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -48,6 +48,11 @@ function's pairwise merge, on device tensors.  The JAX engine refuses the
 pairwise ones outside the sparse path (its in-graph psum cannot take
 them); this engine has no psum and merges them like the segment engine.
 
+Multi-value columns take ANY-semantics filters and the *MV aggregations
+here; an MV GROUP BY (the explode) raises NotImplementedError, as the JAX
+engine's does.  The stacked table holds no star-tree, JSON, text or vector
+index (as in the JAX package).
+
 Not ported, each raising NotImplementedError naming its ROADMAP Queue 1
 item: cross-query batching `execute_many` (item 6), joins (item 8).
 """
@@ -92,11 +97,13 @@ _SCHEDULE_PARAMS = ("__boff__", "__fresh__")
 
 
 def flatten_cols(cols):
-    """[S, D] shard-local row tensors -> flat [S * D] views."""
+    """[S, D, ...] shard-local row tensors -> flat [S * D, ...] views (MV
+    code matrices keep their trailing element axis)."""
     out = {}
     for name, entry in cols.items():
         out[name] = {
-            k: (v.reshape(-1) if k in ("codes", "codes_packed", "values", "nulls") else v)
+            k: (v.reshape((-1,) + tuple(v.shape[2:])) if k in ("codes", "codes_packed", "values", "nulls", "lengths")
+                else v)
             for k, v in entry.items()
         }
     return out
@@ -314,12 +321,15 @@ class DistributedEngine:
         # query shares one doc slicing, so no column is cached twice
         bytes_per_doc = 0.0
         for c in stacked.columns.values():
-            if c.codes is not None:
-                bytes_per_doc += c.code_bits / 8.0 if c.code_bits and c.packed is not None else c.codes.dtype.itemsize
+            if c.codes is not None:  # an MV code matrix counts its element slots
+                bytes_per_doc += (c.code_bits / 8.0 if c.code_bits and c.packed is not None
+                                  else c.codes.dtype.itemsize * int(np.prod(c.codes.shape[2:])))
             if c.values is not None:
                 bytes_per_doc += c.values.dtype.itemsize
             if c.nulls is not None:
                 bytes_per_doc += 1
+            if c.mv_lengths is not None:
+                bytes_per_doc += c.mv_lengths.dtype.itemsize
         per_dev = int(max(1.0, bytes_per_doc) * L * D)
         n_batches = max(1, -(-per_dev // self.launch_bytes))
         if n_batches == 1 or D < 64:
@@ -389,6 +399,8 @@ class DistributedEngine:
         agg_subfilter_fns = planner.compile_subfilters(fc, aggs)
 
         kind, group_dims, num_groups = planner.plan_groups(ctx, view, aggs)
+        if any(gd.mv for gd in group_dims):
+            raise NotImplementedError("MV GROUP BY (explode) is not yet supported on the distributed stacked path")
         select_columns: List[str] = []
         if kind == "selection":
             for s in ctx.select_list:
@@ -399,6 +411,14 @@ class DistributedEngine:
                 select_columns.extend(stacked.schema.column_names if s.op == "*" else [s.op])
             if any(not o.expr.is_column for o in ctx.order_by):
                 raise NotImplementedError("selection ORDER BY on the distributed engine supports bare columns only")
+            mv = [c for c in select_columns + [o.expr.op for o in ctx.order_by]
+                  if c in stacked.columns and stacked.columns[c].is_multi_value]
+            if mv:
+                # the JAX engine has no MV row gather either (it faults with
+                # an IndexError, or orders by a padded code matrix)
+                raise NotImplementedError(
+                    f"selection of multi-value column {mv[0]} on the distributed engine, as in the JAX package"
+                )
         needed = planner._needed_columns(ctx, stacked)
         packed_meta = planner.packed_code_bits(stacked, needed)
 

@@ -13,8 +13,9 @@ straddles a shard and the engine can slice words per macro-batch.
 per (backing array, slice, packed).  With a residency manager
 (segment/residency.py) each doc slice is a cache group charged to a byte
 budget and evicted as a unit, and the copies may go through a caller's
-`copy` function (the distributed engine's CUDA copy stream).  Multi-value
-columns are a later slice of the port (ROADMAP Queue 1 item 5).
+`copy` function (the distributed engine's CUDA copy stream).  A multi-value
+column is a [S, D, max_len] padded code matrix with [S, D] lengths (the
+segment builder's MV layout, shipped as "codes" and "lengths").
 """
 from __future__ import annotations
 
@@ -46,18 +47,44 @@ class StackedColumn:
     name: str
     data_type: DataType
     dictionary: Optional[Dictionary]  # GLOBAL dictionary (shared key space)
-    codes: Optional[np.ndarray]  # [S, D] unsigned codes
+    codes: Optional[np.ndarray]  # [S, D] unsigned codes (MV: [S, D, max_len])
     values: Optional[np.ndarray]  # [S, D] raw numerics otherwise
     nulls: Optional[np.ndarray]  # [S, D] bool, None if no nulls
     stats: ColumnStats
+    # multi-value: [S, D] per-row element counts; padded cells hold the
+    # padding code (== cardinality)
+    mv_lengths: Optional[np.ndarray] = None
     # bit-packed forward index: codes in `code_bits` lanes of uint32 words,
-    # [S, D * code_bits / 32]; None when the cardinality needs > 16 bits
+    # [S, D * code_bits / 32]; None when the cardinality needs > 16 bits or
+    # the column is MV
     code_bits: Optional[int] = None
     packed: Optional[np.ndarray] = None
 
     @property
     def has_dictionary(self) -> bool:
         return self.dictionary is not None
+
+    @property
+    def is_multi_value(self) -> bool:
+        return self.mv_lengths is not None
+
+
+def _stack_mv_column(f, raw, n: int, num_shards: int, D: int) -> StackedColumn:
+    """MV column -> [S, D, max_len] padded code matrix + [S, D] lengths (the
+    stacked twin of segment/builder._build_mv_column)."""
+    from pinot_tpu_torch.segment.builder import RaggedColumn, _build_mv_column
+
+    col = _build_mv_column(f, raw if isinstance(raw, RaggedColumn) else RaggedColumn.from_rows(raw, f.data_type), n)
+    total = num_shards * D
+    max_len = col.codes.shape[1]
+    codes = np.full((total, max_len), col.dictionary.cardinality, dtype=col.codes.dtype)
+    codes[:n] = col.codes
+    lengths = np.zeros(total, dtype=np.int32)
+    lengths[:n] = col.mv_lengths
+    return StackedColumn(
+        f.name, f.data_type, col.dictionary, codes.reshape(num_shards, D, max_len), None, None, col.stats,
+        mv_lengths=lengths.reshape(num_shards, D),
+    )
 
 
 _BUILD_COUNTER = 0
@@ -158,7 +185,10 @@ class StackedTable:
         if idx_cfg is not None and idx_cfg.sorted_column and idx_cfg.sorted_column in data and n > 1:
             order = np.argsort(np.asarray(data[idx_cfg.sorted_column]), kind="stable")
             if not np.array_equal(order, np.arange(n)):
-                data = {k: np.asarray(v)[order] for k, v in data.items()}
+                from pinot_tpu_torch.segment.builder import RaggedColumn
+
+                data = {k: v.take(order) if isinstance(v, RaggedColumn) else np.asarray(v)[order]
+                        for k, v in data.items()}
 
         valid = np.zeros(total, dtype=bool)
         valid[:n] = True
@@ -168,10 +198,8 @@ class StackedTable:
         indexes: Dict[str, Dict[str, Any]] = {}
         for f in schema.fields:
             if not f.single_value:
-                raise NotImplementedError(
-                    f"multi-value column {f.name} in a stacked table is a later slice of the port "
-                    "(ROADMAP Queue 1 item 5)"
-                )
+                columns[f.name] = _stack_mv_column(f, data[f.name], n, num_shards, D)
+                continue
             arr, nmask = _extract_nulls(f, data[f.name])
             use_dict = f.data_type.is_string_like or (
                 f.name not in no_dictionary_columns
@@ -268,7 +296,7 @@ class StackedTable:
                     nbytes += c.packed[:, sl[0] // f: sl[1] // f].nbytes
                 elif c.codes is not None:
                     nbytes += c.codes[:, sl[0]: sl[1]].nbytes
-                for arr in (c.values, c.nulls):
+                for arr in (c.values, c.nulls, c.mv_lengths):
                     if arr is not None:
                         nbytes += arr.itemsize * arr.shape[0] * span
                 need.append((cname, ck, use_packed, dkey, cached_dict))
@@ -303,6 +331,8 @@ class StackedTable:
                 entry["values"] = copy(rows(c.values))
             if c.nulls is not None:
                 entry["nulls"] = copy(rows(c.nulls))
+            if c.mv_lengths is not None:
+                entry["lengths"] = copy(rows(c.mv_lengths))
             staged[ck] = entry
         if need_valid:
             staged[(id(self.valid), sl)] = copy(rows(self.valid))

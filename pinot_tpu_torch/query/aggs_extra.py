@@ -19,8 +19,12 @@ FirstWithTime/LastWithTimeAggregationFunction.
 
 The pairwise merges take numpy arrays (the reduce) or torch tensors (the
 distributed engine's combine across launches, on the device) and return
-the same kind.  The multi-value forms (the JAX package's MVAggFunction,
-*MV names) need MV columns: ROADMAP Queue 1 item 5.
+the same kind.
+
+The multi-value forms COUNTMV / SUMMV / MINMV / MAXMV / AVGMV /
+DISTINCTCOUNTMV (MVAggFunction) run their single-value function over every
+ELEMENT of an MV column: the planner hands them the padded [rows, max_len]
+element matrix with a row-filter x length mask (planner.mv_agg_input).
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.ops import segmented as ops
-from pinot_tpu_torch.query.functions import _REGISTRY, AggFunction, register
+from pinot_tpu_torch.query.functions import _REGISTRY, AggFunction, get_agg_function, register
 from pinot_tpu_torch.query.sketches import (
     ColumnBinding,
     _check_cell_budget,
@@ -535,6 +539,52 @@ class DistinctAvgFunction(DistinctSumFunction):
         return out[0] if np.asarray(p["hist"]).ndim == 1 else out
 
 
+# ---------------------------------------------------------------------------
+# Multi-value aggregations: COUNTMV/SUMMV/MINMV/MAXMV/AVGMV/DISTINCTCOUNTMV
+# ---------------------------------------------------------------------------
+class MVAggFunction(AggFunction):
+    """Wraps a single-value aggregation to run over every ELEMENT of an MV
+    column (reference: SumMVAggregationFunction et al).  The planner hands
+    the padded [rows, max_len] value/code matrix with a combined row and
+    length mask; partials flatten and delegate, grouped keys broadcast
+    along the element axis, so one row's elements all land in its group."""
+
+    mv_input = True
+    field_kinds = None
+    vector_fields = True  # 2-D inputs take the function's own tables
+
+    def __init__(self, base: AggFunction):
+        self.base = base
+        self.name = base.name + "mv"
+        self.fields = base.fields
+        self.needs_codes = base.needs_codes
+        self.needs_binding = base.needs_binding
+        self.pairwise_merge = base.pairwise_merge
+
+    def with_args(self, literal_args):
+        return MVAggFunction(self.base.with_args(literal_args))
+
+    def bind_column(self, info):
+        return MVAggFunction(self.base.bind_column(info))
+
+    def partial(self, values, mask):
+        return self.base.partial(values.reshape(-1), mask.reshape(-1))
+
+    def partial_grouped(self, values, mask, keys, num_groups):
+        n, m = mask.shape
+        k2 = keys[:, None].expand(n, m).reshape(-1)
+        return self.base.partial_grouped(values.reshape(-1), mask.reshape(-1), k2, num_groups)
+
+    def host_partial(self, p):
+        return self.base.host_partial(p)
+
+    def merge(self, a, b):
+        return self.base.merge(a, b)
+
+    def final(self, p):
+        return self.base.final(p)
+
+
 for _cls in (
     PercentileLogSketchFunction,
     DistinctCountThetaFunction,
@@ -546,6 +596,9 @@ for _cls in (
     FirstWithTimeFunction,
 ):
     register(_cls())
+
+for _base_name in ("count", "sum", "min", "max", "avg", "distinctcount"):
+    register(MVAggFunction(get_agg_function(_base_name)))
 
 # aliases matching the reference's surface
 _REGISTRY["distinctcountrawtheta"] = _REGISTRY["distinctcounttheta"]

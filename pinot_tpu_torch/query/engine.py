@@ -18,7 +18,9 @@ eviction heat.
 (columns, expressions, ORDER BY, OFFSET, window functions) run, and the
 sketch and extended aggregations, whose per-column bindings read the
 table-global ranges and dictionary consensus injected before planning
-(``_inject_global_ranges``); EXPLAIN,
+(``_inject_global_ranges``); multi-value columns (ANY-semantics filters,
+the *MV aggregations, the GROUP BY explode, UNNEST), star-tree segments and
+the TEXT_MATCH / JSON_MATCH / VECTOR_SIMILARITY predicates too; EXPLAIN,
 subqueries, set operations, joins and gap-filling are later slices of the
 port.
 """

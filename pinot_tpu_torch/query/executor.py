@@ -13,7 +13,10 @@ fixed-slot tables -> merged keys (``sparse_tables_to_result``, which the
 distributed engine shares).  A selection's row mask turns into matched doc
 ids on the device (``torch.nonzero``), and only the ids come home; the host
 then trims them per segment (ORDER BY over dictionary codes, which are sort
-ranks within the segment) and gathers the decoded rows.
+ranks within the segment) and gathers the decoded rows; UNNEST(mvcol)
+repeats each gathered row once per element.  A segment whose star-tree
+covers the query answers from the tree's level instead
+(query/startree.py).
 """
 from __future__ import annotations
 
@@ -111,7 +114,13 @@ def _param_tensor(v, device: torch.device) -> torch.Tensor:
 
 def launch_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.device):
     """Plan, ship inputs and run the segment's planned closure.  Returns the
-    pending state collect_segment finishes."""
+    pending state collect_segment finishes.  A query a star-tree of the
+    segment answers runs over the tree's level instead (query/startree.py)."""
+    from pinot_tpu_torch.query.startree import try_startree
+
+    star = try_startree(ctx, segment, device)
+    if star is not None:
+        return ("star", star)
     stats = ExecutionStats(
         num_segments_queried=1,
         num_segments_processed=1,
@@ -147,6 +156,8 @@ def matched_docids(tmask: torch.Tensor) -> np.ndarray:
 
 def collect_segment(state):
     """Move the outputs to the host and decode them."""
+    if state[0] == "star":
+        return state[1]
     ctx, segment, plan, out, stats = state
     if plan.kind == "selection":
         docids = matched_docids(out)
@@ -319,10 +330,11 @@ def _gather_selection(ctx: QueryContext, plan, segment: ImmutableSegment, docids
     """Host-side row gather for selection queries over the segment's
     matched doc ids (ascending), with the per-segment trim (SelectionOnly /
     SelectionOrderBy operator analog)."""
-    # window functions rank/aggregate over ALL matched rows: the
-    # per-segment trim would change their results, so it is off (bounded
-    # by a valve)
-    if ctx.windows:
+    # window functions rank/aggregate over ALL matched rows, and UNNEST
+    # drops empty-MV rows AFTER the gather: the per-segment trim would
+    # change the results of both, so it is off (bounded by a valve)
+    has_unnest = any(isinstance(s, Expr) and s.kind.name == "CALL" and s.op == "unnest" for s in ctx.select_list)
+    if ctx.windows or has_unnest:
         cap = int(ctx.options.get("maxWindowRows", 1_000_000))
         if len(docids) > cap:
             raise ValueError(f"window/unnest query matched {len(docids)} rows > maxWindowRows={cap}")
@@ -384,6 +396,11 @@ def _gather_selection(ctx: QueryContext, plan, segment: ImmutableSegment, docids
             out_keys.append(e.op)
             arrays[e.op] = _decoded(e.op)
             continue
+        if e.kind.name == "CALL" and e.op == "unnest":
+            key = f"__sel{i}"
+            out_keys.append(key)
+            arrays[key] = np.zeros(len(docids), dtype=object)  # filled by the explode below
+            continue
         # expression select item: host evaluation over the gathered rows only
         key = f"__sel{i}"
         out_keys.append(key)
@@ -405,6 +422,30 @@ def _gather_selection(ctx: QueryContext, plan, segment: ImmutableSegment, docids
         arrays[f"__ord{i}"] = _value_array(ob.expr)
     cols = out_keys + [f"__ord{i}" for i in range(len(ctx.order_by))]
     cols += sorted(k for k in arrays if k.startswith("__wx_"))
+
+    # UNNEST(mvcol): each gathered row once per element (the MSE
+    # UnnestOperator analog on the selection path; zero-length rows drop)
+    unnest_keys = [
+        (k, e) for k, e in zip(out_keys, items)
+        if isinstance(e, Expr) and e.kind.name == "CALL" and e.op == "unnest"
+    ]
+    if unnest_keys:
+        if len(unnest_keys) > 1:
+            raise NotImplementedError("one UNNEST per query")
+        ukey, uexpr = unnest_keys[0]
+        if not (len(uexpr.args) == 1 and uexpr.args[0].is_column):
+            raise NotImplementedError("UNNEST takes a bare multi-value column")
+        c = segment.column(uexpr.args[0].op)
+        if c.mv_lengths is None:
+            raise ValueError(f"UNNEST requires a multi-value column ({uexpr.args[0].op})")
+        idx = np.repeat(np.arange(len(docids)), c.mv_lengths[docids].astype(np.int64))
+        elems = np.concatenate(
+            [list(t) for t in c.decoded_rows(docids) if len(t)] or [np.array([], dtype=object)]
+        )
+        arrays = {
+            k: np.asarray(elems, dtype=object) if k == ukey else np.asarray(arrays[k], dtype=object)[idx]
+            for k in cols
+        }
     return SelectionSegmentResult(columns=cols, arrays=arrays)
 
 

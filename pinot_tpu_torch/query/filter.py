@@ -23,6 +23,12 @@ over an expression evaluates it through the transform layer
 (UPPER(city) = 'SF') evaluates the function over the dictionary on the
 host and looks the codes up in the resulting table.
 
+Multi-value columns match a row when ANY element matches; TEXT_MATCH and
+JSON_MATCH evaluate over the dictionary's values on the host (through the
+segment's text/JSON index, or one built lazily and cached on the segment)
+into a code table; VECTOR_SIMILARITY is a matrix-vector product and a
+top-k threshold on the device (indexes/vector.py).
+
 Macro-batch hooks (parallel/engine.py compiles against a _ShardView that
 carries them): with `bitmap_layout` = (ndev, L, D // 32) bitmap words are
 stored FULL in that shape and named in `row_sharded_params`, and the engine
@@ -40,6 +46,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pinot_tpu_torch.indexes.jsonidx import JsonIndex
+from pinot_tpu_torch.indexes.text import TextIndex
+from pinot_tpu_torch.indexes.vector import parse_query_vector, similarity_mask
 from pinot_tpu_torch.ops.segmented import unpack_bitmap_words
 from pinot_tpu_torch.query import scalar
 from pinot_tpu_torch.query.ir import FilterNode, FilterOp, Predicate, PredicateType
@@ -144,6 +153,11 @@ class FilterCompiler:
     def _col_index(self, kind: str, name: str):
         return self.segment.indexes.get(kind, {}).get(name)
 
+    def _cache_index(self, kind: str, name: str, idx) -> None:
+        """Cache a lazily built (text/json) index on the segment, so repeated
+        queries pay the cardinality-sized build once."""
+        self.segment.indexes.setdefault(kind, {})[name] = idx
+
     # ------------------------------------------------------------------
     def compile(self, node: Optional[FilterNode]) -> Callable[[Dict, Dict, torch.device], MaskPair]:
         is_root = not self._root_compiled
@@ -234,15 +248,39 @@ class FilterCompiler:
                 return (nulls if _want else ~nulls), None
 
             return eval_null
-        if p.ptype in (PredicateType.TEXT_MATCH, PredicateType.JSON_MATCH, PredicateType.VECTOR_SIMILARITY):
-            raise NotImplementedError(
-                f"{p.ptype.value} needs JSON/text/vector indexes, a later slice of the port"
-            )
+        if p.ptype is PredicateType.VECTOR_SIMILARITY:
+            return self._compile_vector_predicate(p)
         if p.lhs.is_column and seg.column(p.lhs.op).has_dictionary:
             return self._compile_dict_predicate(p)
         if scalar.is_dict_fn_expr(p.lhs) and scalar.string_result(p.lhs):
             return self._compile_derived_string_predicate(p)
         return self._compile_value_predicate(p)
+
+    def _compile_vector_predicate(self, p: Predicate) -> Callable[[Dict, Dict, torch.device], MaskPair]:
+        """VECTOR_SIMILARITY(col, queryVec, topK): one matrix-vector product
+        over the embedding rows on the device and a threshold at the k-th
+        best cosine score (indexes/vector.similarity_mask): exact top-k;
+        ties at the k-th score admit extra rows."""
+        if not p.lhs.is_column:
+            raise ValueError("VECTOR_SIMILARITY requires a bare vector column")
+        name = p.lhs.op
+        vidx = self._col_index("vector", name)
+        if vidx is None:
+            raise ValueError(
+                f"VECTOR_SIMILARITY requires a vector index on {name} (tableIndexConfig.vectorIndexColumns)"
+            )
+        q = vidx.normalize_query(parse_query_vector(p.values[0]))
+        k = int(p.values[1]) if len(p.values) > 1 else 10
+        key = self._key("qvec")
+        self.params[key] = q
+        self.used_columns.add(name)
+        self.index_uses.append((name, "vector"))
+        dim = vidx.dim
+
+        def eval_vec(cols, params, dev, _key=key, _name=name, _k=k, _dim=dim):
+            return similarity_mask(cols[_name]["values"], params[_key], _dim, _k), None
+
+        return eval_vec
 
     def _compile_derived_string_predicate(self, p: Predicate) -> Callable[[Dict, Dict, torch.device], MaskPair]:
         """Predicate over a string function of a dict column (WHERE
@@ -276,6 +314,13 @@ class FilterCompiler:
         card = d.cardinality
         values = d.values
         pt = p.ptype
+        # Multi-value columns: a row matches when ANY element matches (the
+        # reference's per-value MV predicate semantics).  The padded code
+        # matrix evaluates elementwise, then any() over the element axis; the
+        # padding code (== cardinality) must stay no-match, so code tables
+        # get an explicit False pad slot — after NEQ/NOT_IN negation too —
+        # and code ranges never reach it (hi <= cardinality)
+        is_mv = col.is_multi_value
 
         lo_code = hi_code = None
         table: Optional[np.ndarray] = None
@@ -310,22 +355,44 @@ class FilterCompiler:
             rx = re.compile(pat if pt is PredicateType.REGEXP_LIKE else like_to_regex(pat))
             # regex over the dictionary, not the rows — card evaluations total.
             table = np.fromiter((rx.search(str(v)) is not None for v in values), dtype=bool, count=card)
+        elif pt is PredicateType.TEXT_MATCH:
+            idx = self._col_index("text", name)
+            if idx is None:
+                idx = TextIndex.build(values)  # lazy: cardinality work, cached below
+                self._cache_index("text", name, idx)
+            else:
+                self.index_uses.append((name, "text"))
+            table = idx.match(str(p.values[0]))
+        elif pt is PredicateType.JSON_MATCH:
+            idx = self._col_index("json", name)
+            if idx is None:
+                idx = JsonIndex.build(values)
+                self._cache_index("json", name, idx)
+            else:
+                self.index_uses.append((name, "json"))
+            table = idx.match(str(p.values[0]))
         else:
             raise ValueError(f"predicate {pt} not supported on dictionary column {name}")
 
         has_nulls = col.nulls is not None and self.null_handling
 
-        accel = self._try_index_paths(name, col, lo_code, hi_code, table, has_nulls)
-        if accel is not None:
-            return accel
+        # index-accelerated paths (no code scan); never for MV columns
+        if not is_mv:
+            accel = self._try_index_paths(name, col, lo_code, hi_code, table, has_nulls)
+            if accel is not None:
+                return accel
 
         if table is not None:
+            if is_mv:
+                table = np.append(table, False)  # padding code slot
             key = self._key("table")
             self.params[key] = table
             self.used_columns.add(name)
 
             def eval_table(cols, params, dev, _key=key, _name=name, _has=has_nulls):
                 t = params[_key][cols[_name]["codes"].to(torch.int64)]
+                if t.dim() == 2:
+                    t = t.any(dim=1)
                 nulls = cols[_name].get("nulls") if _has else None
                 if nulls is not None:
                     t = t & ~nulls
@@ -342,6 +409,8 @@ class FilterCompiler:
         def eval_range(cols, params, dev, _lo=lo_key, _hi=hi_key, _name=name, _has=has_nulls):
             codes = cols[_name]["codes"].to(torch.int32)
             t = (codes >= params[_lo]) & (codes < params[_hi])
+            if t.dim() == 2:
+                t = t.any(dim=1)
             nulls = cols[_name].get("nulls") if _has else None
             if nulls is not None:
                 t = t & ~nulls
@@ -452,7 +521,7 @@ class FilterCompiler:
 
         seg = self.segment
         pt = p.ptype
-        if pt in (PredicateType.REGEXP_LIKE, PredicateType.LIKE):
+        if pt in (PredicateType.REGEXP_LIKE, PredicateType.LIKE, PredicateType.TEXT_MATCH, PredicateType.JSON_MATCH):
             raise ValueError(f"{pt.value} requires a dictionary-encoded column (lhs={p.lhs})")
         null_handling = self.null_handling
         self.used_columns.update(c for c in p.lhs.columns() if c != "*")

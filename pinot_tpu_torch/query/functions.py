@@ -7,9 +7,7 @@ sketch and extended families use (literal arguments, column binding, reduce
 binding, host partials, extra expressions, sub-filters, pairwise merges).
 Those families register from query/sketches.py, query/aggs_extra.py and
 query/aggs_stats.py, imported at the bottom in the JAX package's order.
-The multi-value forms (*MV) need MV columns (ROADMAP Queue 1 item 5); their
-names are known (ALL_AGG_NAMES) so SQL parses as in the JAX package and
-fails at plan time.
+The multi-value forms (*MV) register from query/aggs_extra.py.
 
 Reference parity: pinot-core AggregationFunction contract
 (.../query/aggregation/function/AggregationFunction.java:44 — aggregate /
@@ -103,6 +101,9 @@ class AggFunction:
     needs_extra_exprs: bool = False
     # theta sub-filter set expressions: partial() receives (values, mask_1, ...)
     subfilter_args: bool = False
+    # multi-value element aggregation (*MV): partial() receives the padded
+    # [rows, max_len] element matrix and mask (planner.mv_agg_input)
+    mv_input: bool = False
     # how a needs_codes function's input is fed: "codes" | "values_offset" |
     # "values_hash" (planner.agg_input_codes)
     input_kind: str = "codes"
@@ -381,8 +382,7 @@ _REGISTRY["stddev_samp"] = _REGISTRY["stddevsamp"]
 
 # Every aggregation name of the JAX package's registry (its functions.py
 # with the sketch, extended and statistics families registered).  The parser
-# recognizes all of them, so one SQL text parses the same in both packages;
-# the names this slice does not implement fail at plan time.
+# recognizes all of them, so one SQL text parses the same in both packages.
 ALL_AGG_NAMES = frozenset({
     "arg_max", "arg_min", "argmax", "argmin", "avg", "avgmv",
     "avgvalueintegersumtuplesketch", "corr", "count", "countmv", "covar_pop",
@@ -408,11 +408,6 @@ def is_agg_function(name: str) -> bool:
 def get_agg_function(name: str) -> AggFunction:
     fn = _REGISTRY.get(name.lower())
     if fn is None:
-        if name.lower() in ALL_AGG_NAMES:
-            raise NotImplementedError(
-                f"aggregation {name!r} runs over multi-value columns, a later slice "
-                "of the port (ROADMAP Queue 1 item 5)"
-            )
         raise ValueError(f"unknown aggregation function {name!r} (have {sorted(_REGISTRY)})")
     return fn
 

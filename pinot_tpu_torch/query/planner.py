@@ -30,6 +30,13 @@ aggs_stats.py) bind per-column constants here (column_binding, bind_aggs),
 take dictionary codes, range offsets or raw values to hash
 (agg_input_codes), and fill their own grouped tables ("own" requests of
 grouped_partials, and over slot ids on the sparse path).
+
+Multi-value columns: a GROUP BY on an MV column EXPLODES the rows (each
+element one logical row, Pinot's MV group-by semantics; mv_explode): the
+dense path sends the exploded int32 key, the row x length mask and the
+values broadcast along the element axis to the same fused scan, the sparse
+path sorts the exploded int64 keys.  The *MV aggregations take the padded
+element matrix and its mask (mv_agg_input).
 """
 from __future__ import annotations
 
@@ -81,6 +88,9 @@ class GroupDim:
     null_code: int = -1  # code representing SQL NULL (placeholder), -1 if none
     derived_values: Optional[np.ndarray] = None  # kind=derived decode table
     remap: Optional[np.ndarray] = None  # kind=derived code remap (int32)
+    # multi-value dimension: rows EXPLODE — each element contributes a row
+    # (Pinot's MV group-by semantics; mv_explode)
+    mv: bool = False
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         if self.kind == "dict":
@@ -229,17 +239,22 @@ def _segment_signature(segment: ImmutableSegment, needed: List[str], const_cols:
                 _sig_value(c.stats.min_value),
                 _sig_value(c.stats.max_value),
             )
+        # MV columns: the padded width shapes the closure's tensors, and a
+        # vector predicate bakes the index dim
+        arr = c.codes if c.codes is not None else c.values
+        mv_width = int(arr.shape[1]) if c.mv_lengths is not None and arr.ndim == 2 else None
         sig.append(
             (
                 name,
                 c.cardinality if c.has_dictionary else -1,
-                str(c.codes.dtype if c.codes is not None else c.values.dtype),
+                str(arr.dtype),
                 c.code_bits,
                 c.nulls is not None,
                 raw_range,
                 const_extra,
                 column_limb_sig(c),
                 c.stats.is_sorted,
+                mv_width,
                 tuple(sorted(k for k, by_col in segment.indexes.items() if name in by_col)),
             )
         )
@@ -374,6 +389,10 @@ def _non_filter_columns(ctx: QueryContext, segment) -> set:
 def _group_dim(expr: Expr, segment: ImmutableSegment, null_handling: bool) -> GroupDim:
     if expr.is_column:
         c = segment.column(expr.op)
+        if c.mv_lengths is not None:
+            if c.dictionary is None:
+                raise NotImplementedError(f"GROUP BY on raw MV column {c.name} (vector columns are not groupable)")
+            return GroupDim(expr, c.name, "dict", c.dictionary.cardinality, dictionary=c.dictionary, mv=True)
         if c.has_dictionary:
             null_code = -1
             if c.nulls is not None and null_handling:
@@ -542,6 +561,28 @@ def grouped_partials(aggs, inputs, tmask, key_fn, num_groups: int, vranges,
     return presence, partials
 
 
+def mv_agg_input(spec, fn, table_like, cols, mask):
+    """(values, mask) of an MV aggregation: the padded [rows, max_len]
+    element matrix and the row filter x length mask."""
+    if spec.expr is None or not spec.expr.is_column:
+        raise ValueError(f"{spec.function} requires a multi-value column argument")
+    c = table_like.column(spec.expr.op)
+    if c.mv_lengths is None:
+        raise ValueError(f"{spec.function} requires a multi-value column; {spec.expr.op} is single-value")
+    entry = cols[spec.expr.op]
+    codes = entry["codes"].to(torch.int32)
+    pad = torch.arange(codes.shape[1], dtype=torch.int32, device=codes.device)[None, :] < entry["lengths"][:, None]
+    m2 = mask[:, None] & pad
+    if fn.needs_codes:
+        return codes, m2
+    if fn.base.name == "count":
+        return m2, m2
+    if c.data_type.is_string_like:
+        raise ValueError(f"{spec.function} needs numeric elements; {spec.expr.op} is {c.data_type.value}")
+    vals = entry["dict"][torch.clamp(codes, max=c.dictionary.cardinality - 1).to(torch.int64)]
+    return vals, m2
+
+
 def agg_input_codes(spec, fn, table_like, cols, mask, null_handling: bool):
     """(input, mask) of a needs_codes aggregation, by the bound function's
     input_kind:
@@ -595,6 +636,9 @@ def make_agg_inputs(agg_specs, aggs, agg_filter_fns, table_like, null_handling: 
                     ft, _ = ffn(cols, params, dev)
                     filtered[fp] = mask & ft
                 mask = filtered[fp]
+            if fn.mv_input:
+                out.append(mv_agg_input(spec, fn, table_like, cols, mask))
+                continue
             if spec.expr is None:
                 vals = mask  # COUNT(*): values unused
             elif fn.needs_codes:
@@ -667,7 +711,7 @@ def guard_sparse_vector_fields(kind: str, aggs: List[AggFunction]) -> None:
     from pinot_tpu_torch.query.sketches import DistinctCountValueSetFunction
 
     for fn in aggs:
-        if isinstance(fn, DistinctCountValueSetFunction):
+        if isinstance(getattr(fn, "base", fn), DistinctCountValueSetFunction):  # MV wrappers delegate
             raise NotImplementedError(
                 "exact grouped DISTINCTCOUNT requires a shared dictionary across "
                 "segments; these segments' dictionaries differ — use DISTINCTCOUNTHLL"
@@ -994,18 +1038,75 @@ def key_packed(cols, group_dims: List[GroupDim], packed_meta: Dict[str, int], nu
     return (e["codes_packed"], bits)
 
 
+def mv_dim_index(group_dims: List[GroupDim], aggs) -> Optional[int]:
+    """Index of the one multi-value (explode) group dimension, or None; at
+    most one, and not beside MV or tuple-input aggregations (the JAX
+    package's guards)."""
+    mv_dims = [i for i, gd in enumerate(group_dims) if gd.mv]
+    if len(mv_dims) > 1:
+        raise NotImplementedError("at most one multi-value GROUP BY dimension (explode) per query")
+    if mv_dims and any(fn.mv_input or fn.needs_extra_exprs for fn in aggs):
+        raise NotImplementedError(
+            "MV/tuple-input aggregations (SUMMV..., FIRST/LASTWITHTIME) cannot combine "
+            "with an MV GROUP BY dimension"
+        )
+    return mv_dims[0] if mv_dims else None
+
+
+def mv_explode(cols, group_dims: List[GroupDim], mv_i: int, segment, dev: torch.device, tmask, inputs,
+               key_dtype=torch.int32):
+    """MV group-by explode: [n] rows -> [n * max_len] element rows, each
+    element of the MV dimension one logical row (Pinot's MV group-by
+    semantics).  Returns (key, row mask, inputs), all flat: the group key
+    over the element rows, the filter x length mask, and each aggregation's
+    values broadcast along the element axis with its mask x length mask."""
+    gd_mv = group_dims[mv_i]
+    entry = cols[gd_mv.name]
+    codes2 = entry["codes"].to(torch.int32)
+    shape2 = codes2.shape
+    pad = torch.arange(shape2[1], dtype=torch.int32, device=dev)[None, :] < entry["lengths"][:, None]
+    t2 = tmask[:, None] & pad
+    key = None
+    for i2, gd in enumerate(group_dims):
+        if i2 == mv_i:
+            code = torch.clamp(codes2, max=gd.cardinality - 1).to(key_dtype)
+        else:
+            code = gd.device_code(cols, segment, dev, key_dtype)[:, None].expand(shape2)
+        key = code if key is None else key * gd.cardinality + code
+    t_f = t2.reshape(-1)
+    flat_masks: Dict[int, torch.Tensor] = {id(tmask): t_f}  # COUNT(*) shares the row mask
+
+    def flat_mask(m):
+        if id(m) not in flat_masks:
+            flat_masks[id(m)] = (m[:, None] & t2).reshape(-1)
+        return flat_masks[id(m)]
+
+    def flat_values(v):
+        v = v.expand(shape2[0]) if v.dim() == 0 else v
+        return v[:, None].expand(shape2).reshape(-1)
+
+    flat_inputs = [(flat_values(v), flat_mask(m)) for v, m in inputs]
+    return key.reshape(-1), t_f, flat_inputs
+
+
 def sparse_tables_fn(ctx: QueryContext, aggs, group_dims: List[GroupDim], num_groups: int, agg_inputs, segment):
     """The sparse group path's per-launch step, (cols, params, tmask, dev)
     -> (uniq keys, partial tables) of numGroupsLimit slots, with its slot
-    count and ORDER BY-aware trim spec (kernel_order_spec)."""
+    count and ORDER BY-aware trim spec (kernel_order_spec).  An MV group
+    dimension explodes the rows first (mv_explode, int64 keys)."""
     if num_groups >= (1 << 62):
         raise NotImplementedError("composite group key exceeds 62 bits")
     num_slots = min(ctx.num_groups_limit, num_groups)
     order_spec = kernel_order_spec(ctx, aggs)
+    mv_i = mv_dim_index(group_dims, aggs)
 
     def tables(cols, params, tmask, dev):
-        key = packed_key64(cols, group_dims, segment, dev)
-        return sparse_grouped_tables(aggs, agg_inputs(cols, params, tmask, dev), tmask, key, num_slots, order_spec)
+        inputs = agg_inputs(cols, params, tmask, dev)
+        if mv_i is not None:
+            key, tmask, inputs = mv_explode(cols, group_dims, mv_i, segment, dev, tmask, inputs, torch.int64)
+        else:
+            key = packed_key64(cols, group_dims, segment, dev)
+        return sparse_grouped_tables(aggs, inputs, tmask, key, num_slots, order_spec)
 
     return tables, num_slots, order_spec
 
@@ -1043,8 +1144,6 @@ def selection_items(ctx: QueryContext, table_like) -> Tuple[List[Any], List[str]
             continue
         if not isinstance(s, Expr):
             raise NotImplementedError(f"unsupported selection item {s}")
-        if s.kind.name == "CALL" and s.op == "unnest":
-            raise NotImplementedError("UNNEST (the MV explode) is a later slice of the port (ROADMAP Queue 1 item 5)")
         if s.is_column and s.op == "*":
             select_exprs.extend(Expr.col(n) for n in _all_column_names(table_like))
         else:
@@ -1106,6 +1205,19 @@ def _build_plan(
             cols = overlay_unpacked(cols, packed_meta, num_docs)
             tmask, _ = filter_fn(cols, params, dev)
             return tables(cols, params, tmask, dev)
+
+    elif mv_dim_index(group_dims, aggs) is not None:
+        # MV dense group-by: the exploded int32 key, row mask and inputs go
+        # to the same fused scan (ops.fused_group_tables)
+        vranges = agg_vranges(agg_specs, segment)
+        mv_i = mv_dim_index(group_dims, aggs)
+
+        def kernel(cols, params, dev):
+            cols = overlay_unpacked(cols, packed_meta, num_docs)
+            tmask, _ = filter_fn(cols, params, dev)
+            key, t_f, inputs = mv_explode(
+                cols, group_dims, mv_i, segment, dev, tmask, _agg_inputs(cols, params, tmask, dev))
+            return grouped_partials(aggs, inputs, t_f, lambda: key, num_groups, vranges, backend=backend)
 
     else:
         vranges = agg_vranges(agg_specs, segment)

@@ -7,9 +7,16 @@ segment's columns.bin).  ``save`` writes the JAX package's on-disk format
 (segment/store.py), so either package loads the other's segments.
 
 Device side: ``to_device(device)`` ships a plain dict of torch tensors —
-{col: {"codes" | "codes_packed", "dict", "values", "nulls"}} — and caches it
-per device, so repeated queries hit resident tensors.  With a residency
-manager (segment/residency.py) the cache is byte-budgeted and evictable.
+{col: {"codes" | "codes_packed", "dict", "values", "nulls", "lengths"}} —
+and caches it per device, so repeated queries hit resident tensors.
+Multi-value columns hold a padded [num_docs, max_len] code matrix (or, for
+an embedding column, a [num_docs, max_len] float32 value matrix) with the
+per-row element counts under "lengths"; padded cells hold the padding code
+(== cardinality), which every predicate treats as no-match.  A star-tree
+level's tables are one more entry of the same cache (named by
+``star_entry``), so they are charged, evicted and released with the columns.
+With a residency manager (segment/residency.py) the cache is byte-budgeted
+and evictable.
 Static facts (num_docs, cardinalities, stats) stay host-side for pruning
 and for the closed-form predicate constants.
 
@@ -41,18 +48,21 @@ BUILDER_VERSION = 2
 
 @dataclass
 class ColumnData:
-    """One single-value column inside a segment (DataSource analog: forward
-    index + dictionary + null vector)."""
+    """One column inside a segment (DataSource analog: forward index +
+    dictionary + null vector)."""
 
     name: str
     data_type: DataType
     dictionary: Optional[Dictionary]  # None => raw storage
-    codes: Optional[np.ndarray]  # uint8/16/32[num_docs] when dictionary-encoded
+    codes: Optional[np.ndarray]  # uint8/16/32[num_docs] (SV) or [num_docs, max_len] (MV)
     values: Optional[np.ndarray]  # raw storage (numeric) when no dictionary
     nulls: Optional[np.ndarray]  # bool[num_docs] true=null, None if no nulls
     stats: ColumnStats
+    # multi-value columns: per-row element counts; codes beyond a row's
+    # length hold the padding code (== cardinality)
+    mv_lengths: Optional[np.ndarray] = None
     # bit-packed forward index (segment/packing.py): codes in `code_bits`
-    # lanes of uint32 words; None on raw and wide (>16-bit) columns
+    # lanes of uint32 words; None on raw, MV and wide (>16-bit) columns
     code_bits: Optional[int] = None
     packed: Optional[np.ndarray] = None
 
@@ -61,11 +71,18 @@ class ColumnData:
         return self.dictionary is not None
 
     @property
+    def is_multi_value(self) -> bool:
+        return self.mv_lengths is not None
+
+    @property
     def cardinality(self) -> int:
         return self.dictionary.cardinality if self.dictionary else self.stats.cardinality
 
     def decoded(self) -> np.ndarray:
-        """Materialize raw values host-side (tests/golden comparisons)."""
+        """Materialize raw values host-side (tests/golden comparisons).
+        MV columns decode to an object array of tuples."""
+        if self.mv_lengths is not None:
+            return self.decoded_rows(np.arange(len(self.mv_lengths)))
         if self.dictionary is not None:
             return self.dictionary.get_values(self.codes)
         return self.values
@@ -73,9 +90,27 @@ class ColumnData:
     def decoded_rows(self, rows: np.ndarray) -> np.ndarray:
         """decoded()[rows] without decoding the whole column: a selection
         reads a handful of rows of a segment."""
+        if self.mv_lengths is not None:
+            out = np.empty(len(rows), dtype=object)
+            mat = self.codes if self.dictionary is not None else self.values
+            for i, r in enumerate(np.asarray(rows)):
+                row = mat[r, : int(self.mv_lengths[r])]
+                out[i] = tuple(self.dictionary.get_values(row)) if self.dictionary is not None else tuple(row.tolist())
+            return out
         if self.dictionary is not None:
             return self.dictionary.get_values(self.codes[rows])
         return self.values[rows]
+
+
+# device-cache name prefix of a star-tree level's entry
+_STAR_ENTRY = "#startree/"
+
+
+def star_entry(tree: str, k: int) -> str:
+    """The device-cache name of level k of the segment's star-tree `tree`:
+    ``to_device(columns=[star_entry(tree, k)])`` stages the level's tables
+    (indexes/startree.py StarLevel.host_arrays) as one entry."""
+    return f"{_STAR_ENTRY}{tree}/{k}"
 
 
 def tensor_source(arr: np.ndarray) -> np.ndarray:
@@ -140,6 +175,14 @@ class ImmutableSegment:
         except KeyError:
             raise KeyError(f"segment {self.name} has no column {name!r}") from None
 
+    def _source(self, cname: str):
+        """What one device-cache entry is staged from: a column, or for a
+        ``star_entry`` name the star-tree level's host arrays."""
+        if cname.startswith(_STAR_ENTRY):
+            tree, k = cname[len(_STAR_ENTRY):].rsplit("/", 1)
+            return self.indexes["startree"][tree].levels[int(k)].host_arrays(self)
+        return self.column(cname)
+
     @property
     def column_names(self) -> List[str]:
         return list(self.columns)
@@ -178,8 +221,10 @@ class ImmutableSegment:
         return ("seg", id(self), str(resolve_device(device)))
 
     @staticmethod
-    def _entry_bytes(c: ColumnData, use_packed: bool) -> int:
+    def _entry_bytes(c, use_packed: bool) -> int:
         """Host-side estimate of the device bytes one cache entry pins."""
+        if isinstance(c, dict):  # a star-tree level
+            return sum(a.nbytes for a in c.values())
         n = 0
         if use_packed:
             n += c.packed.nbytes
@@ -189,14 +234,14 @@ class ImmutableSegment:
             dvals = c.dictionary.device_values()
             if dvals is not None:
                 n += dvals.nbytes
-        for arr in (c.values, c.nulls):
+        for arr in (c.values, c.nulls, c.mv_lengths):
             if arr is not None:
                 n += arr.nbytes
         return n
 
     @staticmethod
-    def _key(cname: str, c: ColumnData, packed_codes: bool) -> Tuple[str, bool]:
-        use_packed = bool(packed_codes and c.packed is not None)
+    def _key(cname: str, c, packed_codes: bool) -> Tuple[str, bool]:
+        use_packed = bool(packed_codes and isinstance(c, ColumnData) and c.packed is not None)
         return (f"{cname}#packed" if use_packed else cname), use_packed
 
     def _plan_missing(self, dev: torch.device, cols, packed_codes):
@@ -206,7 +251,7 @@ class ImmutableSegment:
         with self._device_lock:
             cache = self._device_cache.get(str(dev), {})
             for cname in cols:
-                c = self.column(cname)
+                c = self._source(cname)
                 key, use_packed = self._key(cname, c, packed_codes)
                 if key in cache:
                     continue
@@ -215,8 +260,11 @@ class ImmutableSegment:
         return need, nbytes
 
     @staticmethod
-    def _stage_entry(c: ColumnData, use_packed: bool, device: torch.device) -> Dict[str, torch.Tensor]:
-        """One column's host->device copy (no lock held)."""
+    def _stage_entry(c, use_packed: bool, device: torch.device) -> Dict[Any, torch.Tensor]:
+        """One column's (or star-tree level's) host->device copy (no lock
+        held)."""
+        if isinstance(c, dict):
+            return {key: _to_tensor(a, device) for key, a in c.items()}
         entry: Dict[str, torch.Tensor] = {}
         if use_packed:
             entry["codes_packed"] = packing.words_to_torch(c.packed, device)
@@ -230,6 +278,8 @@ class ImmutableSegment:
             entry["values"] = _to_tensor(c.values, device)
         if c.nulls is not None:
             entry["nulls"] = _to_tensor(c.nulls.astype(bool), device)
+        if c.mv_lengths is not None:
+            entry["lengths"] = _to_tensor(c.mv_lengths, device)
         return entry
 
     def _assemble(self, dev: torch.device, cols, packed_codes) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
@@ -240,7 +290,7 @@ class ImmutableSegment:
             cache = self._device_cache.get(str(dev), {})
             out: Dict[str, Dict[str, torch.Tensor]] = {}
             for cname in cols:
-                key, _ = self._key(cname, self.column(cname), packed_codes)
+                key, _ = self._key(cname, self._source(cname), packed_codes)
                 if key not in cache:
                     return None
                 out[cname] = cache[key]
@@ -280,7 +330,7 @@ class ImmutableSegment:
         if residency is None:
             out: Dict[str, Dict[str, torch.Tensor]] = {}
             for cname in cols:
-                c = self.column(cname)
+                c = self._source(cname)
                 key, use_packed = self._key(cname, c, packed_codes)
                 with self._device_lock:
                     entry = self._device_cache.setdefault(str(dev), {}).get(key)
@@ -319,7 +369,7 @@ class ImmutableSegment:
                 missing, nbytes = self._plan_missing(dev, cols, packed_codes)
                 residency.charge(group, nbytes, query_id=query_id)
                 crash_point("segment.stage.after_charge")
-                staged = {key: self._stage_entry(self.columns[cname], up, dev) for cname, key, up in missing}
+                staged = {key: self._stage_entry(self._source(cname), up, dev) for cname, key, up in missing}
                 crash_point("segment.stage.after_copy")
                 with self._device_lock:
                     self._device_cache.setdefault(str(dev), {}).update(staged)
@@ -350,7 +400,9 @@ class ImmutableSegment:
                 regions.append((f"{c.name}.fwd", c.values))
             if c.nulls is not None:
                 regions.append((f"{c.name}.nulls", np.packbits(c.nulls)))
-            cm = {"stats": c.stats.to_dict(), "hasNulls": c.nulls is not None, "isMV": False}
+            if c.mv_lengths is not None:
+                regions.append((f"{c.name}.mvlen", c.mv_lengths))
+            cm = {"stats": c.stats.to_dict(), "hasNulls": c.nulls is not None, "isMV": c.mv_lengths is not None}
             if c.packed is not None:
                 cm["codeBits"] = int(c.code_bits)
             col_meta.append(cm)
@@ -391,10 +443,7 @@ class ImmutableSegment:
             stats = ColumnStats.from_dict(cm["stats"])
             name = stats.name
             dt = stats.data_type
-            if cm.get("isMV"):
-                raise NotImplementedError(
-                    f"multi-value column {name} is not ported yet (ROADMAP Queue 1 item 5)"
-                )
+            mv_lengths = regions[f"{name}.mvlen"] if cm.get("isMV") else None
             nulls = None
             if cm.get("hasNulls"):
                 nulls = np.unpackbits(np.asarray(regions[f"{name}.nulls"]), count=num_docs).astype(bool)
@@ -408,14 +457,20 @@ class ImmutableSegment:
                     packed = np.asarray(fwd)
                     codes = packing.unpack_codes(packed, bits, num_docs, dtype=min_code_dtype(dictionary.cardinality))
                 columns[name] = ColumnData(
-                    name, dt, dictionary, codes, None, nulls, stats, code_bits=bits, packed=packed,
+                    name, dt, dictionary, codes, None, nulls, stats,
+                    mv_lengths=mv_lengths, code_bits=bits, packed=packed,
                 )
             else:
-                columns[name] = ColumnData(name, dt, None, None, fwd, nulls, stats)
+                columns[name] = ColumnData(name, dt, None, None, fwd, nulls, stats, mv_lengths=mv_lengths)
         indexes: Dict[str, Dict[str, Any]] = {}
         for kind, by_col in meta.get("indexes", {}).items():
             for cname, idx_meta in by_col.items():
                 indexes.setdefault(kind, {})[cname] = load_index(kind, idx_meta, regions, f"{cname}.{kind}")
+        # text indexes evaluate phrase queries over the ORIGINAL values:
+        # rehydrate them from the column dictionary (not persisted twice)
+        for cname, idx in indexes.get("text", {}).items():
+            if cname in columns and columns[cname].dictionary is not None:
+                idx.values = columns[cname].dictionary.values
         seg = ImmutableSegment(
             name=meta["segmentName"],
             table_name=meta["tableName"],

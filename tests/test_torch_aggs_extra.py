@@ -177,7 +177,12 @@ def test_dist_engine_matches_jax(dist, batching, sql):
 
 
 def test_mv_forms_raise_naming_item_5():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pf.get_agg_function("summv")
+    """The *MV names resolve to the port's MVAggFunction over the same base
+    function as the JAX package's (they no longer raise)."""
+    for name in ("countmv", "summv", "minmv", "maxmv", "avgmv", "distinctcountmv"):
+        got, want = pf.get_agg_function(name), jf.get_agg_function(name)
+        assert isinstance(got, px.MVAggFunction) and isinstance(want, jx.MVAggFunction)
+        assert got.name == want.name == name
+        assert got.base.name == want.base.name and got.fields == want.fields
+        assert (got.mv_input, got.field_kinds, got.vector_fields) == (True, None, True)
     assert isinstance(pf.get_agg_function("distinctcountrawtheta"), px.DistinctCountThetaFunction)
-    assert isinstance(jf.get_agg_function("summv"), jx.MVAggFunction)

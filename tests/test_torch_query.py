@@ -349,14 +349,17 @@ def test_plan_cache_reuses_closure_across_literals(lineorder):
 @pytest.mark.parametrize(
     "sql",
     [
-        "SELECT SUMMV(v) FROM t",  # multi-value aggregation (item 5)
+        "SELECT SUMMV(v) FROM t",  # multi-value aggregations over single-value columns
         "SELECT DISTINCTCOUNTMV(city) FROM t",
     ],
 )
 def test_later_slices_raise_not_implemented(engines, sql):
-    _, port_engine, _ = engines
-    with pytest.raises(NotImplementedError):
-        port_engine.query(sql)
+    """Both packages refuse an *MV aggregation over a single-value column
+    with the same ValueError."""
+    jax_engine, port_engine, _ = engines
+    for eng in (jax_engine, port_engine):
+        with pytest.raises(ValueError, match="requires a multi-value column"):
+            eng.query(sql)
 
 
 def test_sparse_groupby_matches_jax(engines):

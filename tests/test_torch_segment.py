@@ -207,6 +207,14 @@ def test_posting_list_index_matches_dense(rng):
 
 
 def test_builder_refuses_multi_value_columns():
-    schema = port_schema.Schema("mv", [port_schema.FieldSpec("tags", port_schema.DataType.STRING, single_value=False)])
-    with pytest.raises(NotImplementedError):
-        port_build(schema, {"tags": [["a"], ["b", "c"]]}, "x")
+    """Multi-value columns build (no longer refused) and decode as the JAX
+    builder's: codes, lengths, dictionary and per-row tuples (None = [])."""
+    rows = [["a"], ["b", "c"], [], None, ["c", "a", "c"]]
+    schemas = [S.Schema("mv", [S.FieldSpec("tags", S.DataType.STRING, single_value=False)])
+               for S in (port_schema, jax_schema)]
+    got = port_build(schemas[0], {"tags": rows}, "x").column("tags")
+    want = jax_build(schemas[1], {"tags": rows}, "x").column("tags")
+    np.testing.assert_array_equal(got.codes, want.codes)
+    np.testing.assert_array_equal(got.mv_lengths, want.mv_lengths)
+    np.testing.assert_array_equal(got.dictionary.values, want.dictionary.values)
+    assert list(got.decoded()) == list(want.decoded()) == [("a",), ("b", "c"), (), (), ("c", "a", "c")]
