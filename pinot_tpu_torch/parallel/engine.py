@@ -53,8 +53,18 @@ here; an MV GROUP BY (the explode) raises NotImplementedError, as the JAX
 engine's does.  The stacked table holds no star-tree, JSON, text or vector
 index (as in the JAX package).
 
+GAPFILL runs here as on the segment engine: the shared reduce fills the
+reduced group-by rows.  A query run with `SET trace = true` carries `plan`
+(its shape digest and plan-cache outcome), `run` and `reduce` spans, as the
+JAX engine's does.
+
 Not ported, each raising NotImplementedError naming its ROADMAP Queue 1
 item: cross-query batching `execute_many` (item 6), joins (item 8).
+Refused with NotImplementedError, each a reference fault (ROADMAP Queue 3):
+set operations and EXPLAIN / EXPLAIN ANALYZE, which the JAX engine ignores
+(it answers the first component, or runs the query), and IN (SELECT ...),
+on which it faults with a TypeError; the broker routes them in the JAX
+package (the cluster tier, item 6).
 """
 from __future__ import annotations
 
@@ -75,7 +85,7 @@ from pinot_tpu_torch.query import executor, planner
 from pinot_tpu_torch.query import reduce as reduce_mod
 from pinot_tpu_torch.query.filter import FilterCompiler
 from pinot_tpu_torch.query.functions import FIELD_COMBINE, combine_field, for_spec
-from pinot_tpu_torch.query.ir import Expr, QueryContext
+from pinot_tpu_torch.query.ir import Expr, FilterNode, FilterOp, QueryContext, Subquery
 from pinot_tpu_torch.query.planner import GroupDim
 from pinot_tpu_torch.query.result import (
     AggSegmentResult,
@@ -88,12 +98,20 @@ from pinot_tpu_torch.query.result import (
 from pinot_tpu_torch.query.shape import column_info_from, params_structure, shape_digest
 from pinot_tpu_torch.segment.residency import default_residency
 from pinot_tpu_torch.utils import perf
-from pinot_tpu_torch.utils.metrics import METRICS
+from pinot_tpu_torch.utils.metrics import METRICS, Trace
 
 
 # the launch schedule's params: a launch's first doc column, and its first
 # column not covered by an earlier launch
 _SCHEDULE_PARAMS = ("__boff__", "__fresh__")
+
+
+def _has_subquery(node: Optional[FilterNode]) -> bool:
+    if node is None:
+        return False
+    if node.op is FilterOp.PRED:
+        return any(isinstance(v, Subquery) for v in node.predicate.values or ())
+    return any(_has_subquery(c) for c in node.children)
 
 
 def flatten_cols(cols):
@@ -226,9 +244,23 @@ class DistributedEngine:
             raise NotImplementedError(
                 "joins (the multi-stage engine) are a later slice of the port (ROADMAP Queue 1 item 8)"
             )
-        if ctx.set_ops or ctx.gapfill is not None:
-            raise NotImplementedError("set operations and gap-filling are later slices of the port")
+        if ctx.set_ops:
+            raise NotImplementedError(
+                "set operations on the distributed engine: the JAX engine ignores them and answers the "
+                "first component (a reference fault, ROADMAP Queue 3); run them on the segment engine"
+            )
+        if ctx.options.get("__explain__") or ctx.options.get("__analyze__"):
+            raise NotImplementedError(
+                "EXPLAIN on the distributed engine: the JAX engine ignores it and runs the query "
+                "(a reference fault, ROADMAP Queue 3); run it on the segment engine"
+            )
+        if _has_subquery(ctx.filter) or _has_subquery(ctx.having):
+            raise NotImplementedError(
+                "IN (SELECT ...) on the distributed engine: the JAX engine fails on it with a TypeError "
+                "(a reference fault, ROADMAP Queue 3); run it on the segment engine"
+            )
         t0 = time.perf_counter()
+        trace = Trace(bool(ctx.options.get("trace", False)))
         if ctx.table not in self.tables:
             raise KeyError(f"table {ctx.table!r} not registered (have {list(self.tables)})")
         stacked = self.tables[ctx.table]
@@ -240,20 +272,27 @@ class DistributedEngine:
             total_docs=stacked.num_docs,
         )
         misses = self.plan_misses
-        plan = self._plan(ctx, stacked)
-        cache_hit = self.plan_misses == misses
+        shape_fp = ctx.shape_fingerprint(column_info_from(stacked))
+        with trace.span("plan") as psp:
+            plan = self._plan(ctx, stacked)
+            cache_hit = self.plan_misses == misses
+            if psp is not None:
+                psp.annotate(shapeFp=shape_digest(shape_fp), planCache="hit" if cache_hit else "miss")
         if not cache_hit:
             stats.compile_ms = (time.perf_counter() - t0) * 1000.0
         stats.add_index_uses(plan.index_uses)
-        result = self._run(ctx, plan, stacked, stats)
-        out = reduce_mod.reduce_results(ctx, [result], stats)
+        with trace.span("run"):
+            result = self._run(ctx, plan, stacked, stats)
+        with trace.span("reduce"):
+            out = reduce_mod.reduce_results(ctx, [result], stats)
+        out.stats.trace = trace.finish()
         out.stats.time_ms = (time.perf_counter() - t0) * 1000
         out.stats.query_id = f"dist_{next(self._qid_seq)}"
         METRICS.counter("dist.queries").inc()
         METRICS.histogram("dist.queryLatency").update(out.stats.time_ms)
         perf.PERF_LEDGER.record(
             ctx.table,
-            shape_digest(ctx.shape_fingerprint(column_info_from(stacked))),
+            shape_digest(shape_fp),
             rows=out.stats.num_docs_scanned,
             time_ms=out.stats.time_ms,
             kernel_bytes=out.stats.kernel_bytes,

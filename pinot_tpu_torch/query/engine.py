@@ -1,9 +1,26 @@
 """In-process query engine: table registry + execute (broker + server in one).
 
-Port of pinot_tpu/query/engine.py for single-table SQL on one device:
-register_table / add_segment / execute / query.  Execution is pipelined as
-in the JAX package — every segment's work is launched (queued on the CUDA
-stream) before the first result is collected — then the host reduce runs.
+Port of pinot_tpu/query/engine.py for single-table SQL on one device.
+`execute` runs the JAX engine's steps in its order: environment option
+defaults (spi/env.py); EXPLAIN PLAN FOR (runs nothing) and EXPLAIN ANALYZE
+(the query traced, joined with its operator tree, query/analyze.py);
+`IN (SELECT ...)` subqueries resolved by running them; UNION [ALL] /
+INTERSECT / EXCEPT over component results; the query's deadline
+(`timeoutMs`, query/safety.py); its trace (`SET trace = true`); admission
+(the estimated device bytes, charged through the workload scheduler, then
+the memory accountant, released in `finally`); then pipelined execution —
+every segment's work is launched (queued on the CUDA stream) before the
+first result is collected, a deadline check before each launch and each
+collect — and the host reduce, which also applies GAPFILL.  A traced query
+has one `launch:<segment>` span a segment (analytic kernel bytes, flops and
+their cost source), one `device_wait` span around a single fence over every
+pending output (on CUDA an event recorded after the last launch; on the CPU
+nothing to wait for), then `collect` spans and a `reduce` span.  On CUDA the
+fence's event and one recorded before the first launch time the launches'
+device span (`deviceMs`, `stats.device_ms`), and the launches' analytic
+bytes over it give `rooflinePct`.  `query` records each finished or
+failed query in the slow-query log; `sql` adds the DDL statements
+(sql/ddl.py).
 
 Schema evolution: before a segment is planned, `ensure_columns` gives it
 the TABLE schema's fields that it lacks (older segments read them as SQL
@@ -13,16 +30,11 @@ kernel bytes/s per table and shape), which the residency tier reads as
 eviction heat.
 
 ``QueryEngine(device=None)`` runs on CUDA and raises without it;
-``device="cpu"`` runs the plain PyTorch path.  Aggregations, group-bys
-(over columns and expressions, with FILTER (WHERE ...)), and selections
-(columns, expressions, ORDER BY, OFFSET, window functions) run, and the
-sketch and extended aggregations, whose per-column bindings read the
-table-global ranges and dictionary consensus injected before planning
-(``_inject_global_ranges``); multi-value columns (ANY-semantics filters,
-the *MV aggregations, the GROUP BY explode, UNNEST), star-tree segments and
-the TEXT_MATCH / JSON_MATCH / VECTOR_SIMILARITY predicates too; EXPLAIN,
-subqueries, set operations, joins and gap-filling are later slices of the
-port.
+``device="cpu"`` runs the plain PyTorch path.  Left out: the JAX engine's
+plan-time static check (`analysis.plan_check.check_plan`, ROADMAP Queue 1
+item 9), so a malformed query fails later, in planning, with the port's own
+error; realtime tables (`attach_realtime`, item 11); joins (item 8) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -31,16 +43,27 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+import torch
+
 from pinot_tpu_torch.device import DeviceLike, resolve_device
 from pinot_tpu_torch.query import executor, planner, reduce as reduce_mod
 from pinot_tpu_torch.query.functions import for_spec
-from pinot_tpu_torch.query.ir import Expr, QueryContext
+from pinot_tpu_torch.query.ir import Expr, FilterNode, FilterOp, Predicate, QueryContext, Subquery
 from pinot_tpu_torch.query.result import ExecutionStats, ResultTable
+from pinot_tpu_torch.query.safety import (
+    Deadline,
+    MemoryAccountant,
+    WorkloadScheduler,
+    estimate_segment_bytes,
+)
 from pinot_tpu_torch.query.shape import shape_digest
 from pinot_tpu_torch.segment.segment import ImmutableSegment
 from pinot_tpu_torch.spi.config import TableConfig
+from pinot_tpu_torch.spi.env import apply_env_defaults
 from pinot_tpu_torch.spi.schema import Schema
 from pinot_tpu_torch.utils import perf
+from pinot_tpu_torch.utils.metrics import METRICS, Trace
+from pinot_tpu_torch.utils.slowlog import SlowQueryLog
 
 
 @dataclass
@@ -51,10 +74,15 @@ class TableState:
 
 
 class QueryEngine:
-    def __init__(self, device: DeviceLike = None) -> None:
+    def __init__(
+        self, device: DeviceLike = None, memory_budget_bytes: int = 8 << 30, secondary_slots: int = 2
+    ) -> None:
         self.device = resolve_device(device)
         self.tables: Dict[str, TableState] = {}
+        self.accountant = MemoryAccountant(memory_budget_bytes)
+        self.scheduler = WorkloadScheduler(secondary_slots)
         self._qid_seq = itertools.count(1)
+        self.slow_queries = SlowQueryLog()
 
     # -- table registry (controller-lite) -------------------------------
     def register_table(self, schema: Schema, config: Optional[TableConfig] = None) -> None:
@@ -71,42 +99,115 @@ class QueryEngine:
 
     # -- execution -------------------------------------------------------
     def execute(self, ctx: QueryContext) -> ResultTable:
-        if ctx.joins or ctx.set_ops or ctx.gapfill is not None:
+        apply_env_defaults(ctx.options)
+        if ctx.options.get("__explain__"):
+            # explain never executes anything — not subqueries, not set-op
+            # components (per-component explains would union)
+            return self._explain(ctx, self.table(ctx.table).segments)
+        if ctx.options.get("__analyze__"):
+            return self._explain_analyze(ctx)
+        resolve_subqueries(ctx, self.execute)
+        if ctx.set_ops:
+            return apply_set_ops(ctx, self.execute)
+        if ctx.joins:
             raise NotImplementedError(
-                "joins, set operations and gap-filling are later slices of the port"
+                "JOIN queries are a later slice of the port (MSE joins, ROADMAP Queue 1 item 8)"
             )
         t0 = time.perf_counter()
+        deadline = Deadline.from_ctx(ctx)
+        req_id = f"engine_{next(self._qid_seq)}"
+        trace = Trace(bool(ctx.options.get("trace", False)), query_id=req_id)
+        METRICS.counter("queries").inc()
         state = self.table(ctx.table)
-        self._inject_global_ranges(ctx, state.segments)
+        segments = state.segments
+        self._inject_global_ranges(ctx, segments)
+        # admission: charge the estimated device bytes up front (safety.py),
+        # counting only the columns the query actually ships
+        est = sum(estimate_segment_bytes(ctx, seg, planner._needed_columns(ctx, seg)) for seg in segments)
+        # workload tier gate first: secondary queries wait for a slot before
+        # charging memory
+        release_slot = self.scheduler.acquire(ctx, deadline)
+        try:
+            qid = self.accountant.acquire(est)
+        except BaseException:
+            release_slot()
+            raise
         stats = ExecutionStats()
         star = any(isinstance(s, Expr) and s.is_column and s.op == "*" for s in ctx.select_list)
-        pending = []
-        for seg in state.segments:
-            stats.num_segments_queried += 1
-            stats.total_docs += seg.num_docs
-            # schema evolution: fields added to the table schema after this
-            # segment was built read as NULL; SELECT * covers the FULL table
-            # schema, not the segment's
-            needed = planner._needed_columns(ctx, seg)
-            if star:
-                needed = list(dict.fromkeys(list(needed) + state.schema.column_names))
-            seg.ensure_columns(state.schema, needed)
-            if executor.prune_segment(ctx, seg):
-                stats.num_segments_pruned += 1
-                continue
-            pending.append(executor.launch_segment(ctx, seg, self.device))
-        results = []
-        for st in pending:
-            res, seg_stats = executor.collect_segment(st)
-            stats.num_segments_processed += 1
-            stats.num_docs_scanned += seg_stats.num_docs_scanned
-            stats.add_index_uses(seg_stats.filter_index_uses)
-            stats.bytes_to_host += seg_stats.bytes_to_host
-            stats.kernel_bytes += seg_stats.kernel_bytes
-            results.append(res)
-        out = reduce_mod.reduce_results(ctx, results, stats)
+        # a traced query on the card marks the stream before its first launch:
+        # the device time of its launches is the span to the fence's event
+        t_dev = self._stream_event() if trace.enabled else None
+        try:
+            pending = []
+            for seg in segments:
+                deadline.check(f"query on {ctx.table}")
+                stats.num_segments_queried += 1
+                stats.total_docs += seg.num_docs
+                # schema evolution: fields added to the table schema after
+                # this segment was built read as NULL; SELECT * covers the
+                # FULL table schema, not the segment's
+                needed = planner._needed_columns(ctx, seg)
+                if star:
+                    needed = list(dict.fromkeys(list(needed) + state.schema.column_names))
+                seg.ensure_columns(state.schema, needed)
+                if executor.prune_segment(ctx, seg):
+                    stats.num_segments_pruned += 1
+                    continue
+                with trace.span(f"launch:{seg.name}") as lsp:
+                    st = executor.launch_segment(ctx, seg, self.device)
+                    pending.append(st)
+                if lsp is not None and st[0] != "star":
+                    # the cost model on the launch span: EXPLAIN ANALYZE and
+                    # the trace view read these attributes
+                    lst = st[4]
+                    lsp.annotate(
+                        kernelBytes=lst.kernel_bytes,
+                        kernelFlops=lst.kernel_flops,
+                        costSource=lst.kernel_cost_source,
+                    )
+            if trace.enabled:
+                # device/host time split: ONE fence over every pending output
+                # (trace only — untraced, collect's copy home is the fence)
+                pend_bytes = sum(st[4].kernel_bytes for st in pending if st[0] != "star")
+                with trace.span("device_wait", launches=len(pending)) as wsp:
+                    t_end = self._stream_event() if executor.pending_outputs(pending) else None
+                    if t_end is not None:
+                        t_end.synchronize()
+                if t_dev is not None and t_end is not None:
+                    # the device timeline from the first launch to the last
+                    # one's end (idle gaps included): the roofline's time.
+                    # On the CPU the launches ran inside their spans and no
+                    # device time exists to rate against the card's peak.
+                    stats.device_ms = t_dev.elapsed_time(t_end)
+                    roof = perf.roofline_pct(pend_bytes, stats.device_ms / 1000.0)
+                    wsp.annotate(deviceMs=round(stats.device_ms, 3),
+                                 **({"rooflinePct": round(roof, 2)} if roof is not None else {}))
+                wsp.annotate(kernelBytes=pend_bytes)
+            results = []
+            for st in pending:
+                deadline.check(f"query on {ctx.table}")
+                with trace.span("collect"):
+                    res, seg_stats = executor.collect_segment(st)
+                stats.num_segments_processed += 1
+                stats.num_docs_scanned += seg_stats.num_docs_scanned
+                stats.add_index_uses(seg_stats.filter_index_uses)
+                stats.bytes_to_host += seg_stats.bytes_to_host
+                stats.add_kernel_cost(seg_stats)
+                results.append(res)
+            deadline.check(f"query on {ctx.table}")
+            with trace.span("reduce"):
+                out = reduce_mod.reduce_results(ctx, results, stats)
+        except Exception:
+            METRICS.counter("queryExceptions").inc()
+            raise
+        finally:
+            self.accountant.release(qid)
+            release_slot()
         out.stats.time_ms = (time.perf_counter() - t0) * 1000
-        out.stats.query_id = f"engine_{next(self._qid_seq)}"
+        out.stats.query_id = req_id
+        out.stats.trace = trace.finish()
+        METRICS.histogram("queryLatency").update(out.stats.time_ms)
+        METRICS.counter("docsScanned").inc(stats.num_docs_scanned)
         perf.PERF_LEDGER.record(
             ctx.table,
             shape_digest(ctx.shape_fingerprint()),
@@ -116,6 +217,71 @@ class QueryEngine:
             engine="sse",  # no compile step and no plan-cache outcome on this engine
         )
         return out
+
+    def _stream_event(self):
+        """A timing event recorded on the engine's CUDA stream now (what the
+        trace fence waits on and times with); None on the CPU, where the
+        launches have finished when they return."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _explain_analyze(self, ctx: QueryContext) -> ResultTable:
+        """EXPLAIN ANALYZE: run the query with tracing forced, then join the
+        static operator tree with the measured span tree (query.analyze)."""
+        from pinot_tpu_torch.query.analyze import analyze_result
+
+        ctx.options.pop("__analyze__", None)
+        ctx.options["trace"] = True
+        for _op, _all, rhs in ctx.set_ops:
+            rhs.options.pop("__analyze__", None)
+            rhs.options["trace"] = True
+        executed = self.execute(ctx)
+        return analyze_result(self._explain(ctx, self.table(ctx.table).segments), executed)
+
+    def _explain(self, ctx: QueryContext, segments) -> ResultTable:
+        """EXPLAIN PLAN FOR: per-shape operator tree rows (Pinot's explain
+        table: Operator / Operator_Id / Parent_Id).  Plans the first segment
+        on the host; nothing is shipped or launched."""
+        rows = [("BROKER_REDUCE(" + ("sort/limit" if ctx.order_by else "limit") + ")", 1, 0)]
+        if not segments:
+            return ResultTable(columns=["Operator", "Operator_Id", "Parent_Id"], rows=rows, stats=ExecutionStats())
+        plan = planner.plan_segment(ctx, segments[0], self.device)
+        oid = 2
+        rows.append((f"COMBINE_{plan.kind.upper()}", oid, 1))
+        parent = oid
+        oid += 1
+        if plan.kind == "aggregation":
+            rows.append((f"AGGREGATE({', '.join(str(a) for a in ctx.aggregations)})", oid, parent))
+        elif plan.kind.startswith("groupby"):
+            rows.append(
+                (
+                    f"GROUP_BY(keys: {', '.join(str(g) for g in ctx.group_by)}; "
+                    f"{'dense' if plan.kind == 'groupby_dense' else 'sparse'} table {plan.num_groups})",
+                    oid,
+                    parent,
+                )
+            )
+        else:
+            rows.append((f"SELECT(columns: {', '.join(plan.select_columns)})", oid, parent))
+        parent = oid
+        oid += 1
+        # a selection ships its filter columns and gathers the selected ones
+        # on the host from the matched ids: PROJECT names every column read
+        project = planner._needed_columns(ctx, segments[0]) if plan.kind == "selection" else plan.needed_columns
+        rows.append((f"PROJECT({', '.join(project)})", oid, parent))
+        parent = oid
+        oid += 1
+        if plan.index_uses:
+            uses = ", ".join(f"{c}:{k}" for c, k in plan.index_uses)
+            rows.append((f"FILTER_INDEX({uses})", oid, parent))
+        elif ctx.filter is not None:
+            rows.append((f"FILTER_SCAN({ctx.filter.fingerprint()[:80]})", oid, parent))
+        else:
+            rows.append(("FILTER_MATCH_ALL", oid, parent))
+        return ResultTable(columns=["Operator", "Operator_Id", "Parent_Id"], rows=rows, stats=ExecutionStats())
 
     @staticmethod
     def _inject_global_ranges(ctx: QueryContext, segments: List[ImmutableSegment]) -> None:
@@ -159,7 +325,115 @@ class QueryEngine:
                     ctx.options.setdefault(f"__dictvals__{col}", dict_values)
 
     def query(self, sql: str) -> ResultTable:
-        """SQL front door."""
+        """SQL front door; finished and failed requests land in the
+        slow-query ring (utils/slowlog.py)."""
         from pinot_tpu_torch.sql.parser import parse_query
 
-        return self.execute(parse_query(sql))
+        ctx = parse_query(sql)
+        if ctx.options.get("__explain__"):
+            return self.execute(ctx)  # plan-only: not served
+        fp = ctx.fingerprint()
+        try:
+            out = self.execute(ctx)
+        except Exception as e:
+            self.slow_queries.record(sql, fp, None, error=f"{type(e).__name__}: {e}")
+            raise
+        self.slow_queries.record(sql, fp, out)
+        return out
+
+    def sql(self, statement: str) -> ResultTable:
+        """DDL + query front door (the pinot-sql-ddl controller resource)."""
+        from pinot_tpu_torch.sql.ddl import is_ddl, parse_ddl, show_create_table
+
+        if not is_ddl(statement):
+            return self.query(statement)
+        stmt = parse_ddl(statement)
+        if stmt.kind == "create_table":
+            self.register_table(stmt.schema, stmt.config)
+            return ResultTable(columns=["status"], rows=[(f"created {stmt.table}",)], stats=ExecutionStats())
+        if stmt.kind == "drop_table":
+            if stmt.table not in self.tables:
+                raise KeyError(f"table {stmt.table!r} not found")
+            del self.tables[stmt.table]
+            return ResultTable(columns=["status"], rows=[(f"dropped {stmt.table}",)], stats=ExecutionStats())
+        if stmt.kind == "show_tables":
+            return ResultTable(
+                columns=["tableName"], rows=[(n,) for n in sorted(self.tables)], stats=ExecutionStats()
+            )
+        state = self.table(stmt.table)
+        return ResultTable(
+            columns=["createTable"],
+            rows=[(show_create_table(state.schema, state.config),)],
+            stats=ExecutionStats(),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Engine-agnostic rewrites
+# ---------------------------------------------------------------------------
+def resolve_subqueries(ctx: QueryContext, exec_fn) -> None:
+    """IN (SELECT ...) semi-joins: run the subquery, substitute its first
+    output column as the IN value set (the reference's semi-join rewrite in
+    the Calcite planner).  An unspecified subquery LIMIT bumps to the
+    semi-join valve instead of Pinot's cosmetic default 10."""
+
+    def rewrite(node):
+        if node is None:
+            return None
+        if node.op is FilterOp.PRED:
+            p = node.predicate
+            if p is not None and p.values and isinstance(p.values[0], Subquery):
+                sub = p.values[0].ctx
+                if not sub.options.get("__hasExplicitLimit__", False):
+                    sub.limit = int(ctx.options.get("inSubqueryLimit", 1_000_000))
+                res = exec_fn(sub)
+                vals = tuple(sorted({r[0] for r in res.rows if r[0] is not None}))
+                return FilterNode.pred(
+                    Predicate(p.ptype, p.lhs, values=vals)
+                    if vals
+                    else Predicate(p.ptype, p.lhs, values=("\x00__nomatch__",))
+                )
+            return node
+        children = tuple(rewrite(c) for c in node.children)
+        return FilterNode(node.op, children=children, predicate=node.predicate)
+
+    ctx.filter = rewrite(ctx.filter)
+    if ctx.having is not None:
+        ctx.having = rewrite(ctx.having)
+
+
+def apply_set_ops(ctx: QueryContext, exec_fn) -> ResultTable:
+    """UNION [ALL] / INTERSECT / EXCEPT over component results (the MSE
+    SetOperator analog, executed at the broker-reduce level)."""
+    ops = ctx.set_ops
+    ctx.set_ops = []
+    try:
+        base = exec_fn(ctx)
+        rows = list(base.rows)
+        for op, all_flag, rhs_ctx in ops:
+            rhs = exec_fn(rhs_ctx)
+            if rhs.columns and base.columns and len(rhs.columns) != len(base.columns):
+                raise ValueError(
+                    f"set operation arity mismatch: {len(base.columns)} vs {len(rhs.columns)} columns"
+                )
+            if op == "union" and all_flag:
+                rows = rows + list(rhs.rows)
+            elif op == "union":
+                seen = set()
+                out = []
+                for r in rows + list(rhs.rows):
+                    if r not in seen:
+                        seen.add(r)
+                        out.append(r)
+                rows = out
+            elif op == "intersect":
+                rset = set(rhs.rows)
+                seen = set()
+                rows = [r for r in rows if r in rset and not (r in seen or seen.add(r))]
+            else:  # except
+                rset = set(rhs.rows)
+                seen = set()
+                rows = [r for r in rows if r not in rset and not (r in seen or seen.add(r))]
+        return ResultTable(columns=base.columns, rows=rows, stats=base.stats)
+    finally:
+        ctx.set_ops = ops

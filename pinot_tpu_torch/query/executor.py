@@ -129,13 +129,28 @@ def launch_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.d
     )
     plan = planner.plan_segment(ctx, segment, device)
     stats.filter_index_uses = tuple(plan.index_uses)
-    stats.kernel_bytes = segment.num_docs * perf.analytic_bytes_per_row(
-        segment.column(n) for n in plan.needed_columns
+    cost = perf.analytic_cost(
+        segment.num_docs,
+        perf.analytic_bytes_per_row(segment.column(n) for n in plan.needed_columns),
+        kind=plan.kind,
+        num_groups=plan.num_groups,
+        num_entries=len(plan.aggs),
     )
+    stats.kernel_bytes = cost.bytes_accessed
+    stats.kernel_flops = cost.flops
+    stats.kernel_cost_source = cost.source
     cols = segment.to_device(device, columns=plan.needed_columns, packed_codes=True)
     params = {k: _param_tensor(v, device) for k, v in plan.params.items()}
     out = plan.fn(cols, params, device)
     return ctx, segment, plan, out, stats
+
+
+def pending_outputs(states) -> list:
+    """Device outputs of the not-yet-collected launch states (a star-tree
+    answer has none): what the trace fence waits for, once over all of
+    them, never per launch (a fence in the launch loop would serialise the
+    pipeline)."""
+    return [st[3] for st in states if st[0] != "star"]
 
 
 def _to_host(x):

@@ -1,9 +1,8 @@
 """Query IR: expressions, predicates, filter tree, query context.
 
-Copy of pinot_tpu/query/ir.py (host-only) without the gap-fill, subquery
-and join node types: the single-table slices' parser never builds them.
-QueryContext keeps every field, so fingerprints are the JAX package's byte
-for byte.  Reference parity: the Thrift query IR PinotQuery/Expression
+Copy of pinot_tpu/query/ir.py (host-only) without the join clause type
+(the multi-stage engine's slice).  QueryContext keeps every field, so
+fingerprints are the JAX package's byte for byte.  Reference parity: the Thrift query IR PinotQuery/Expression
 (pinot-common/src/thrift/query.thrift:21,57) and pinot-core's QueryContext
 (pinot-core/.../core/query/request/context/QueryContext.java) — the engine's
 internal representation that the SQL parser produces and the planner consumes.
@@ -288,6 +287,37 @@ class WindowSpec:
         return f"{self.function}() OVER (...)"
 
 
+@dataclass(frozen=True)
+class GapfillSpec:
+    """GAPFILL(time_expr, start, end, step [, FILL(target, 'mode')...
+    [, TIMESERIESON(key...)]]) — post-reduce time-bucket gap filling
+    (reference: pinot-core/.../core/query/reduce/GapfillProcessor.java,
+    SumAvgGapfillProcessor.java, GapfillUtils fill modes).
+
+    Buckets [start, end) stepping by step are emitted for every observed
+    series (the TIMESERIESON key combination); missing cells fill per mode:
+    FILL_PREVIOUS_VALUE carries the series' last seen value, default NULL."""
+
+    time_expr: Expr
+    start: int
+    end: int
+    step: int
+    fills: Tuple[Tuple[Expr, str], ...] = ()  # (target, FILL_* mode)
+    series: Tuple[Expr, ...] = ()
+
+
+@dataclass(frozen=True)
+class Subquery:
+    """IN (SELECT ...) marker carried inside Predicate.values until the
+    engine resolves it (semi-join rewrite, reference: Calcite semi-join /
+    IN-subquery planning in QueryEnvironment)."""
+
+    ctx: "QueryContext"
+
+    def __repr__(self) -> str:
+        return f"Subquery({self.ctx.table})"
+
+
 @dataclass
 class QueryContext:
     """Everything the engine needs for one query (QueryContext.java analog).
@@ -300,8 +330,8 @@ class QueryContext:
     select_list: List[Union[Expr, AggregationSpec]]
     select_aliases: List[Optional[str]] = dc_field(default_factory=list)
     table_alias: Optional[str] = None
-    # joins / set_ops / gapfill are never set by this slice's parser; they
-    # stay so fingerprints match the JAX package's
+    # joins are never set by the port's parser (the multi-stage engine's
+    # slice); the field stays so fingerprints match the JAX package's
     joins: List[Any] = dc_field(default_factory=list)
     filter: Optional[FilterNode] = None
     group_by: List[Expr] = dc_field(default_factory=list)
@@ -320,7 +350,7 @@ class QueryContext:
     # op in {"union", "intersect", "except"} (MSE SetOperator analog)
     set_ops: List[tuple] = dc_field(default_factory=list)
     # time-bucket gap filling applied post-reduce (GapfillProcessor analog)
-    gapfill: Optional[Any] = None
+    gapfill: Optional[GapfillSpec] = None
 
     @property
     def aggregations(self) -> List[AggregationSpec]:

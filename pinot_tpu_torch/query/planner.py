@@ -53,7 +53,7 @@ from pinot_tpu_torch.ops.sparse_merge import SPARSE_EMPTY_KEY
 from pinot_tpu_torch.query import scalar
 from pinot_tpu_torch.query.filter import FilterCompiler
 from pinot_tpu_torch.query.functions import FIELD_COMBINE, AggFunction, field_identity, for_spec
-from pinot_tpu_torch.query.ir import AggregationSpec, Expr, QueryContext, WindowSpec
+from pinot_tpu_torch.query.ir import AggregationSpec, Expr, ExprKind, QueryContext, WindowSpec
 from pinot_tpu_torch.query.transform import as_row_array, column_values, device_constant, eval_expr
 from pinot_tpu_torch.query.shape import column_info_from, params_structure
 from pinot_tpu_torch.segment import packing
@@ -73,7 +73,9 @@ class GroupDim:
       dict    - dictionary codes of a column
       rawint  - integer column values shifted by base
       expr    - integer-valued device expression shifted by base (range
-                bounded statically by scalar.expr_int_range)
+                bounded statically by scalar.expr_int_range) and divided by
+                its value step (`x - MOD(x, k)` takes only multiples of k:
+                the time-bucket key of timeseries/engine.py)
       derived - dict column remapped through a host-computed derived
                 dictionary (string functions: code -> remap[code], decoded
                 via derived_values)
@@ -85,6 +87,7 @@ class GroupDim:
     cardinality: int
     dictionary: Optional[Any] = None  # Dictionary for kind=dict
     base: int = 0  # min value for kind=rawint/expr
+    step: int = 1  # kind=expr: every value is base + code * step
     null_code: int = -1  # code representing SQL NULL (placeholder), -1 if none
     derived_values: Optional[np.ndarray] = None  # kind=derived decode table
     remap: Optional[np.ndarray] = None  # kind=derived code remap (int32)
@@ -99,7 +102,7 @@ class GroupDim:
         elif self.kind == "derived":
             vals = self.derived_values[np.minimum(np.asarray(codes), len(self.derived_values) - 1)]
         else:
-            vals = codes.astype(np.int64) + self.base
+            vals = codes.astype(np.int64) * self.step + self.base
         if self.null_code >= 0:
             vals = np.asarray(vals, dtype=object)
             vals[np.asarray(codes) == self.null_code] = None
@@ -116,7 +119,10 @@ class GroupDim:
             remap = device_constant(self.remap, dev)
             return remap[cols[self.name]["codes"].to(torch.int64)].to(dtype)
         v, _ = eval_expr(self.expr, segment, cols, dev)
-        return (v.to(torch.int64) - self.base).to(dtype)
+        code = v.to(torch.int64) - self.base
+        if self.step > 1:
+            code = torch.div(code, self.step, rounding_mode="floor")
+        return code.to(dtype)
 
 
 def group_strides(group_dims: List[GroupDim]) -> List[int]:
@@ -419,11 +425,34 @@ def _group_dim(expr: Expr, segment: ImmutableSegment, null_handling: bool) -> Gr
     rng = scalar.expr_int_range(expr, segment)
     if rng is not None:
         lo, hi = rng
+        step = _value_step(expr)
+        # the multiples of the step inside the conservative [lo, hi] hold
+        # every value the expression takes
+        slo, shi = -(-lo // step) * step, hi // step * step
+        if step > 1 and slo <= shi:
+            return GroupDim(expr, str(expr), "expr", (shi - slo) // step + 1, base=slo, step=step)
         return GroupDim(expr, str(expr), "expr", hi - lo + 1, base=lo)
     raise NotImplementedError(
         f"group-by expression {expr} is not supported: its integer range cannot be "
         "bounded from column stats and it is not a dictionary string function"
     )
+
+
+def _value_step(expr: Expr) -> int:
+    """k when `expr` is `x - MOD(x, k)` for an integer literal k != 0 (its
+    values are multiples of k under either sign convention of MOD: x = q*k
+    + MOD(x, k)); else 1."""
+    if expr.kind is not ExprKind.CALL or expr.op != "minus" or len(expr.args) != 2:
+        return 1
+    x, m = expr.args
+    if not (isinstance(m, Expr) and m.kind is ExprKind.CALL and m.op == "mod" and len(m.args) == 2):
+        return 1
+    k = m.args[1]
+    if not (k.is_literal and isinstance(k.value, (int, np.integer)) and not isinstance(k.value, bool)):
+        return 1
+    if m.args[0].fingerprint() != x.fingerprint() or int(k.value) == 0:
+        return 1
+    return abs(int(k.value))
 
 
 def agg_vranges(agg_specs, table_like) -> List[Optional[Tuple[int, int]]]:

@@ -3,7 +3,8 @@
 Trimmed copy of pinot_tpu/query/reduce.py (host-only numpy): the
 aggregation, group-by and selection reducers with HAVING, ORDER BY, OFFSET,
 LIMIT, post-aggregation arithmetic and window functions (computed here,
-over the merged selection rows).  Gap-filling comes with its slice.  Reference parity: BrokerReduceService.reduceOnDataTable
+over the merged selection rows), and GAPFILL over the reduced group-by rows
+(both engines reduce through here, so both fill).  Reference parity: BrokerReduceService.reduceOnDataTable
 (pinot-core/.../query/reduce/BrokerReduceService.java:65) and its per-shape
 reducers (GroupByDataTableReducer, AggregationDataTableReducer,
 SelectionDataTableReducer) + PostAggregationHandler/HAVING handling.
@@ -181,8 +182,113 @@ def _reduce_groupby(ctx: QueryContext, results: List[GroupBySegmentResult], stat
         out_cols.append(_eval_env_expr(s, env, n) if isinstance(s, Expr) else env[s.fingerprint()])
 
     rows = _rows_from_columns(out_cols, n)
-    rows = _order_and_trim(ctx, rows, [s.fingerprint() for s in ctx.select_list], env, n)
+    if ctx.gapfill is not None:
+        rows = _apply_gapfill(ctx, rows)
+        if ctx.order_by:
+            rows = _order_rows_by_select(ctx, rows)
+        rows = rows[ctx.offset: ctx.offset + ctx.limit]
+    else:
+        rows = _order_and_trim(ctx, rows, [s.fingerprint() for s in ctx.select_list], env, n)
     return ResultTable(columns=ctx.column_names_out(), rows=rows, stats=stats)
+
+
+def _gapfill_select_pos(ctx, e) -> int:
+    """Resolve a GAPFILL argument expression to its select-list position
+    (by fingerprint, then by alias name)."""
+    fps = [s.fingerprint() for s in ctx.select_list]
+    fp = e.fingerprint()
+    if fp in fps:
+        return fps.index(fp)
+    if e.is_column and e.op in ctx.select_aliases:
+        return ctx.select_aliases.index(e.op)
+    # plain-call form of a selected aggregation: FILL(SUM(v), ...)
+    for i, s in enumerate(ctx.select_list):
+        if isinstance(s, AggregationSpec) and s.filter is None:
+            args = ([s.expr] if s.expr is not None else []) + [Expr.lit(a) for a in s.literal_args]
+            if Expr.call(s.function, *args).fingerprint() == fp:
+                return i
+            if s.expr is None and not s.literal_args and (
+                Expr.call(s.function, Expr.col("*")).fingerprint() == fp
+            ):
+                return i
+    raise ValueError(f"GAPFILL references {e}, which is not in the select list")
+
+
+def _apply_gapfill(ctx, rows: List[tuple]) -> List[tuple]:
+    """Time-bucket gap filling over reduced group-by rows — the
+    GapfillProcessor contract (pinot-core/.../core/query/reduce/
+    GapfillProcessor.java): emit every bucket in [start, end) stepping by
+    step for every observed TIMESERIESON key combination; missing cells
+    fill per FILL mode (FILL_PREVIOUS_VALUE carries the series' last seen
+    value; default NULL).  Buckets outside the range are dropped."""
+    gf = ctx.gapfill
+    tpos = _gapfill_select_pos(ctx, gf.time_expr)
+    spos = [_gapfill_select_pos(ctx, s) for s in gf.series]
+    fill_modes = {_gapfill_select_pos(ctx, t): mode for t, mode in gf.fills}
+    ncol = len(ctx.select_list)
+    cell: Dict[tuple, tuple] = {}
+    series_seen: List[tuple] = []
+    sset = set()
+    for r in rows:
+        b = r[tpos]
+        if b is None:
+            continue
+        b = int(b)
+        sk = tuple(r[i] for i in spos)
+        if sk not in sset:
+            sset.add(sk)
+            series_seen.append(sk)
+        if gf.start <= b < gf.end and (b - gf.start) % gf.step == 0:
+            cell[(b, sk)] = r
+    if not series_seen:
+        series_seen = [()] if not spos else []
+    # FILL_DEFAULT_VALUE fills the column's TYPE default (0 for numeric, ""
+    # for strings — GapfillUtils.getDefaultValue), inferred from observed
+    # values; columns without a FILL spec stay NULL
+    defaults: Dict[int, Any] = {}
+    for i, mode in fill_modes.items():
+        if mode != "FILL_DEFAULT_VALUE":
+            continue
+        defaults[i] = 0
+        for r in rows:
+            if r[i] is not None:
+                defaults[i] = "" if isinstance(r[i], str) else 0
+                break
+    prev: Dict[tuple, Dict[int, Any]] = {sk: {} for sk in series_seen}
+    out: List[tuple] = []
+    for b in range(gf.start, gf.end, gf.step):
+        for sk in series_seen:
+            r = cell.get((b, sk))
+            if r is not None:
+                out.append(tuple(b if i == tpos else v for i, v in enumerate(r)))
+                for i in range(ncol):
+                    prev[sk][i] = r[i]
+            else:
+                vals = []
+                for i in range(ncol):
+                    if i == tpos:
+                        vals.append(b)
+                    elif i in spos:
+                        vals.append(sk[spos.index(i)])
+                    elif fill_modes.get(i) == "FILL_PREVIOUS_VALUE":
+                        vals.append(prev[sk].get(i))
+                    elif i in defaults:
+                        vals.append(defaults[i])
+                    else:
+                        vals.append(None)
+                out.append(tuple(vals))
+    return out
+
+
+def _order_rows_by_select(ctx, rows: List[tuple]) -> List[tuple]:
+    """ORDER BY over already-materialized rows (post-gapfill): each order
+    expression must resolve to a select-list position."""
+    ord_vals = []
+    for ob in ctx.order_by:
+        p = _gapfill_select_pos(ctx, ob.expr)
+        ord_vals.append(np.asarray([r[p] for r in rows], dtype=object))
+    order = _sorted_order(ctx.order_by, ord_vals, len(rows))
+    return [rows[i] for i in order]
 
 
 def _ident_like(field: str, arr: np.ndarray):

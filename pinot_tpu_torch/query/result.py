@@ -2,8 +2,9 @@
 
 Trimmed copy of pinot_tpu/query/result.py: the aggregation, group-by and
 selection results of single-table SQL, and ExecutionStats with the analytic
-byte model's kernel_bytes (utils/perf.py) in place of the TPU cost model
-(the device-time metrics of the port come from chip runs).  Results
+cost model's kernel bytes and flops (utils/perf.py, source "analytic") in
+place of the TPU cost model (the device-time metrics of the port come from
+chip runs), and the trace span tree of a query run with trace=true.  Results
 are columnar numpy end to end.
 """
 from __future__ import annotations
@@ -27,17 +28,33 @@ class ExecutionStats:
     time_ms: float = 0.0
     # distributed engine: host ms of planning on a plan-cache miss (the
     # port's counterpart of the JAX package's trace + compile), and wall ms
-    # of the launch loop (launches through the last drain)
+    # of the launch loop (launches through the last drain); segment engine
+    # with trace=true: device_ms is the device_wait fence's wall ms
     compile_ms: float = 0.0
     device_ms: float = 0.0
     # bytes the scans stream under the packed-storage model
-    # (perf.analytic_bytes_per_row x rows scanned, summed over launches)
+    # (perf.analytic_bytes_per_row x rows scanned, summed over launches),
+    # the analytic flops, and where the model came from ("analytic")
     kernel_bytes: float = 0.0
+    kernel_flops: float = 0.0
+    kernel_cost_source: Optional[str] = None
     # (column, "sorted"|"range"|"inverted") per index-accelerated predicate
     filter_index_uses: Tuple = ()
     # selection: bytes of matched doc ids copied from the device
     bytes_to_host: int = 0
     query_id: Optional[str] = None
+    # span tree dict when the query ran with trace=true (utils/metrics.Trace)
+    trace: Optional[dict] = None
+
+    def add_kernel_cost(self, other: "ExecutionStats") -> None:
+        """Accumulate the kernel-cost slice of `other` (one launch's stats)."""
+        from pinot_tpu_torch.utils.perf import combine_sources
+
+        self.kernel_bytes += other.kernel_bytes
+        self.kernel_flops += other.kernel_flops
+        self.compile_ms += other.compile_ms
+        self.device_ms += other.device_ms
+        self.kernel_cost_source = combine_sources(self.kernel_cost_source, other.kernel_cost_source)
 
     def add_index_uses(self, uses: Tuple) -> None:
         """Order-preserving dedup-union into filter_index_uses."""

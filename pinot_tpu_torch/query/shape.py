@@ -1,7 +1,6 @@
 """Shape fingerprint: plan-cache keys by query SHAPE, not literal values.
 
-Copy of pinot_tpu/query/shape.py (host-only; the port has no subquery
-markers).  In the port the plan cache holds planned Python closures rather
+Copy of pinot_tpu/query/shape.py (host-only).  In the port the plan cache holds planned Python closures rather
 than compiled XLA programs, but the key and its audit are the same, so both
 packages key one query the same way.
 
@@ -32,7 +31,7 @@ an explicit per-predicate audit:
       / negated-row / scan choice (`_INV_MAX_ROWS` thresholds in
       query/filter.py) depends on the literal and bakes `negate`;
     * TEXT_MATCH / JSON_MATCH / VECTOR_SIMILARITY (top-k `k` is traced);
-    * values containing non-scalar objects;
+    * values containing Subquery markers or non-scalar objects;
     * unknown columns (no metadata — conservative default).
 
 LIMIT/OFFSET and HAVING literals canonicalize unconditionally: both are
@@ -53,6 +52,7 @@ from pinot_tpu_torch.query.ir import (
     Predicate,
     PredicateType,
     QueryContext,
+    Subquery,
 )
 
 # column metadata the audit needs; `None` from a provider means "unknown"
@@ -123,6 +123,8 @@ def _type_class(v: Any) -> Optional[str]:
 def _scalar_classes(values: Tuple[Any, ...]) -> Optional[List[str]]:
     out: List[str] = []
     for v in values:
+        if isinstance(v, Subquery):
+            return None
         c = _type_class(v)
         if c is None:
             return None

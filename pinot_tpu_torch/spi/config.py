@@ -2,10 +2,12 @@
 
 Trimmed copy of pinot_tpu/spi/config.py: the index declarations the
 segment builder reads (inverted, range, bloom, JSON, text and vector
-indexes, star-tree configs, the sorted column, raw columns) and the
-segments' time column.  Retention and replication, partitioning,
-serialization, table types and the upsert, dedup, stream and quota settings
-come with the slices that use them.
+indexes, star-tree configs, the sorted column, raw columns), the segments'
+time column and retention, and the settings a CREATE TABLE statement
+declares (sql/ddl.py): partitioning and the upsert, dedup and stream
+bindings, held as declared (the realtime tables that act on them are a
+later slice).  Replication, serialization, table types and quotas come with
+the slices that use them.
 """
 from __future__ import annotations
 
@@ -34,9 +36,36 @@ class IndexingConfig:
 @dataclass
 class SegmentsConfig:
     """Segment settings (SegmentsValidationAndRetentionConfig analog): the
-    time column whose (min, max) every segment records as its time range."""
+    time column whose (min, max) every segment records as its time range,
+    and the retention in days."""
 
     time_column: Optional[str] = None
+    retention_time_value: Optional[int] = None
+
+
+@dataclass
+class UpsertConfig:
+    """Upsert mode: FULL replaces whole rows by primary key, PARTIAL merges
+    per column; the comparison column picks the winner."""
+
+    mode: str = "NONE"  # NONE | FULL | PARTIAL
+    comparison_column: Optional[str] = None
+
+
+@dataclass
+class DedupConfig:
+    """Exact-duplicate dropping by primary key at ingest time."""
+
+    enabled: bool = True
+
+
+@dataclass
+class StreamConfig:
+    """Realtime stream binding: consumer type, topic and rows a segment."""
+
+    stream_type: str = "memory"  # memory | kafka | file
+    topic: str = ""
+    max_rows_per_segment: int = 1 << 20
 
 
 @dataclass
@@ -44,3 +73,9 @@ class TableConfig:
     name: str
     indexing: IndexingConfig = field(default_factory=IndexingConfig)
     segments: SegmentsConfig = field(default_factory=SegmentsConfig)
+    upsert: Optional[UpsertConfig] = None
+    dedup: Optional[DedupConfig] = None
+    stream: Optional[StreamConfig] = None
+    # partition-pinned parallelism: column name and number of partitions
+    partition_column: Optional[str] = None
+    num_partitions: int = 0

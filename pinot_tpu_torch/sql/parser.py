@@ -8,9 +8,10 @@ same QueryContext in both packages; names the port does not implement
 fail at plan time.  CASE, FILTER (WHERE ...) and window functions
 (fn(...) OVER (PARTITION BY ... ORDER BY ... [ROWS|RANGE frame])) parse as
 in the JAX package, and so do the funnel family's STEPS, CORRELATEBY and
-TIMESTAMPBY arguments.  EXPLAIN, joins, set operations, subqueries and
-GAPFILL raise NotImplementedError here, naming the ROADMAP Queue 1 item
-that brings them.
+TIMESTAMPBY arguments, and so do EXPLAIN [ANALYZE] PLAN FOR, UNION [ALL] /
+INTERSECT / EXCEPT (INTERSECT binding tighter), IN / NOT IN (SELECT ...)
+and GAPFILL(...).  A JOIN raises NotImplementedError here, naming the
+ROADMAP Queue 1 item that brings it (item 8).
 
 Reference parity: CalciteSqlParser (pinot-common/.../sql/parsers/
 CalciteSqlParser.java) compiling SQL text into the Thrift PinotQuery IR, plus
@@ -41,6 +42,8 @@ from pinot_tpu_torch.query.ir import (
     Predicate,
     PredicateType,
     QueryContext,
+    GapfillSpec,
+    Subquery,
     map_expr_columns,
     map_filter_columns,
     WindowSpec,
@@ -207,6 +210,7 @@ class _Parser:
         self.sql = sql
         self.toks = tokenize(sql)
         self.i = 0
+        self._gapfill = None  # GapfillSpec captured by select_statement
 
     # -- token helpers ---------------------------------------------------
     @property
@@ -251,8 +255,22 @@ class _Parser:
     # -- entry -----------------------------------------------------------
     def parse(self) -> QueryContext:
         options = {}
+        # EXPLAIN PLAN FOR SELECT ... (Pinot explain syntax) or
+        # EXPLAIN ANALYZE SELECT ... (execute with tracing forced, join the
+        # operator tree with measured ms/rows); matched as words, not
+        # keywords, so `plan`/`for`/`analyze` stay valid identifiers
         if self.cur.kind == "ident" and str(self.cur.value).lower() == "explain":
-            raise NotImplementedError("EXPLAIN is a later slice of the port (ROADMAP Queue 1 item 12)")
+            self.advance()
+            if self.cur.kind in ("ident", "kw") and str(self.cur.value).lower() == "analyze":
+                self.advance()
+                options["__analyze__"] = True
+                options["trace"] = True
+            else:
+                for w in ("plan", "for"):
+                    if not (self.cur.kind in ("ident", "kw") and str(self.cur.value).lower() == w):
+                        self.fail("expected PLAN FOR or ANALYZE after EXPLAIN")
+                    self.advance()
+                options["__explain__"] = True
         # Pinot option prelude: SET key = value; ... SELECT ...
         while self.at_kw("set"):
             self.advance()
@@ -263,8 +281,22 @@ class _Parser:
             options[str(name)] = self.literal_value()
             self.expect_op(";")
         ctx = self.select_statement(options)
-        if self.at_kw("union", "intersect", "except"):
-            raise NotImplementedError("set operations are a later slice of the port (ROADMAP Queue 1 item 12)")
+        # set operations: INTERSECT binds tighter than UNION/EXCEPT (SQL
+        # standard); `a UNION b INTERSECT c` = a UNION (b INTERSECT c).
+        # Tight ops fold into the PRECEDING term's own set_ops; loose ops
+        # chain left-associatively at the top level.
+        last_term = ctx
+        while self.at_kw("union", "intersect", "except"):
+            op = self.advance().value
+            all_flag = self.accept_kw("all")
+            if all_flag and op != "union":
+                self.fail(f"{op.upper()} ALL is not supported")
+            rhs = self.select_statement(dict(options))
+            if op == "intersect" and last_term is not ctx:
+                last_term.set_ops.append((op, all_flag, rhs))
+            else:
+                ctx.set_ops.append((op, all_flag, rhs))
+                last_term = rhs
         self.accept_op(";")
         if self.cur.kind != "eof":
             self.fail("unexpected trailing input")
@@ -275,12 +307,17 @@ class _Parser:
         distinct = self.accept_kw("distinct")
         select_list: List[Union[Expr, AggregationSpec]] = []
         aliases: List[Optional[str]] = []
+        self._gapfill = None
         while True:
             item, alias = self.select_item()
             select_list.append(item)
             aliases.append(alias)
             if not self.accept_op(","):
                 break
+        # capture before FROM/WHERE: a subquery's select_statement resets
+        # the parser-level slot
+        gapfill = self._gapfill
+        self._gapfill = None
         self.expect_kw("from")
         if self.cur.kind not in ("ident",):
             self.fail("expected table name")
@@ -464,6 +501,13 @@ class _Parser:
             for o in order_by
         ]
         extra_aggs = [strip_agg(s) for s in extra_aggs]
+        if gapfill is not None:
+            gapfill = dataclasses.replace(
+                gapfill,
+                time_expr=map_expr_columns(gapfill.time_expr, strip_q),
+                fills=tuple((map_expr_columns(t, strip_q), m) for t, m in gapfill.fills),
+                series=tuple(map_expr_columns(s, strip_q) for s in gapfill.series),
+            )
 
         return QueryContext(
             table=table,
@@ -478,6 +522,7 @@ class _Parser:
             offset=offset,
             options=options,
             extra_aggregations=extra_aggs,
+            gapfill=gapfill,
         )
 
     # -- FROM clause: table alias ----------------------------------------
@@ -573,13 +618,57 @@ class _Parser:
             hi = None if hi is None else int(hi)
         return mode, lo, hi
 
+    def _gapfill_item(self, e: Expr) -> Expr:
+        """Interpret a parsed GAPFILL(...) call: stash the GapfillSpec on the
+        parser (select_statement collects it) and return the time expression
+        as the select item (the bucket output column)."""
+        if len(e.args) < 4:
+            self.fail("GAPFILL requires (time_expr, start, end, step, ...)")
+        time_expr = e.args[0]
+
+        def _int_lit(a: Expr, what: str) -> int:
+            if not a.is_literal:
+                self.fail(f"GAPFILL {what} must be a literal")
+            try:
+                return int(a.value)
+            except (TypeError, ValueError):
+                self.fail(f"GAPFILL {what} must be an integer (got {a.value!r})")
+
+        start = _int_lit(e.args[1], "start")
+        end = _int_lit(e.args[2], "end")
+        step = _int_lit(e.args[3], "step")
+        if step <= 0:
+            self.fail("GAPFILL step must be positive")
+        fills: List[tuple] = []
+        series: List[Expr] = []
+        for a in e.args[4:]:
+            if not (isinstance(a, Expr) and a.kind.name == "CALL"):
+                self.fail(f"unexpected GAPFILL argument {a}")
+            if a.op == "fill":
+                if len(a.args) != 2 or not a.args[1].is_literal:
+                    self.fail("FILL requires (target, 'mode')")
+                mode = str(a.args[1].value).upper()
+                if mode not in ("FILL_PREVIOUS_VALUE", "FILL_DEFAULT_VALUE"):
+                    self.fail(f"unknown FILL mode {mode!r}")
+                fills.append((a.args[0], mode))
+            elif a.op == "timeserieson":
+                series.extend(a.args)
+            else:
+                self.fail(f"unexpected GAPFILL argument {a.op!r}")
+        if self._gapfill is not None:
+            self.fail("only one GAPFILL per query")
+        self._gapfill = GapfillSpec(
+            time_expr, start, end, step, tuple(fills), tuple(series)
+        )
+        return time_expr
+
     def expr_or_agg(self) -> Union[Expr, AggregationSpec]:
         """Expression that may be a top-level aggregation call."""
         e = self.expr()
         if isinstance(e, Expr) and e.kind.name == "CALL" and e.op in self._KNOWN_UNIMPLEMENTED_AGGS:
             self.fail(f"aggregation function {e.op!r} is not supported yet")
         if isinstance(e, Expr) and e.kind.name == "CALL" and e.op == "gapfill":
-            raise NotImplementedError("GAPFILL is a later slice of the port (ROADMAP Queue 1 item 12)")
+            return self._gapfill_item(e)
         # window function: fn(...) OVER (PARTITION BY ... ORDER BY ...)
         if isinstance(e, Expr) and e.kind.name == "CALL" and self.at_kw("over"):
             if e.op not in self._WINDOW_FNS:
@@ -767,7 +856,11 @@ class _Parser:
         if self.accept_kw("in"):
             self.expect_op("(")
             if self.at_kw("select"):
-                raise NotImplementedError("IN (SELECT ...) subqueries are a later slice of the port (ROADMAP Queue 1 item 12)")
+                # IN (SELECT ...) — semi-join marker resolved by the engine
+                sub = self.select_statement({})
+                self.expect_op(")")
+                pt = PredicateType.NOT_IN if negate else PredicateType.IN
+                return FilterNode.pred(Predicate(pt, lhs, values=(Subquery(sub),)))
             vals = [self.literal_value()]
             while self.accept_op(","):
                 vals.append(self.literal_value())

@@ -1,10 +1,11 @@
 """Process-wide metrics registry (ServerMetrics/BrokerMetrics analog):
 counters, gauges, timers and histograms keyed by name.
 
-Copy of the registry part of pinot_tpu/utils/metrics.py: `Counter`, `Gauge`,
-`Timer`, `Histogram`, `MetricsRegistry` (`snapshot`, `reset`) and the
-process registry `METRICS`.  Trace spans, the Prometheus exposition and the
-cross-server federation come with the observability slice of the port.
+Copy of pinot_tpu/utils/metrics.py without the Prometheus exposition and
+the cross-server federation (they come with the cluster tier): `Counter`,
+`Gauge`, `Timer`, `Histogram`, `MetricsRegistry` (`snapshot`, `reset`), the
+process registry `METRICS`, and the trace spans `Span` / `Trace` (off by
+default; a disabled Trace costs one attribute check a span).
 Emitters call METRICS.counter("dist.queries").inc() on the hot path (dict
 lookups only).
 
@@ -18,7 +19,8 @@ from __future__ import annotations
 
 import bisect
 import threading
-from typing import Any, Dict, Tuple
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 
 class Counter:
@@ -213,3 +215,94 @@ class MetricsRegistry:
 
 
 METRICS = MetricsRegistry()
+
+
+class Span:
+    """One trace span (RequestContext/tracing analog, SURVEY.md 5.1).
+
+    `attrs` carry bounded-cardinality annotations (segment counts, docs
+    scanned, scan backend, retry round, breaker state, fault events) that
+    ride the span instead of exploding into metric names.  `children` may
+    hold Span objects or already-rendered span dicts — a server-built
+    subtree grafts into the broker trace as a dict."""
+
+    __slots__ = ("name", "start", "duration_ms", "children", "attrs")
+
+    def __init__(self, name: str, attrs: Optional[Dict[str, Any]] = None):
+        self.name = name
+        self.start = time.perf_counter()
+        self.duration_ms = 0.0
+        self.children: List[Any] = []  # Span | dict
+        self.attrs: Dict[str, Any] = dict(attrs) if attrs else {}
+
+    def annotate(self, **kw: Any) -> None:
+        self.attrs.update(kw)
+
+    def close(self) -> None:
+        self.duration_ms = (time.perf_counter() - self.start) * 1000
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"name": self.name, "ms": round(self.duration_ms, 3)}
+        if self.attrs:
+            d["attrs"] = dict(self.attrs)
+        if self.children:
+            d["children"] = [c if isinstance(c, dict) else c.to_dict() for c in self.children]
+        return d
+
+
+class Trace:
+    """Span-tree builder: `with trace.span("plan"): ...`; no-ops when
+    disabled so the hot path pays one attribute check.
+
+    Distributed propagation: the broker mints the query id on the root span
+    (`query_id=`), each server builds its own Trace (root="server:<name>")
+    and ships the finished dict back in ExecutionStats.trace; the broker
+    grafts that subtree under its per-server span via `graft()` — one tree
+    per query across the whole scatter."""
+
+    def __init__(self, enabled: bool = False, root: str = "query", query_id: Optional[str] = None):
+        self.enabled = enabled
+        self.root = Span(root) if enabled else None
+        if self.root is not None and query_id is not None:
+            self.root.attrs["queryId"] = query_id
+        self._stack = [self.root] if enabled else []
+
+    class _Ctx:
+        def __init__(self, trace: "Trace", name: str, attrs: Optional[Dict[str, Any]] = None):
+            self.trace = trace
+            self.name = name
+            self.attrs = attrs
+            self.sp = None
+
+        def __enter__(self):
+            if self.trace.enabled:
+                self.sp = Span(self.name, self.attrs)
+                self.trace._stack[-1].children.append(self.sp)
+                self.trace._stack.append(self.sp)
+            return self.sp
+
+        def __exit__(self, *exc):
+            if self.sp is not None:
+                self.sp.close()
+                self.trace._stack.pop()
+            return False
+
+    def span(self, name: str, **attrs: Any) -> "Trace._Ctx":
+        return Trace._Ctx(self, name, attrs or None)
+
+    def annotate(self, **kw: Any) -> None:
+        """Attach attrs to the innermost open span (no-op when disabled)."""
+        if self.enabled:
+            self._stack[-1].annotate(**kw)
+
+    def graft(self, subtree: Optional[Dict[str, Any]]) -> None:
+        """Append an already-rendered span dict (a server's finished trace)
+        as a child of the innermost open span."""
+        if self.enabled and subtree:
+            self._stack[-1].children.append(subtree)
+
+    def finish(self):
+        if self.root is not None:
+            self.root.close()
+            return self.root.to_dict()
+        return None

@@ -1,8 +1,14 @@
-"""Performance observatory: the analytic byte model, roofline %, and the
+"""Performance observatory: the analytic cost model, roofline %, and the
 per-table/per-shape perf ledger.
 
 Trimmed copy of pinot_tpu/utils/perf.py:
 
+- KernelCost / analytic_cost(): the cost of one launch (bytes, flops) with
+  its `source`.  The JAX package's capture_cost reads XLA's cost analysis on
+  a TPU; a hand-written CUDA kernel has none, so every launch records the
+  analytic model and says so (`source == "analytic"`).  Flops follow what
+  the CUDA fused scan does: one add a row into its group's slot for the
+  count and one per sum entry, not the one-hot matmul the JAX model counts.
 - analytic_bytes_per_row(): bytes the scan streams per row under the
   packed-storage model (the JAX package's fallback cost model, which its
   CPU runs use too).  ExecutionStats.kernel_bytes = bytes per row x rows
@@ -15,8 +21,7 @@ Trimmed copy of pinot_tpu/utils/perf.py:
   record every query; the residency manager reads a table's bytes/s as its
   eviction heat (segment/residency.py).
 
-XLA cost analysis (capture_cost) has no torch counterpart and is not
-ported; the bench-history regression gate waits for a benchmark.
+The bench-history regression gate waits for a benchmark.
 """
 from __future__ import annotations
 
@@ -52,6 +57,47 @@ def analytic_bytes_per_row(columns, bitmap_params: int = 0) -> float:
         if getattr(c, "nulls", None) is not None:
             bpr += 1
     return bpr + bitmap_params * 4.0 / 32.0
+
+
+@dataclass
+class KernelCost:
+    """Cost model for one launch (the JAX package's KernelCost without the
+    XLA source's lowering and compile times)."""
+
+    flops: float = 0.0
+    bytes_accessed: float = 0.0
+    source: str = "analytic"
+
+
+def analytic_cost(
+    num_rows: int,
+    bytes_per_row: float,
+    *,
+    kind: str = "aggregation",
+    num_groups: int = 0,
+    num_entries: int = 1,
+) -> KernelCost:
+    """Analytic cost of one launch over `num_rows` rows.  Group-bys add each
+    row into its group's slot: one add for the count and one per entry;
+    plain aggregations a couple of ops a row an entry; selections one
+    predicate op a row."""
+    num_entries = max(1, num_entries)
+    if kind.startswith("groupby") and num_groups > 0:
+        flops_per_row = 1.0 + num_entries
+    elif kind == "selection":
+        flops_per_row = 1.0
+    else:
+        flops_per_row = 2.0 * num_entries
+    return KernelCost(flops=float(num_rows) * flops_per_row, bytes_accessed=float(num_rows) * bytes_per_row)
+
+
+def combine_sources(a: Optional[str], b: Optional[str]) -> Optional[str]:
+    """Merge two cost-source tags when stats accumulate across launches."""
+    if a is None or a == b:
+        return b if a is None else a
+    if b is None:
+        return a
+    return "mixed"
 
 
 def roofline_pct(bytes_accessed: float, seconds: float) -> Optional[float]:
