@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the process exits non-zero:
                 two specialised ones, the generic one, the global-atomic
                 path), unaligned
                 views, shared and distinct masks, E = 16 and 17, G = 1 and
-                8, out-of-table codes; then 8 shapes timed with CUDA events
+                8, out-of-table codes; then 9 shapes timed with CUDA events
                 (median of 20 calls, L2 flushed before each): the
                 distributed main path's launch (2^27 rows, packed 16-bit
                 key, mask_words, an all-true entry mask, 2406 groups, count
@@ -23,7 +23,9 @@ Phases, in order; any failure raises and the process exits non-zero:
                 distinct masks, count + two int32 sums), the MV explode
                 of phase 4f (2^25 element rows, int32 key, G = 300) and the
                 outer launch of phase 4g's IN (SELECT ...) (2^23 rows,
-                packed 4-bit key, G = 11, the generic instantiation).  Each:
+                packed 4-bit key, G = 11, the generic instantiation) and
+                phase 4h's (z1) launch (2^27 rows, the computed int32 key
+                of 7 groups, one mask, count + int32 sum).  Each:
                 the wrapper call,
                 the plain version, and one torch.Tensor.index_add_ per entry
                 as the library yardstick (never called by the port).  Also
@@ -114,12 +116,12 @@ Phases, in order; any failure raises and the process exits non-zero:
                 its useStarTree=false twin; TEXT_MATCH / JSON_MATCH over 4 x
                 2^20 rows; VECTOR_SIMILARITY over 2^20 x 384 float32.  Every
                 result against a numpy golden, then warm medians.
-                Profiles (phases 4-4g) run last: in each of three sessions
+                Profiles (phases 4-4h) run last: in each of three sessions
                 the query runs once unmeasured, then once inside a
                 record_function range whose device events are summed; a
                 query whose profiled run passes 1 s (the sparse (d), (o))
-                stops after one complete session, and phase 4g's queries
-                take one session each.
+                stops after one complete session, and phase 4g's and 4h's
+                queries take one session each.
  4g. front_door (after 4f) - on the tables of phases 4 and 4b: (y1)
                 GAPFILL with FILL_PREVIOUS_VALUE and with the null fill
                 over the 2406 days (a tenth of them filtered out), (y2)
@@ -139,6 +141,24 @@ Phases, in order; any failure raises and the process exits non-zero:
                 after every query; DDL through engine.sql, a ResponseStore
                 paging (y1)'s rows and the slow-query log; warm medians of
                 5, then one front_door line per query and engine.
+ 4h. join_path (after 4g) - the multi-stage join engine through
+                DistributedEngine() on CUDA over phase 4b's 2^27-row
+                lineorder (not rebuilt) and dimensions of SSB's DATE shape
+                (dates: 2556 days of 1992-1998 keyed as lo_orderdate is;
+                years: 7 rows; dates_early: the 1827 days of 1992-1996):
+                (z1) BASELINE config 5 (GROUP BY d_year, broadcast), (z2)
+                the same as a hash shuffle, (z3) SSB Q1.1 as a join, (z4)
+                a dimension string x a fact column (55 groups), (z5) a
+                LEFT JOIN with its NULL group, (z6) a snowflake chain, (z7)
+                a top-100 join selection; then over a 2^24-row table built
+                from phase 4's first two segments (z8) a many-to-many join
+                against promo (3 rows a discount) and (z9) (z2) at
+                shuffleSlack 0.01 (the overflow retries, exact) and with
+                shuffleSlackCap 0.01 (the cap's RuntimeError).  Each exact
+                against numpy with its fused-scan launches counted (one,
+                i32/i32/shared, for each dense group-by; none for (z3) and
+                (z7)) and its peak allocated bytes; warm medians of 5, one
+                profile session each, one join_path line per query.
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
@@ -147,7 +167,7 @@ Phases, in order; any failure raises and the process exits non-zero:
                 a read flush, scan_ms beside a float32 sum and a device copy
                 of the same input bytes.
   6. summary  - one {"kernels": [...]} JSON line (fused_scan, funnel_scan; launches_by_path
-                includes front_door), the card's nvidia-smi line,
+                includes front_door and join_path), the card's nvidia-smi line,
                 and last the {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
@@ -464,7 +484,7 @@ def _timed_shape(label, ents, key, g, kw, flush):
 
 
 def _timed_shapes(seed: int, dev):
-    """The 8 timed shapes, each held exactly against the plain version and
+    """The 9 timed shapes, each held exactly against the plain version and
     timed with CUDA events."""
     from pinot_tpu_torch.ops import fused_scan
 
@@ -583,7 +603,7 @@ def _compile_report():
 
 
 def _shapes(seed: int, dev):
-    """(label, entries, key, num_groups, kwargs) of the 8 timed shapes, on
+    """(label, entries, key, num_groups, kwargs) of the 9 timed shapes, on
     the card, made from the seed."""
     from pinot_tpu_torch.ops import segmented
 
@@ -650,6 +670,14 @@ def _shapes(seed: int, dev):
     in_mask = torch.from_numpy(np.isin(od, rng.choice(g, 100, replace=False))).to(dev)
     words4 = torch.from_numpy(_pack(disc, 4).view(np.int32)).to(dev)
     in_sub = [("count", None, in_mask, None), ("int_sum", rev, in_mask, plan)]
+    # (z1)'s launch on phase 4h's join path: every fact row (2^27), the
+    # computed int32 key of d_year gathered through the join (7 groups,
+    # uniform here), the probe mask (lo_quantity < 25, every key matching:
+    # 48% of rows) shared by the presence / COUNT(*) entry, and SUM over
+    # int32 revenue
+    kz = torch.from_numpy(rng.integers(0, 7, n2).astype(np.int32)).to(dev)
+    zmask = torch.from_numpy(rng.random(n2) < 0.48).to(dev)
+    join = [("count", None, zmask, None), ("int_sum", rev2, zmask, plan)]
     return [
         ("dist main path: n=2^27 packed16 G=2406 E=2, mask_words, all-true mask", dist, None, g,
          {"codes_packed": (words2, 16), "mask_words": torch.from_numpy(qbits.reshape(-1)).to(dev)}),
@@ -663,6 +691,7 @@ def _shapes(seed: int, dev):
          MV_TAGS, {}),
         ("IN (SELECT) outer: n=2^23 packed4 G=11 E=2, shared IN mask (~4%)", in_sub, None, 11,
          {"codes_packed": (words4, 4)}),
+        ("join (z1): n=2^27 int32 computed key G=7 E=2, shared probe mask (48%)", join, kz, 7, {}),
     ]
 
 
@@ -2860,6 +2889,260 @@ def phase_front_door(seg, dist):
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: join_path — the multi-stage join engine (BASELINE config 5) over
+# phase 4b's 2^27-row lineorder and SSB-shaped dimensions
+# ---------------------------------------------------------------------------
+JOIN_DAY0 = 19920101
+JOIN_DAYS = 2556  # one row a day, 1992-01-01 .. 1998-12-31 (SSB's DATE table)
+JOIN_EARLY_YEARS = 5  # dates_early: 1992-1996
+# phase 4's segments that make the 2^24-row table of (z8) and (z9)
+JOIN_SMALL_SEGMENTS = 2
+JOIN_ERAS = {1992: "early90s", 1993: "early90s", 1994: "mid90s", 1995: "mid90s", 1996: "mid90s",
+             1997: "late90s", 1998: "late90s"}
+JOIN_CHANNELS = np.asarray(["web", "mail", "store", "tv"])
+JOIN_Z1 = ("SELECT d_year, SUM(lo_revenue), COUNT(*) FROM lineorder JOIN dates ON lo_orderdate = d_datekey "
+           "WHERE lo_quantity < 25 GROUP BY d_year")
+JOIN_QUERIES = {  # (sql, engine table set, fused-scan launches one run makes)
+    "z1_config5": (JOIN_Z1, "big", 1),
+    "z2_shuffle": ("SET joinStrategy = 'shuffle'; " + JOIN_Z1, "big", 1),
+    "z3_q1_1": ("SELECT SUM(lo_revenue * lo_discount) FROM lineorder JOIN dates ON lo_orderdate = d_datekey "
+                "WHERE d_year = 1993 AND lo_discount BETWEEN 1 AND 3 AND lo_quantity < 25", "big", 0),
+    "z4_season_discount": ("SELECT d_sellingseason, lo_discount, SUM(lo_revenue), COUNT(*) FROM lineorder "
+                           "JOIN dates ON lo_orderdate = d_datekey WHERE lo_quantity < 25 "
+                           "GROUP BY d_sellingseason, lo_discount LIMIT 100", "big", 1),
+    "z5_left": ("SELECT d_year, SUM(lo_revenue), COUNT(*) FROM lineorder LEFT JOIN dates_early "
+                "ON lo_orderdate = d_datekey WHERE lo_quantity < 25 GROUP BY d_year", "big", 1),
+    "z6_snowflake": ("SELECT y_era, SUM(lo_revenue), COUNT(*) FROM lineorder JOIN dates ON lo_orderdate = d_datekey "
+                     "JOIN years ON d_year = y_year WHERE lo_quantity < 25 GROUP BY y_era", "big", 1),
+    "z7_selection": ("SELECT lo_orderdate, lo_revenue, d_yearmonthnum FROM lineorder JOIN dates "
+                     "ON lo_orderdate = d_datekey WHERE lo_quantity = 1 ORDER BY lo_revenue DESC LIMIT 100",
+                     "big", 0),
+    "z8_many_to_many": ("SELECT p_channel, SUM(lo_revenue), COUNT(*) FROM lineorder JOIN promo "
+                        "ON lo_discount = p_discount WHERE lo_quantity < 25 GROUP BY p_channel", "small", 1),
+    "z9_overflow_retry": ("SET joinStrategy = 'shuffle'; SET shuffleSlack = 0.01; " + JOIN_Z1, "small", 1),
+}
+JOIN_CAP_SQL = "SET joinStrategy = 'shuffle'; SET shuffleSlack = 0.01; SET shuffleSlackCap = 0.01; " + JOIN_Z1
+
+
+def join_dimensions():
+    """The host columns of dates (SSB's DATE shape: 2556 days of 1992-1998,
+    keyed as bench.py keys lo_orderdate), years and dates_early."""
+    day = np.datetime64("1992-01-01") + np.arange(JOIN_DAYS)
+    year = day.astype("datetime64[Y]").astype(np.int64) + 1970
+    month = day.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    doy = (day - day.astype("datetime64[Y]")).astype(np.int64)
+    season = np.asarray(["Winter", "Winter", "Spring", "Spring", "Spring", "Summer", "Summer", "Summer",
+                         "Fall", "Fall", "Fall", "Christmas"])[month - 1]
+    dates = {"d_datekey": (JOIN_DAY0 + np.arange(JOIN_DAYS)).astype(np.int32), "d_year": year.astype(np.int32),
+             "d_yearmonthnum": (year * 100 + month).astype(np.int32),
+             "d_weeknuminyear": (doy // 7 + 1).astype(np.int32), "d_sellingseason": season.astype(object)}
+    years = {"y_year": np.arange(1992, 1999, dtype=np.int32),
+             "y_era": np.asarray([JOIN_ERAS[y] for y in range(1992, 1999)], dtype=object)}
+    early = year < 1992 + JOIN_EARLY_YEARS
+    dates_early = {k: v[early] for k, v in dates.items()}
+    # promo: 3 rows a discount (max_dup 3), channels (disc + j) % 4
+    pd_ = np.repeat(np.arange(11, dtype=np.int32), 3)
+    promo = {"p_discount": pd_, "p_channel": JOIN_CHANNELS[(pd_ + np.tile(np.arange(3), 11)) % 4].astype(object)}
+    return dates, years, dates_early, promo
+
+
+def _join_schemas():
+    from pinot_tpu_torch.spi.schema import DataType, FieldSpec, Schema
+
+    INT, STR = DataType.INT, DataType.STRING
+    return {
+        "dates": Schema("dates", [FieldSpec("d_datekey", INT), FieldSpec("d_year", INT),
+                                  FieldSpec("d_yearmonthnum", INT), FieldSpec("d_weeknuminyear", INT),
+                                  FieldSpec("d_sellingseason", STR)]),
+        "years": Schema("years", [FieldSpec("y_year", INT), FieldSpec("y_era", STR)]),
+        "promo": Schema("promo", [FieldSpec("p_discount", INT), FieldSpec("p_channel", STR)]),
+    }
+
+
+def join_golden(d, small, dims):
+    """Exact numpy answers of (z1)-(z9): each join a lookup array indexed by
+    lo_orderdate - 19920101 (promo's by lo_discount).  Group sums use
+    np.bincount's float64 weights: every partial sum is an integer below
+    2^53, so they are exact."""
+    dates, _years, dates_early, promo = dims
+    year_of = dates["d_year"].astype(np.int64)
+    season_names, season_of = np.unique(dates["d_sellingseason"].astype(str), return_inverse=True)
+    ym_of = dates["d_yearmonthnum"].astype(np.int64)
+    n_early = len(dates_early["d_datekey"])
+
+    def day_filter_revenue(t):
+        od = np.asarray(t["lo_orderdate"]).astype(np.int64) - JOIN_DAY0
+        return od, np.asarray(t["lo_quantity"]) < 25, np.asarray(t["lo_revenue"])
+
+    out = {}
+    od, m, rev = day_filter_revenue(d)
+    disc = np.asarray(d["lo_discount"]).astype(np.int64)
+    q = np.asarray(d["lo_quantity"])
+    yi = year_of[od[m]] - 1992
+    s = np.bincount(yi, weights=rev[m], minlength=7)
+    c = np.bincount(yi, minlength=7)
+    out["z1_config5"] = out["z2_shuffle"] = sorted((1992 + i, float(s[i]), int(c[i])) for i in range(7) if c[i])
+    m3 = m & (year_of[od] == 1993) & (disc >= 1) & (disc <= 3)
+    out["z3_q1_1"] = [(float(int((rev[m3].astype(np.int64) * disc[m3]).sum())),)]
+    k4 = season_of[od[m]] * 11 + disc[m]
+    s4 = np.bincount(k4, weights=rev[m], minlength=len(season_names) * 11)
+    c4 = np.bincount(k4, minlength=len(season_names) * 11)
+    out["z4_season_discount"] = sorted((str(season_names[k // 11]), int(k % 11), float(s4[k]), int(c4[k]))
+                                       for k in np.nonzero(c4)[0])
+    ye = np.where(od[m] < n_early, year_of[np.minimum(od[m], n_early - 1)] - 1992, JOIN_EARLY_YEARS)
+    s5 = np.bincount(ye, weights=rev[m], minlength=JOIN_EARLY_YEARS + 1)
+    c5 = np.bincount(ye, minlength=JOIN_EARLY_YEARS + 1)
+    # years ascending, then the NULL slot (the order _null_last sorts rows in)
+    out["z5_left"] = [((1992 + i) if i < JOIN_EARLY_YEARS else None, float(s5[i]), int(c5[i]))
+                      for i in range(JOIN_EARLY_YEARS + 1) if c5[i]]
+    eras = {}
+    for i in range(7):
+        e = JOIN_ERAS[1992 + i]
+        es, ec = eras.get(e, (0.0, 0))
+        eras[e] = (es + float(s[i]), ec + int(c[i]))
+    out["z6_snowflake"] = sorted((e, es, ec) for e, (es, ec) in eras.items() if ec)
+    i7 = np.nonzero(q == 1)[0]
+    o7 = i7[np.argsort(-rev[i7], kind="stable")][: 100 + 4096]  # every row a tie at the end can reach
+    out["z7_selection"] = _ordered_expect(
+        (-rev[o7].astype(np.int64))[:, None],
+        [(int(JOIN_DAY0 + od[j]), int(rev[j]), int(ym_of[od[j]])) for j in o7], 0, 100)
+    # the 2^24-row table
+    od2, m2, rev2 = day_filter_revenue(small)
+    disc2 = np.asarray(small["lo_discount"]).astype(np.int64)
+    ch_names = sorted(set(promo["p_channel"]))
+    s8, c8 = np.zeros(len(ch_names)), np.zeros(len(ch_names), np.int64)
+    sd = np.bincount(disc2[m2], weights=rev2[m2], minlength=11)
+    cd = np.bincount(disc2[m2], minlength=11)
+    for pdisc, ch in zip(promo["p_discount"], promo["p_channel"]):
+        s8[ch_names.index(ch)] += sd[pdisc]
+        c8[ch_names.index(ch)] += cd[pdisc]
+    out["z8_many_to_many"] = sorted((ch, float(s8[i]), int(c8[i])) for i, ch in enumerate(ch_names) if c8[i])
+    yi2 = year_of[od2[m2]] - 1992
+    s9, c9 = np.bincount(yi2, weights=rev2[m2], minlength=7), np.bincount(yi2, minlength=7)
+    out["z9_overflow_retry"] = sorted((1992 + i, float(s9[i]), int(c9[i])) for i in range(7) if c9[i])
+    return out
+
+
+def _join_exact(name, rows, want) -> bool:
+    if name == "z7_selection":
+        return _ordered_exact(list(rows), want)
+    if name == "z3_q1_1":
+        return list(rows) == want
+    return sorted(rows, key=_null_last) == want
+
+
+def _null_last(row):
+    """Sort key of a result row whose first cell may be NULL (z5): NULL last."""
+    return (row[0] is None, 0 if row[0] is None else row[0]) + tuple(row[1:])
+
+
+def _join_counted_run(engines, golden_rows):
+    """Each query once, the fused scan's counters set to 0 just before and
+    read just after, with the peak device memory of the run; every answer
+    against its golden, its launches and instantiation checked; the
+    overflow retries of (z9) read from METRICS."""
+    from pinot_tpu_torch.ops import fused_scan
+    from pinot_tpu_torch.utils.metrics import METRICS
+
+    fused_scan.LAUNCHES = 0
+    fused_scan.VARIANT_LAUNCHES.clear()
+    out = {}
+    for name, (sql, part, want_launches) in JOIN_QUERIES.items():
+        e = engines[part]
+        before, vbefore = fused_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES)
+        retries = METRICS.counter("mse.exchangeOverflowRetries").value
+        misses = e._mse().plan_misses
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = e.query(sql)
+        torch.cuda.synchronize()
+        n = fused_scan.LAUNCHES - before
+        rec = {"first_ms": (time.perf_counter() - t0) * 1e3, "fused_scan_launches": n,
+               "instantiations": {k: v - vbefore.get(k, 0) for k, v in fused_scan.VARIANT_LAUNCHES.items()
+                                  if v != vbefore.get(k, 0)},
+               "peak_allocated": torch.cuda.max_memory_allocated(), "peak_over_start": torch.cuda.max_memory_allocated()
+               - base, "rows": len(res.rows), "groups": res.stats.num_groups,
+               "index_uses": list(res.stats.filter_index_uses), "bytes_to_host": res.stats.bytes_to_host,
+               "overflow_retries": METRICS.counter("mse.exchangeOverflowRetries").value - retries,
+               "plans_built": e._mse().plan_misses - misses}
+        if not _join_exact(name, res.rows, golden_rows[name]):
+            raise AssertionError(f"join query {name} differs from the numpy golden: {list(res.rows)[:4]} vs "
+                                 f"{golden_rows[name] if name != 'z7_selection' else golden_rows[name][0][:4]}")
+        rec["exact"] = True
+        if n != want_launches or (n and rec["instantiations"] != {"i32/i32/shared": n}):
+            raise AssertionError(f"join query {name}: {n} fused-scan launches {rec['instantiations']}, "
+                                 f"want {want_launches} of i32/i32/shared")
+        if name == "z9_overflow_retry" and not (rec["overflow_retries"] > 0 and rec["plans_built"] > 1):
+            raise AssertionError(f"(z9) did not retry the overflowing shuffle: {rec}")
+        if name == "z7_selection" and not rec["bytes_to_host"]:
+            raise AssertionError(f"(z7) copied nothing home: {rec}")
+        out[name] = rec
+    # the cap: with shuffleSlackCap at the starting slack the loop gives up
+    before = fused_scan.LAUNCHES
+    try:
+        engines["small"].query(JOIN_CAP_SQL)
+    except RuntimeError as err:
+        if "shuffleSlackCap" not in str(err):
+            raise
+        out["z9_overflow_retry"]["cap_error"] = str(err)
+    else:
+        raise AssertionError("a shuffleSlackCap of 0.01 did not stop the overflowing shuffle")
+    torch.cuda.synchronize()
+    if fused_scan.LAUNCHES != before:
+        raise AssertionError("the refused shuffle launched the fused scan")
+    return fused_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES), out
+
+
+def phase_join_path(seg, dist):
+    """Phase 4h: (z1)-(z9) through DistributedEngine() on CUDA, which routes
+    them to the multi-stage engine: (z1)-(z7) over phase 4b's 2^27-row
+    lineorder (not rebuilt) with dates, years and dates_early, (z8) and
+    (z9) over a 2^24-row table built from phase 4's first two segments with
+    promo and dates.  Every answer exact against numpy with its launches
+    counted, then warm medians of 5; the profiles (one session each) run
+    with the others.  Returns the launches, records and profiles."""
+    from pinot_tpu_torch.parallel.engine import DistributedEngine
+    from pinot_tpu_torch.parallel.stacked import StackedTable
+
+    t0 = time.perf_counter()
+    dims = join_dimensions()
+    dates, years, dates_early, promo = dims
+    schemas = _join_schemas()
+    fact = dist["stacked"]
+    datas = seg["datas"][:JOIN_SMALL_SEGMENTS]
+    small = {k: np.concatenate([d[k] for d in datas]) for k in datas[0]}
+    t1 = time.perf_counter()
+    small_st = StackedTable.build(fact.schema, small, num_shards=1)
+    small_build_s = time.perf_counter() - t1
+    dim_tables = {"dates": StackedTable.build(schemas["dates"], dates, num_shards=1),
+                  "years": StackedTable.build(schemas["years"], years, num_shards=1),
+                  "dates_early": StackedTable.build(schemas["dates"], dates_early, num_shards=1),
+                  "promo": StackedTable.build(schemas["promo"], promo, num_shards=1)}
+    engines = {"big": DistributedEngine(), "small": DistributedEngine()}
+    engines["big"].register_table("lineorder", fact)
+    engines["small"].register_table("lineorder", small_st)
+    for name, t in dim_tables.items():
+        for e in engines.values():
+            e.register_table(name, t)
+    want = join_golden(dist["data"], small, dims)
+    log("join_setup", fact_rows=fact.num_docs, small_rows=small_st.num_docs, small_build_s=small_build_s,
+        dim_rows={k: t.num_docs for k, t in dim_tables.items()}, setup_and_golden_s=time.perf_counter() - t0)
+
+    launches, variants, records = _join_counted_run(engines, want)
+    log("join_check", exact=True, launches=launches, instantiations=variants,
+        per_query={k: {f: r[f] for f in ("fused_scan_launches", "groups", "overflow_retries", "plans_built")}
+                   for k, r in records.items()})
+    profiles = []
+    for name, (sql, part, _n) in JOIN_QUERIES.items():
+        records[name].update(_wall_ms(engines[part], sql))
+        profiles.append(("join_profile", {"engine": f"dist_{part}", "query": name}, engines[part], sql))
+    return {"launches": launches, "variants": variants, "records": records, "profiles": profiles,
+            "engines": engines, "join_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
 # phase 4d: storage — segment persistence on the segment engine, the
 # residency sweep on the distributed engine, on the tables phases 4 and 4b
 # built
@@ -3278,7 +3561,7 @@ def run_profiles(tasks) -> dict:
     one log line each, and the results by (phase, engine, query)."""
     out = {}
     for phase, labels, engine, sql in tasks:
-        prof = profile_query(engine, sql, sessions=1 if phase == "front_door_profile" else 3)
+        prof = profile_query(engine, sql, sessions=1 if phase in ("front_door_profile", "join_profile") else 3)
         log(phase, **labels, **prof)
         out[(phase, labels.get("engine"), labels["query"])] = prof
     return out
@@ -3330,17 +3613,18 @@ def main() -> int:
     storage = phase_storage(seg, dist, transform, dev)
     index = phase_index_path(seg, dev, args.seed + 3)
     front = phase_front_door(seg, dist)
+    join = phase_join_path(seg, dist)
     main_variants = dict(seg["variants"])
-    for part in (dist, transform, sketch, storage, index, front):
+    for part in (dist, transform, sketch, storage, index, front, join):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
     storage_launches, sketch_launches, index_launches = storage["launches"], sketch["launches"], index["launches"]
-    front_launches = front["launches"]
+    front_launches, join_launches = front["launches"], join["launches"]
     main_launches = (sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
-                     + index_launches + front_launches)
+                     + index_launches + front_launches + join_launches)
     profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"]
-                            + index["profiles"] + front["profiles"])
+                            + index["profiles"] + front["profiles"] + join["profiles"])
     for key, rec in transform["records"].items():
         engine, _, query = key.partition("/")
         prof = profiles.get(("transform_profile", engine, query), {})
@@ -3369,12 +3653,20 @@ def main() -> int:
             device_idle_share=prof.get("device_idle_share", "not run"),
             top_device_ops=prof.get("top_device_ops", "not run"))
     log("front_door_seconds", phase_4g_s=front["front_door_s"])
+    for query, rec in join["records"].items():
+        engine = f"dist_{JOIN_QUERIES[query][1]}"
+        prof = profiles.get(("join_profile", engine, query), {})
+        log("join_path", engine=engine, query=query, **rec,
+            device_busy_ms=prof.get("device_busy_ms", "not run"),
+            device_idle_share=prof.get("device_idle_share", "not run"),
+            top_device_ops=prof.get("top_device_ops", "not run"))
+    log("join_seconds", phase_4h_s=join["join_s"])
     funnel, funnel_launches = sketch["funnel"], sketch["funnel_launches"]
     dist["stacked"].release_device()
-    for e in list(dist["engines"].values()) + [index["mv_dist"]]:
+    for e in list(dist["engines"].values()) + [index["mv_dist"]] + list(join["engines"].values()):
         e.residency.shutdown()
     vector_timing = index["vector"]
-    del seg, dist, transform, sketch, storage, index, front
+    del seg, dist, transform, sketch, storage, index, front, join
     torch.cuda.empty_cache()
 
     # 5. profile
@@ -3393,7 +3685,7 @@ def main() -> int:
         "launches_by_path": {"segment_engine": sse_launches, "distributed_engine": dist_launches,
                              "transform_path": transform_launches, "sketch_path": sketch_launches,
                              "storage": storage_launches, "index_path": index_launches,
-                             "front_door": front_launches},
+                             "front_door": front_launches, "join_path": join_launches},
         "max_abs_err": worst,
         "shape": timing["shape"],
         "ms": timing["kernel_ms"],
@@ -3410,6 +3702,8 @@ def main() -> int:
         "mv_explode_shape": {k: timings[6][k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
         "in_subquery_shape": {k: timings[7][k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
+        "join_shape": {k: timings[8][k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
         "instantiations_on_main_path": main_variants,
         "shapes": timings,

@@ -58,9 +58,12 @@ reduced group-by rows.  A query run with `SET trace = true` carries `plan`
 (its shape digest and plan-cache outcome), `run` and `reduce` spans, as the
 JAX engine's does.
 
-Not ported, each raising NotImplementedError naming its ROADMAP Queue 1
-item: cross-query batching `execute_many` (item 6), joins (item 8).
-Refused with NotImplementedError, each a reference fault (ROADMAP Queue 3):
+A query with JOIN clauses goes to the multi-stage engine
+(mse.MultiStageEngine), built at first use over this engine's table
+registry, device and residency manager, as the JAX engine routes it.
+
+Not ported, raising NotImplementedError naming its ROADMAP Queue 1 item:
+cross-query batching `execute_many` (item 6).  Refused with NotImplementedError, each a reference fault (ROADMAP Queue 3):
 set operations and EXPLAIN / EXPLAIN ANALYZE, which the JAX engine ignores
 (it answers the first component, or runs the query), and IN (SELECT ...),
 on which it faults with a TypeError; the broker routes them in the JAX
@@ -225,6 +228,7 @@ class DistributedEngine:
             self.residency = default_residency()
         # the tiered path's CUDA copy stream and pinned ring (made at first use)
         self._copy_stream = None
+        self._mse_engine = None
 
     @property
     def num_devices(self) -> int:
@@ -232,6 +236,19 @@ class DistributedEngine:
 
     def register_table(self, name: str, stacked) -> None:
         self.tables[name] = stacked
+        # drop stale self-join facades of a re-registered table (mse/plan.py
+        # resolve registers them as '{name}@{alias}')
+        for k in [k for k in self.tables if k.startswith(name + "@")]:
+            del self.tables[k]
+
+    def _mse(self):
+        """The multi-stage engine join queries go to, over the same table
+        registry, device and residency manager (built at first use)."""
+        if self._mse_engine is None:
+            from pinot_tpu_torch.mse.engine import MultiStageEngine
+
+            self._mse_engine = MultiStageEngine(self.device, tables=self.tables, residency=self.residency)
+        return self._mse_engine
 
     # ------------------------------------------------------------------
     def query(self, sql: str) -> ResultTable:
@@ -241,9 +258,7 @@ class DistributedEngine:
 
     def execute(self, ctx: QueryContext) -> ResultTable:
         if ctx.joins:
-            raise NotImplementedError(
-                "joins (the multi-stage engine) are a later slice of the port (ROADMAP Queue 1 item 8)"
-            )
+            return self._mse().execute(ctx)
         if ctx.set_ops:
             raise NotImplementedError(
                 "set operations on the distributed engine: the JAX engine ignores them and answers the "

@@ -16,6 +16,8 @@ budget and evicted as a unit, and the copies may go through a caller's
 `copy` function (the distributed engine's CUDA copy stream).  A multi-value
 column is a [S, D, max_len] padded code matrix with [S, D] lengths (the
 segment builder's MV layout, shipped as "codes" and "lengths").
+``aliased_view(alias)`` is a self-join's facade: the columns renamed
+'{alias}${col}' over the same arrays and the same device cache.
 """
 from __future__ import annotations
 
@@ -465,9 +467,34 @@ class StackedTable:
                 return out
 
     def release_device(self) -> None:
+        # in place: self-join facades (aliased_view) share this dict, and a
+        # rebinding would leave their references holding device memory
         with self._device_lock:
             self._device_cache.clear()
             self._group_keys.clear()
+
+    # -- self-join facades ----------------------------------------------
+    def aliased_view(self, alias: str) -> "StackedTable":
+        """A facade of this table for a self-join: columns renamed to
+        '{alias}${col}' so one query can reference two instances.  Storage
+        is shared: the facade's columns hold the same numpy arrays, and it
+        shares the device cache, its group keys and its lock, so the
+        array-identity cache keys give every alias the same device tensors."""
+        import dataclasses as _dc
+
+        cols = {f"{alias}${n}": _dc.replace(c, name=f"{alias}${n}") for n, c in self.columns.items()}
+        schema = Schema(
+            name=f"{self.schema.name}@{alias}",
+            fields=[_dc.replace(f, name=f"{alias}${f.name}") for f in self.schema.fields],
+            primary_key_columns=[f"{alias}${c}" for c in self.schema.primary_key_columns],
+        )
+        idx = {kind: {f"{alias}${n}": v for n, v in by_col.items()} for kind, by_col in self.indexes.items()}
+        t = StackedTable(schema, cols, self.valid, self.num_docs, indexes=idx)
+        t._device_lock = self._device_lock
+        with self._device_lock:
+            t._device_cache = self._device_cache
+            t._group_keys = self._group_keys
+        return t
 
     # -- host decode -----------------------------------------------------
     def decoded_flat(self, name: str) -> np.ndarray:

@@ -33,8 +33,9 @@ eviction heat.
 ``device="cpu"`` runs the plain PyTorch path.  Left out: the JAX engine's
 plan-time static check (`analysis.plan_check.check_plan`, ROADMAP Queue 1
 item 9), so a malformed query fails later, in planning, with the port's own
-error; realtime tables (`attach_realtime`, item 11); joins (item 8) raise
-NotImplementedError.
+error; realtime tables (`attach_realtime`, item 11).  A JOIN raises
+NotImplementedError with the JAX engine's message: the distributed engine
+routes joins (mse.MultiStageEngine).
 """
 from __future__ import annotations
 
@@ -111,7 +112,9 @@ class QueryEngine:
             return apply_set_ops(ctx, self.execute)
         if ctx.joins:
             raise NotImplementedError(
-                "JOIN queries are a later slice of the port (MSE joins, ROADMAP Queue 1 item 8)"
+                "JOIN queries require the distributed engine "
+                "(parallel.DistributedEngine routes them to mse.MultiStageEngine); "
+                "the single-node QueryEngine serves single-table queries only"
             )
         t0 = time.perf_counter()
         deadline = Deadline.from_ctx(ctx)

@@ -307,6 +307,24 @@ class GapfillSpec:
 
 
 @dataclass(frozen=True)
+class JoinClause:
+    """One JOIN ... ON a = b clause (the multi-stage engine's logical join;
+    equi-joins only, as the reference's HashJoinOperator requires)."""
+
+    table: str
+    alias: Optional[str]
+    join_type: str  # "inner" | "left"
+    left_key: Expr
+    right_key: Expr
+
+    def fingerprint(self) -> str:
+        return (
+            f"join:{self.join_type}:{self.table}:{self.alias or ''}:"
+            f"{self.left_key.fingerprint()}={self.right_key.fingerprint()}"
+        )
+
+
+@dataclass(frozen=True)
 class Subquery:
     """IN (SELECT ...) marker carried inside Predicate.values until the
     engine resolves it (semi-join rewrite, reference: Calcite semi-join /
@@ -330,9 +348,9 @@ class QueryContext:
     select_list: List[Union[Expr, AggregationSpec]]
     select_aliases: List[Optional[str]] = dc_field(default_factory=list)
     table_alias: Optional[str] = None
-    # joins are never set by the port's parser (the multi-stage engine's
-    # slice); the field stays so fingerprints match the JAX package's
-    joins: List[Any] = dc_field(default_factory=list)
+    # JOIN clauses in FROM order; the distributed engine routes a query
+    # that has any to the multi-stage engine (mse/engine.py)
+    joins: List[JoinClause] = dc_field(default_factory=list)
     filter: Optional[FilterNode] = None
     group_by: List[Expr] = dc_field(default_factory=list)
     having: Optional[FilterNode] = None

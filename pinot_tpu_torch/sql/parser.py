@@ -1,6 +1,6 @@
 """SQL front door: text -> QueryContext IR.
 
-Trimmed copy of pinot_tpu/sql/parser.py (host-only) for single-table SQL:
+Copy of pinot_tpu/sql/parser.py (host-only):
 SELECT / WHERE boolean algebra / GROUP BY / HAVING / ORDER BY /
 LIMIT-OFFSET / query options.  It recognizes the JAX package's full set of
 aggregation names (functions.ALL_AGG_NAMES), so one SQL text yields the
@@ -10,8 +10,10 @@ fail at plan time.  CASE, FILTER (WHERE ...) and window functions
 in the JAX package, and so do the funnel family's STEPS, CORRELATEBY and
 TIMESTAMPBY arguments, and so do EXPLAIN [ANALYZE] PLAN FOR, UNION [ALL] /
 INTERSECT / EXCEPT (INTERSECT binding tighter), IN / NOT IN (SELECT ...)
-and GAPFILL(...).  A JOIN raises NotImplementedError here, naming the
-ROADMAP Queue 1 item that brings it (item 8).
+and GAPFILL(...), and so do INNER / LEFT [OUTER] JOIN ... ON a = b clauses
+(equi-joins; RIGHT, FULL and CROSS raise SqlParseError as there).  Table
+qualifiers are stripped here only when the query has no join; a join's
+qualifiers are resolved by the multi-stage planner (mse/plan.py).
 
 Reference parity: CalciteSqlParser (pinot-common/.../sql/parsers/
 CalciteSqlParser.java) compiling SQL text into the Thrift PinotQuery IR, plus
@@ -43,6 +45,7 @@ from pinot_tpu_torch.query.ir import (
     PredicateType,
     QueryContext,
     GapfillSpec,
+    JoinClause,
     Subquery,
     map_expr_columns,
     map_filter_columns,
@@ -323,8 +326,7 @@ class _Parser:
             self.fail("expected table name")
         table = self.advance().value
         table_alias = self.table_alias()
-        if self.at_kw("join", "inner", "left", "right", "full", "cross"):
-            raise NotImplementedError("JOIN queries are a later slice of the port (MSE joins, ROADMAP Queue 1 item 8)")
+        joins = self.join_clauses()
 
         where = None
         if self.accept_kw("where"):
@@ -454,66 +456,69 @@ class _Parser:
                     _maybe_extra(pred.lhs)
 
         # Single-table queries: resolve alias.column qualifiers here — the
-        # engine knows nothing about aliases.
-        known = {table}
-        if table_alias:
-            known.add(table_alias)
+        # SSE engines know nothing about aliases (only the MSE resolver
+        # strips qualifiers, and it only runs for join queries).
+        if not joins:
+            known = {table}
+            if table_alias:
+                known.add(table_alias)
 
-        def strip_q(e: Expr) -> Expr:
-            if "." in e.op:
-                q, c = e.op.split(".", 1)
-                if q not in known:
-                    raise SqlParseError(
-                        f"unknown table alias {q!r} in {e.op!r} "
-                        f"(FROM {table}{' ' + table_alias if table_alias else ''})"
-                    )
-                return Expr.col(c)
-            return e
+            def strip_q(e: Expr) -> Expr:
+                if "." in e.op:
+                    q, c = e.op.split(".", 1)
+                    if q not in known:
+                        raise SqlParseError(
+                            f"unknown table alias {q!r} in {e.op!r} "
+                            f"(FROM {table}{' ' + table_alias if table_alias else ''})"
+                        )
+                    return Expr.col(c)
+                return e
 
-        def strip_agg(s: AggregationSpec) -> AggregationSpec:
-            return dataclasses.replace(
-                s,
-                expr=map_expr_columns(s.expr, strip_q) if s.expr is not None else None,
-                filter=map_filter_columns(s.filter, strip_q),
-            )
-
-        def strip_item(s):
-            if isinstance(s, AggregationSpec):
-                return strip_agg(s)
-            if isinstance(s, WindowSpec):
+            def strip_agg(s: AggregationSpec) -> AggregationSpec:
                 return dataclasses.replace(
                     s,
                     expr=map_expr_columns(s.expr, strip_q) if s.expr is not None else None,
-                    partition_by=tuple(map_expr_columns(p, strip_q) for p in s.partition_by),
-                    order_by=tuple(
-                        OrderByExpr(map_expr_columns(o.expr, strip_q), o.ascending, o.nulls_last)
-                        for o in s.order_by
-                    ),
+                    filter=map_filter_columns(s.filter, strip_q),
                 )
-            return map_expr_columns(s, strip_q)
 
-        select_list = [strip_item(s) for s in select_list]
-        group_by = [map_expr_columns(g, strip_q) for g in group_by]
-        where = map_filter_columns(where, strip_q)
-        having = map_filter_columns(having, strip_q)
-        order_by = [
-            OrderByExpr(map_expr_columns(o.expr, strip_q), o.ascending, o.nulls_last)
-            for o in order_by
-        ]
-        extra_aggs = [strip_agg(s) for s in extra_aggs]
-        if gapfill is not None:
-            gapfill = dataclasses.replace(
-                gapfill,
-                time_expr=map_expr_columns(gapfill.time_expr, strip_q),
-                fills=tuple((map_expr_columns(t, strip_q), m) for t, m in gapfill.fills),
-                series=tuple(map_expr_columns(s, strip_q) for s in gapfill.series),
-            )
+            def strip_item(s):
+                if isinstance(s, AggregationSpec):
+                    return strip_agg(s)
+                if isinstance(s, WindowSpec):
+                    return dataclasses.replace(
+                        s,
+                        expr=map_expr_columns(s.expr, strip_q) if s.expr is not None else None,
+                        partition_by=tuple(map_expr_columns(p, strip_q) for p in s.partition_by),
+                        order_by=tuple(
+                            OrderByExpr(map_expr_columns(o.expr, strip_q), o.ascending, o.nulls_last)
+                            for o in s.order_by
+                        ),
+                    )
+                return map_expr_columns(s, strip_q)
+
+            select_list = [strip_item(s) for s in select_list]
+            group_by = [map_expr_columns(g, strip_q) for g in group_by]
+            where = map_filter_columns(where, strip_q)
+            having = map_filter_columns(having, strip_q)
+            order_by = [
+                OrderByExpr(map_expr_columns(o.expr, strip_q), o.ascending, o.nulls_last)
+                for o in order_by
+            ]
+            extra_aggs = [strip_agg(s) for s in extra_aggs]
+            if gapfill is not None:
+                gapfill = dataclasses.replace(
+                    gapfill,
+                    time_expr=map_expr_columns(gapfill.time_expr, strip_q),
+                    fills=tuple((map_expr_columns(t, strip_q), m) for t, m in gapfill.fills),
+                    series=tuple(map_expr_columns(s, strip_q) for s in gapfill.series),
+                )
 
         return QueryContext(
             table=table,
             select_list=select_list,
             select_aliases=aliases,
             table_alias=table_alias,
+            joins=joins,
             filter=where,
             group_by=group_by,
             having=having,
@@ -525,7 +530,7 @@ class _Parser:
             gapfill=gapfill,
         )
 
-    # -- FROM clause: table alias ----------------------------------------
+    # -- FROM clause: aliases + joins -----------------------------------
     def table_alias(self) -> Optional[str]:
         if self.accept_kw("as"):
             if self.cur.kind != "ident":
@@ -534,6 +539,31 @@ class _Parser:
         if self.cur.kind == "ident":
             return self.advance().value
         return None
+
+    def join_clauses(self) -> List[JoinClause]:
+        joins: List[JoinClause] = []
+        while self.at_kw("join", "inner", "left", "right", "full", "cross"):
+            jt = "inner"
+            if self.accept_kw("inner"):
+                pass
+            elif self.accept_kw("left"):
+                self.accept_kw("outer")
+                jt = "left"
+            elif self.at_kw("right", "full", "cross"):
+                self.fail(f"{self.cur.value.upper()} JOIN is not supported (INNER/LEFT only)")
+            self.expect_kw("join")
+            if self.cur.kind != "ident":
+                self.fail("expected table name after JOIN")
+            tbl = self.advance().value
+            alias = self.table_alias()
+            self.expect_kw("on")
+            lhs = self.expr()
+            self.expect_op("=")
+            rhs = self.expr()
+            if not (lhs.is_column and rhs.is_column):
+                self.fail("JOIN ON requires column = column (equi-join keys)")
+            joins.append(JoinClause(tbl, alias, jt, lhs, rhs))
+        return joins
 
     # -- select items ----------------------------------------------------
     def select_item(self) -> Tuple[Union[Expr, AggregationSpec], Optional[str]]:

@@ -3,10 +3,10 @@
 For every query of the slice's SQL set, the two parsers must agree on the
 full fingerprint (every literal included), on the shape fingerprint against
 each package's own segment metadata, and on the extracted literal
-parameters of every predicate.  A JOIN (a later slice) raises
-NotImplementedError in the port; window functions, CASE, FILTER (WHERE
-...), EXPLAIN, set operations, IN (SELECT ...) and GAPFILL parse as in the
-JAX package."""
+parameters of every predicate.  JOIN clauses (INNER / LEFT, equi-keys),
+window functions, CASE, FILTER (WHERE ...), EXPLAIN, set operations, IN
+(SELECT ...) and GAPFILL parse as in the JAX package; RIGHT / FULL / CROSS
+JOIN raise SqlParseError in both."""
 import pytest
 
 import pinot_tpu  # noqa: F401
@@ -82,6 +82,25 @@ def test_parser_matches_jax(engines, sql):  # noqa: F811
     ],
 )
 def test_later_slice_syntax_raises(sql):
-    jax_parse(sql)  # the reference parses it
-    with pytest.raises(NotImplementedError):
+    """JOIN clauses (the multi-stage slice) parse into the JAX package's
+    JoinClause: the same table, alias, type and keys, the same fingerprint,
+    and qualifiers left for the multi-stage planner."""
+    jctx, pctx = jax_parse(sql), port_parse(sql)
+    assert [(j.table, j.alias, j.join_type, j.left_key.op, j.right_key.op) for j in pctx.joins] == [
+        (j.table, j.alias, j.join_type, j.left_key.op, j.right_key.op) for j in jctx.joins]
+    assert [j.fingerprint() for j in pctx.joins] == [j.fingerprint() for j in jctx.joins]
+    assert pctx.fingerprint() == jctx.fingerprint()
+    assert pctx.shape_fingerprint() == jctx.shape_fingerprint()
+    assert pctx.joins[0].left_key.op == "t.a"
+
+
+@pytest.mark.parametrize("kind", ["RIGHT", "FULL", "CROSS"])
+def test_unsupported_join_kinds_raise_in_both(kind):
+    from pinot_tpu.sql.parser import SqlParseError as JaxSqlParseError
+    from pinot_tpu_torch.sql.parser import SqlParseError as PortSqlParseError
+
+    sql = f"SELECT COUNT(*) FROM t {kind} JOIN u ON t.a = u.a"
+    with pytest.raises(JaxSqlParseError, match=f"{kind} JOIN is not supported"):
+        jax_parse(sql)
+    with pytest.raises(PortSqlParseError, match=f"{kind} JOIN is not supported"):
         port_parse(sql)
