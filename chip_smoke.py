@@ -48,8 +48,9 @@ Phases, in order; any failure raises and the process exits non-zero:
                 the device merge.  Every result EXACTLY equal to a numpy
                 golden at both batchings, the route of each query checked
                 from the counters around one counted run per engine; the
-                20-literal sweep plans once; warm medians of 5, the host ms
-                of the words and their copy, then a profile of each query.
+                20-literal sweep plans once; warm medians of 5 ((d): of 3),
+                the host ms of the words and their copy, then a profile of
+                each query.
  4c. transform_path - on the tables of phases 4 and 4b (no second build):
                 (e) a FILTER (WHERE ...) group-by, (f) SSB Q1.1's
                 SUM(lo_revenue * lo_discount), (g) a GROUP BY MOD(...) key
@@ -116,12 +117,12 @@ Phases, in order; any failure raises and the process exits non-zero:
                 its useStarTree=false twin; TEXT_MATCH / JSON_MATCH over 4 x
                 2^20 rows; VECTOR_SIMILARITY over 2^20 x 384 float32.  Every
                 result against a numpy golden, then warm medians.
-                Profiles (phases 4-4h) run last: in each of three sessions
-                the query runs once unmeasured, then once inside a
-                record_function range whose device events are summed; a
-                query whose profiled run passes 1 s (the sparse (d), (o))
-                stops after one complete session, and phase 4g's and 4h's
-                queries take one session each.
+                Profiles (phases 4-4i) run last: in each session the query
+                runs once unmeasured, then once inside a record_function
+                range whose device events are summed; the main paths'
+                queries (phases 4 and 4b) take up to three sessions (one
+                complete session past 1 s of wall, (d), stops them), every
+                other phase's one session each (the script's time limit).
  4g. front_door (after 4f) - on the tables of phases 4 and 4b: (y1)
                 GAPFILL with FILL_PREVIOUS_VALUE and with the null fill
                 over the 2406 days (a tenth of them filtered out), (y2)
@@ -159,6 +160,31 @@ Phases, in order; any failure raises and the process exits non-zero:
                 i32/i32/shared, for each dense group-by; none for (z3) and
                 (z7)) and its peak allocated bytes; warm medians of 5, one
                 profile session each, one join_path line per query.
+ 4i. realtime_path (after 4h) - realtime tables (pinot_tpu_torch/realtime/)
+                through QueryEngine.attach_realtime: (r1) phase 4's 8
+                offline segments (not rebuilt) with a realtime part of one
+                partition fed 2^20 + 2^19 rows through InMemoryStream at
+                the default 2^20 rows a segment (one sealed segment saved
+                under build/, one consuming snapshot of 2^19 rows), config
+                2 exact over all rows with 8 + 1 + 1 launches; (r2) 20
+                cycles of publish 4096 rows -> consume -> config 2, each
+                exact with the new rows, the ms from publish to a visible
+                answer, the snapshot rebuild and the allocation after each
+                cycle (gate: cycle 20 at most one snapshot's device bytes +
+                64 MiB above cycle 1); (r3) FULL upsert (lo_orderkey the
+                primary key, ts the comparison column) over 2 partitions by
+                partition_of, 2^21 + 2^18 messages over 2^20 keys: one
+                sealed 2^20-row segment and a consuming snapshot a
+                partition, config 2 exact against the latest row a key, 4
+                launches whose plans carry the validDocIds mask; (r4) a
+                fresh manager over (r3)'s directory (segments loaded with
+                verify, the upsert bootstrap, the tail re-consumed), the
+                same answer; (r5) StackedTable.from_segments over (r4)'s
+                segments (compacted) in DistributedEngine(), exact in one
+                launch.  One realtime_path line an item (ingest rows/s,
+                seal s, snapshot ms, wall, device busy and idle share from
+                one profile an engine, launches by instantiation, recovery
+                s, peak allocated bytes).
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
@@ -167,7 +193,7 @@ Phases, in order; any failure raises and the process exits non-zero:
                 a read flush, scan_ms beside a float32 sum and a device copy
                 of the same input bytes.
   6. summary  - one {"kernels": [...]} JSON line (fused_scan, funnel_scan; launches_by_path
-                includes front_door and join_path), the card's nvidia-smi line,
+                includes front_door, join_path and realtime_path), the card's nvidia-smi line,
                 and last the {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
@@ -1129,7 +1155,7 @@ def phase_dist_main_path(args, dev):
     for label, e in engines.items():
         for name, sql in DIST_QUERIES.items():
             ms = []
-            for _ in range(5):
+            for _ in range(3 if name == "d_sparse_groupby" else 5):  # (d) takes ~6 s a run
                 s = time.perf_counter()
                 e.query(sql)
                 torch.cuda.synchronize()
@@ -3143,6 +3169,382 @@ def phase_join_path(seg, dist):
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: realtime tables — consuming segments, upsert, restart, and the
+# distributed engine over a compacted upsert table
+# ---------------------------------------------------------------------------
+# the JAX package's default segment end criterion (StreamConfig
+# max_rows_per_segment), not cut
+RT_SEGMENT_ROWS = 1 << 20
+RT_R1_MESSAGES = (1 << 20) + (1 << 19)  # one sealed segment + a 2^19-row snapshot
+RT_FRESH_CYCLES = 20
+RT_FRESH_ROWS = 4096
+RT_UPSERT_MESSAGES = (1 << 21) + (1 << 18)
+RT_UPSERT_KEYS = 1 << 20
+RT_UPSERT_PARTITIONS = 2
+RT_MEMORY_SLACK = 64 << 20
+
+
+def _rt_schema(upsert: bool):
+    from pinot_tpu_torch.spi.schema import DataType, FieldRole, FieldSpec, Schema
+
+    fields = [
+        FieldSpec("lo_orderdate", DataType.INT),
+        FieldSpec("lo_quantity", DataType.INT),
+        FieldSpec("lo_discount", DataType.INT),
+        FieldSpec("lo_revenue", DataType.LONG, role=FieldRole.METRIC),
+    ]
+    if not upsert:
+        return Schema("lineorder", fields)
+    return Schema("lineorder", fields + [FieldSpec("lo_orderkey", DataType.LONG),
+                                         FieldSpec("ts", DataType.TIMESTAMP, role=FieldRole.DATE_TIME)],
+                  primary_key_columns=["lo_orderkey"])
+
+
+def _rt_config(upsert: bool):
+    from pinot_tpu_torch.spi.config import IndexingConfig, SegmentsConfig, StreamConfig, TableConfig, UpsertConfig
+
+    return TableConfig(
+        "lineorder",
+        indexing=IndexingConfig(range_index_columns=["lo_quantity"]),
+        segments=SegmentsConfig(time_column="ts" if upsert else None),
+        stream=StreamConfig(stream_type="memory", topic="lineorder", max_rows_per_segment=RT_SEGMENT_ROWS),
+        upsert=UpsertConfig(mode="FULL", comparison_column="ts") if upsert else None,
+    )
+
+
+def _messages(d):
+    """Column arrays -> one dict a row (the decoded stream payloads)."""
+    names = list(d)
+    return [dict(zip(names, r)) for r in zip(*(d[k].tolist() for k in names))]
+
+
+def _config2_tables(d):
+    """Config 2's per-day SUM(lo_revenue) and COUNT(*) of rows `d`, exact
+    (float64 bincount sums of integers stay below 2^53)."""
+    od, m = d["lo_orderdate"] - 19920101, d["lo_quantity"] < 25
+    return (np.bincount(od[m], weights=d["lo_revenue"][m], minlength=2406),
+            np.bincount(od[m], minlength=2406).astype(np.int64))
+
+
+def _config2_rows(sums, cnts):
+    return sorted((19920101 + int(i), float(sums[i]), int(cnts[i])) for i in np.nonzero(cnts)[0])
+
+
+def _rt_counted(engine, want, label, expect_launches):
+    """Config 2 once with the counts set to 0 just before and read just
+    after; exact against `want`, launching the fused scan once a segment."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    torch.cuda.synchronize()
+    fused_scan.LAUNCHES = 0
+    fused_scan.VARIANT_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = engine.query(CONFIG2)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches, variants = fused_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES)
+    if sorted(res.rows) != want:
+        raise AssertionError(f"realtime {label}: config 2 differs from the numpy golden")
+    if launches != expect_launches:
+        raise AssertionError(f"realtime {label}: {launches} fused-scan launches, expected {expect_launches}")
+    return {"launches": launches, "instantiations": variants, "first_wall_ms": wall_ms, "groups": len(res.rows)}
+
+
+def _snapshot_bytes(snap) -> int:
+    return sum(t.numel() * t.element_size() for entries in snap._device_cache.values()
+               for entry in entries.values() for t in entry.values())
+
+
+class _SealClock:
+    """Times each RealtimeSegmentDataManager.seal_and_swap (the build, the
+    save, the swap and the checkpoint) while installed."""
+
+    def __init__(self):
+        from pinot_tpu_torch.realtime import manager
+
+        self.cls, self.orig, self.seconds = manager.RealtimeSegmentDataManager, None, []
+
+    def __enter__(self):
+        self.orig = orig = self.cls.seal_and_swap
+        clock = self
+
+        def timed(mgr):
+            t0 = time.perf_counter()
+            out = orig(mgr)
+            clock.seconds.append(time.perf_counter() - t0)
+            return out
+
+        self.cls.seal_and_swap = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.seal_and_swap = self.orig
+
+
+def _rt_hybrid(seg, rng, root):
+    """(r1): phase 4's 8 offline segments (already on the card) with a
+    realtime part of one partition: 2^20 + 2^19 rows through InMemoryStream,
+    one sealed 2^20-row segment saved under build/ and a 2^19-row
+    consuming snapshot; config 2 exact over all rows, 8 + 1 + 1 launches."""
+    from pinot_tpu_torch.query.engine import QueryEngine
+    from pinot_tpu_torch.realtime import InMemoryStream, RealtimeTableDataManager
+
+    schema, cfg = _rt_schema(False), _rt_config(False)
+    offline = seg["engine"].table("lineorder")
+    engine = QueryEngine()  # device None: CUDA, raising without it
+    engine.register_table(offline.schema, offline.config)
+    for s in offline.segments:
+        engine.add_segment("lineorder", s)
+    stream = InMemoryStream(1)
+    mgr = RealtimeTableDataManager(schema, cfg, os.path.join(root, "hybrid"), stream=stream)
+    engine.attach_realtime("lineorder", mgr)
+    d = lineorder_segment(rng, RT_R1_MESSAGES)
+    t0 = time.perf_counter()
+    msgs = _messages(d)
+    stream.publish_many(msgs, partition=0)
+    publish_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with _SealClock() as clock:
+        t1 = time.perf_counter()
+        n = mgr.consume_all()
+        consume_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    snap = mgr.managers[0].mutable.snapshot()
+    snapshot_ms = (time.perf_counter() - t2) * 1e3
+    if n != RT_R1_MESSAGES or len(mgr.sealed[0]) != 1 or snap.num_docs != RT_R1_MESSAGES - RT_SEGMENT_ROWS:
+        raise AssertionError(f"realtime r1: {n} rows, {len(mgr.sealed[0])} sealed, snapshot {snap.num_docs}")
+    if not os.path.isdir(mgr.segment_dir(mgr.sealed[0][0].name)):
+        raise AssertionError("realtime r1: the sealed segment is not on disk")
+    off_sum = np.zeros(2406)
+    off_cnt = np.zeros(2406, np.int64)
+    for day, s, c in seg["golden"]["a_config2"]:
+        off_sum[day - 19920101], off_cnt[day - 19920101] = s, c
+    rt_sum, rt_cnt = _config2_tables(d)
+    sums, cnts = off_sum + rt_sum, off_cnt + rt_cnt
+    check = _rt_counted(engine, _config2_rows(sums, cnts), "r1", len(offline.segments) + 2)
+    rec = {"rows": {"offline": sum(s.num_docs for s in offline.segments), "sealed": RT_SEGMENT_ROWS,
+                    "consuming": snap.num_docs},
+           "publish_rows_per_s": RT_R1_MESSAGES / publish_s, "ingest_rows_per_s": n / consume_s,
+           "consume_s": consume_s, "seal_s": clock.seconds, "snapshot_ms": snapshot_ms,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(), **check}
+    rec.update(_wall_ms(engine, CONFIG2))
+    return {"engine": engine, "mgr": mgr, "stream": stream, "sums": sums, "cnts": cnts, "record": rec}
+
+
+def _rt_freshness(r1, rng):
+    """(r2): 20 cycles of publish 4096 rows -> consume -> config 2, each
+    answer exact with the new rows; the allocation after cycle 20 at most
+    one snapshot's device bytes + 64 MiB above the one after cycle 1."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    engine, mgr, stream = r1["engine"], r1["mgr"], r1["stream"]
+    sums, cnts = r1["sums"].copy(), r1["cnts"].copy()
+    cycles, allocated = [], []
+    torch.cuda.reset_peak_memory_stats()
+    fused_scan.LAUNCHES = 0
+    fused_scan.VARIANT_LAUNCHES.clear()
+    for i in range(RT_FRESH_CYCLES):
+        d = lineorder_segment(rng, RT_FRESH_ROWS)
+        msgs = _messages(d)
+        t0 = time.perf_counter()
+        stream.publish_many(msgs, partition=0)
+        n = mgr.consume_all()
+        t1 = time.perf_counter()
+        snap = mgr.managers[0].mutable.snapshot()
+        t2 = time.perf_counter()
+        res = engine.query(CONFIG2)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        s, c = _config2_tables(d)
+        sums, cnts = sums + s, cnts + c
+        if n != RT_FRESH_ROWS or sorted(res.rows) != _config2_rows(sums, cnts):
+            raise AssertionError(f"realtime r2: cycle {i} is not exact with its {RT_FRESH_ROWS} new rows")
+        allocated.append(torch.cuda.memory_allocated())
+        cycles.append({"publish_to_visible_ms": (t3 - t0) * 1e3, "consume_ms": (t1 - t0) * 1e3,
+                       "snapshot_ms": (t2 - t1) * 1e3, "wall_ms": (t3 - t2) * 1e3, "snapshot_rows": snap.num_docs,
+                       "allocated_bytes": allocated[-1]})
+    snap_bytes = _snapshot_bytes(mgr.managers[0].mutable.snapshot())
+    growth = allocated[-1] - allocated[0]
+    if growth > snap_bytes + RT_MEMORY_SLACK:
+        raise AssertionError(f"realtime r2: device allocation grew {growth} B over {RT_FRESH_CYCLES} cycles "
+                             f"(limit {snap_bytes} + {RT_MEMORY_SLACK})")
+    launches = fused_scan.LAUNCHES
+    if launches != RT_FRESH_CYCLES * (len(engine.table("lineorder").segments) + 2):
+        raise AssertionError(f"realtime r2: {launches} fused-scan launches")
+    walls = [c["wall_ms"] for c in cycles]
+    return {"cycles": cycles, "launches": launches, "instantiations": dict(fused_scan.VARIANT_LAUNCHES),
+            "publish_to_visible_ms_median": statistics.median(c["publish_to_visible_ms"] for c in cycles),
+            "snapshot_ms_median": statistics.median(c["snapshot_ms"] for c in cycles),
+            "median_ms": statistics.median(walls), "snapshot_device_bytes": snap_bytes,
+            "allocated_growth_bytes": growth, "allocated_gate_bytes": snap_bytes + RT_MEMORY_SLACK,
+            "ingest_rows_per_s": RT_FRESH_ROWS / statistics.median(c["consume_ms"] / 1e3 for c in cycles),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _upsert_data(rng):
+    """(r3)'s messages: lineorder rows with lo_orderkey uniform over 2^20
+    keys and ts strictly increasing; and the latest row of each key."""
+    d = lineorder_segment(rng, RT_UPSERT_MESSAGES)
+    d["lo_orderkey"] = rng.integers(0, RT_UPSERT_KEYS, RT_UPSERT_MESSAGES).astype(np.int64)
+    d["ts"] = 1_700_000_000_000 + np.arange(RT_UPSERT_MESSAGES, dtype=np.int64)
+    _, last_rev = np.unique(d["lo_orderkey"][::-1], return_index=True)
+    latest = RT_UPSERT_MESSAGES - 1 - last_rev
+    return d, {k: v[latest] for k, v in d.items()}
+
+
+def _upsert_engine(mgr):
+    from pinot_tpu_torch.query.engine import QueryEngine
+
+    engine = QueryEngine()
+    engine.register_table(_rt_schema(True), _rt_config(True))
+    engine.attach_realtime("lineorder", mgr)
+    return engine
+
+
+def _valid_params(engine, mgr):
+    """Every realtime segment's config 2 plan ships the validDocIds mask."""
+    from pinot_tpu_torch.query import planner
+    from pinot_tpu_torch.sql.parser import parse_query
+
+    segs = mgr.query_segments()
+    masked = [("__valid__" in planner.plan_segment(parse_query(CONFIG2), s, engine.device).params) for s in segs]
+    if not all(masked) or any(s.valid_docs is None for s in segs):
+        raise AssertionError(f"realtime: not every upsert segment carries its validDocIds: {masked}")
+    return {"segments": len(segs), "valid_rows": int(sum(int(np.count_nonzero(s.valid_docs)) for s in segs)),
+            "rows": int(sum(s.num_docs for s in segs))}
+
+
+def _rt_upsert(rng, root):
+    """(r3): FULL upsert over 2 partitions by partition_of(lo_orderkey):
+    each seals one 2^20-row segment and keeps a consuming snapshot; config
+    2 exact against the latest row per key, launches carrying the mask."""
+    from pinot_tpu_torch.realtime import InMemoryStream, RealtimeTableDataManager
+    from pinot_tpu_torch.utils.hashing import partition_of
+
+    d, latest = _upsert_data(rng)
+    t0 = time.perf_counter()
+    msgs = _messages(d)
+    keys = np.unique(d["lo_orderkey"]).tolist()
+    part = dict(zip(keys, (partition_of(k, RT_UPSERT_PARTITIONS) for k in keys)))
+    stream = InMemoryStream(RT_UPSERT_PARTITIONS)
+    for m in msgs:
+        k = m["lo_orderkey"]
+        stream.publish(m, key=k, partition=part[k])
+    publish_s = time.perf_counter() - t0
+    data_dir = os.path.join(root, "upsert")
+    mgr = RealtimeTableDataManager(_rt_schema(True), _rt_config(True), data_dir, stream=stream)
+    engine = _upsert_engine(mgr)
+    torch.cuda.reset_peak_memory_stats()
+    with _SealClock() as clock:
+        t1 = time.perf_counter()
+        n = mgr.consume_all()
+        consume_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    snaps = [m.mutable.snapshot() for m in mgr.managers.values()]
+    snapshot_ms = (time.perf_counter() - t2) * 1e3
+    sealed = [len(mgr.sealed[p]) for p in range(RT_UPSERT_PARTITIONS)]
+    if n != RT_UPSERT_MESSAGES or sealed != [1] * RT_UPSERT_PARTITIONS:
+        raise AssertionError(f"realtime r3: {n} rows consumed, sealed {sealed}")
+    want = _config2_rows(*_config2_tables(latest))
+    masks = _valid_params(engine, mgr)
+    if masks["valid_rows"] != len(latest["lo_orderkey"]):
+        raise AssertionError(f"realtime r3: {masks['valid_rows']} valid rows, {len(latest['lo_orderkey'])} keys")
+    check = _rt_counted(engine, want, "r3", 2 * RT_UPSERT_PARTITIONS)
+    rec = {"messages": RT_UPSERT_MESSAGES, "keys": len(latest["lo_orderkey"]), "partitions": RT_UPSERT_PARTITIONS,
+           "consuming_rows": [s.num_docs for s in snaps], "masks": masks,
+           "publish_rows_per_s": RT_UPSERT_MESSAGES / publish_s, "ingest_rows_per_s": n / consume_s,
+           "consume_s": consume_s, "seal_s": clock.seconds, "snapshot_ms": snapshot_ms,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(), **check}
+    rec.update(_wall_ms(engine, CONFIG2))
+    return {"engine": engine, "mgr": mgr, "stream": stream, "data_dir": data_dir, "want": want,
+            "latest": latest, "record": rec}
+
+
+def _rt_restart(r3):
+    """(r4): a fresh manager over (r3)'s data directory: the sealed segments
+    loaded with verify, the upsert bootstrap, the tail re-consumed past
+    the checkpoint; the same answer."""
+    from pinot_tpu_torch.realtime import RealtimeTableDataManager
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mgr = RealtimeTableDataManager(_rt_schema(True), _rt_config(True), r3["data_dir"], stream=r3["stream"])
+    recover_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    n = mgr.consume_all()
+    reconsume_s = time.perf_counter() - t1
+    want_tail = sum(m.mutable.num_docs for m in r3["mgr"].managers.values())
+    recovered = [len(mgr.sealed[p]) for p in range(RT_UPSERT_PARTITIONS)]
+    if n != want_tail or recovered != [1] * RT_UPSERT_PARTITIONS:
+        raise AssertionError(f"realtime r4: recovered {recovered} sealed, re-consumed {n} rows of {want_tail}")
+    engine = _upsert_engine(mgr)
+    masks = _valid_params(engine, mgr)
+    check = _rt_counted(engine, r3["want"], "r4", 2 * RT_UPSERT_PARTITIONS)
+    rec = {"recovery_s": recover_s + reconsume_s, "load_and_bootstrap_s": recover_s, "reconsume_s": reconsume_s,
+           "reconsumed_rows": n, "ingest_rows_per_s": n / reconsume_s, "masks": masks,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(), **check}
+    rec.update(_wall_ms(engine, CONFIG2))
+    return {"engine": engine, "mgr": mgr, "record": rec}
+
+
+def _rt_distributed(r3, r4):
+    """(r5): StackedTable.from_segments over (r4)'s query segments (the
+    rows outside validDocIds dropped) into DistributedEngine() on CUDA;
+    config 2 exact against the same golden in one launch."""
+    from pinot_tpu_torch.parallel.engine import DistributedEngine
+    from pinot_tpu_torch.parallel.stacked import StackedTable
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stacked = StackedTable.from_segments(r4["mgr"].query_segments(), num_shards=1, table_config=_rt_config(True))
+    stack_s = time.perf_counter() - t0
+    if stacked.num_docs != len(r3["latest"]["lo_orderkey"]):
+        raise AssertionError(f"realtime r5: {stacked.num_docs} stacked rows after compaction")
+    engine = DistributedEngine()
+    engine.register_table("lineorder", stacked)
+    check = _rt_counted(engine, r3["want"], "r5", 1)
+    rec = {"stacked_rows": stacked.num_docs, "stack_s": stack_s,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(), **check}
+    rec.update(_wall_ms(engine, CONFIG2))
+    return {"engine": engine, "stacked": stacked, "record": rec}
+
+
+def phase_realtime_path(seg, seed):
+    """Phase 4i: (r1)-(r5).  Returns the launches of the counted runs, the
+    records, the profiles and what the script cleans up at its end."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="realtime_", dir=os.path.join(REPO, "build"))
+    r1 = _rt_hybrid(seg, rng, root)
+    log("realtime_check", item="r1_hybrid", exact=True, **{k: r1["record"][k] for k in ("launches", "rows")})
+    r2 = _rt_freshness(r1, rng)
+    log("realtime_check", item="r2_freshness", exact=True, launches=r2["launches"],
+        allocated_growth_bytes=r2["allocated_growth_bytes"], allocated_gate_bytes=r2["allocated_gate_bytes"])
+    r3 = _rt_upsert(rng, root)
+    log("realtime_check", item="r3_upsert", exact=True, launches=r3["record"]["launches"], masks=r3["record"]["masks"])
+    r4 = _rt_restart(r3)
+    log("realtime_check", item="r4_restart", exact=True, launches=r4["record"]["launches"],
+        recovery_s=r4["record"]["recovery_s"])
+    r5 = _rt_distributed(r3, r4)
+    log("realtime_check", item="r5_distributed", exact=True, launches=r5["record"]["launches"])
+    records = {"r1_hybrid": r1["record"], "r2_freshness": r2, "r3_upsert": r3["record"],
+               "r4_restart": r4["record"], "r5_distributed": r5["record"]}
+    engines = {"r1_hybrid": r1["engine"], "r2_freshness": r1["engine"], "r3_upsert": r3["engine"],
+               "r4_restart": r4["engine"], "r5_distributed": r5["engine"]}
+    launches = sum(r["launches"] for r in records.values())
+    variants = {}
+    for r in records.values():
+        for k, v in r["instantiations"].items():
+            variants[k] = variants.get(k, 0) + v
+    # one profile per engine: r2's engine is r1's, over the grown snapshot
+    profiles = [("realtime_profile", {"engine": name, "query": "config2"}, e, CONFIG2)
+                for name, e in engines.items() if name != "r2_freshness"]
+    return {"launches": launches, "variants": variants, "records": records, "profiles": profiles,
+            "root": root, "dist_engine": r5["engine"], "realtime_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
 # phase 4d: storage — segment persistence on the segment engine, the
 # residency sweep on the distributed engine, on the tables phases 4 and 4b
 # built
@@ -3561,7 +3963,9 @@ def run_profiles(tasks) -> dict:
     one log line each, and the results by (phase, engine, query)."""
     out = {}
     for phase, labels, engine, sql in tasks:
-        prof = profile_query(engine, sql, sessions=1 if phase in ("front_door_profile", "join_profile") else 3)
+        # three sessions for the two main paths, one for the other phases:
+        # a session costs ~1 s of profiler set-up on the card's host
+        prof = profile_query(engine, sql, sessions=3 if phase in ("main_path_profile", "dist_profile") else 1)
         log(phase, **labels, **prof)
         out[(phase, labels.get("engine"), labels["query"])] = prof
     return out
@@ -3614,17 +4018,18 @@ def main() -> int:
     index = phase_index_path(seg, dev, args.seed + 3)
     front = phase_front_door(seg, dist)
     join = phase_join_path(seg, dist)
+    realtime = phase_realtime_path(seg, args.seed + 4)
     main_variants = dict(seg["variants"])
-    for part in (dist, transform, sketch, storage, index, front, join):
+    for part in (dist, transform, sketch, storage, index, front, join, realtime):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
     storage_launches, sketch_launches, index_launches = storage["launches"], sketch["launches"], index["launches"]
-    front_launches, join_launches = front["launches"], join["launches"]
+    front_launches, join_launches, realtime_launches = front["launches"], join["launches"], realtime["launches"]
     main_launches = (sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
-                     + index_launches + front_launches + join_launches)
+                     + index_launches + front_launches + join_launches + realtime_launches)
     profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"]
-                            + index["profiles"] + front["profiles"] + join["profiles"])
+                            + index["profiles"] + front["profiles"] + join["profiles"] + realtime["profiles"])
     for key, rec in transform["records"].items():
         engine, _, query = key.partition("/")
         prof = profiles.get(("transform_profile", engine, query), {})
@@ -3661,12 +4066,23 @@ def main() -> int:
             device_idle_share=prof.get("device_idle_share", "not run"),
             top_device_ops=prof.get("top_device_ops", "not run"))
     log("join_seconds", phase_4h_s=join["join_s"])
+    for item, rec in realtime["records"].items():
+        # r2 grew r1's consuming snapshot: one profile, taken after r2
+        prof = profiles.get(("realtime_profile", "r1_hybrid" if item == "r2_freshness" else item, "config2"), {})
+        log("realtime_path", item=item, exact=True, **rec,
+            device_busy_ms=prof.get("device_busy_ms", "not run"),
+            device_idle_share=prof.get("device_idle_share", "not run"),
+            profiled_wall_ms=prof.get("profiled_wall_ms", "not run"),
+            top_device_ops=prof.get("top_device_ops", "not run"))
+    log("realtime_seconds", phase_4i_s=realtime["realtime_s"])
+    realtime["dist_engine"].residency.shutdown()
+    shutil.rmtree(realtime["root"], ignore_errors=True)
     funnel, funnel_launches = sketch["funnel"], sketch["funnel_launches"]
     dist["stacked"].release_device()
     for e in list(dist["engines"].values()) + [index["mv_dist"]] + list(join["engines"].values()):
         e.residency.shutdown()
     vector_timing = index["vector"]
-    del seg, dist, transform, sketch, storage, index, front, join
+    del seg, dist, transform, sketch, storage, index, front, join, realtime
     torch.cuda.empty_cache()
 
     # 5. profile
@@ -3685,7 +4101,8 @@ def main() -> int:
         "launches_by_path": {"segment_engine": sse_launches, "distributed_engine": dist_launches,
                              "transform_path": transform_launches, "sketch_path": sketch_launches,
                              "storage": storage_launches, "index_path": index_launches,
-                             "front_door": front_launches, "join_path": join_launches},
+                             "front_door": front_launches, "join_path": join_launches,
+                             "realtime_path": realtime_launches},
         "max_abs_err": worst,
         "shape": timing["shape"],
         "ms": timing["kernel_ms"],

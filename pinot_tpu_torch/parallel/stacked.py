@@ -16,11 +16,14 @@ budget and evicted as a unit, and the copies may go through a caller's
 `copy` function (the distributed engine's CUDA copy stream).  A multi-value
 column is a [S, D, max_len] padded code matrix with [S, D] lengths (the
 segment builder's MV layout, shipped as "codes" and "lengths").
-``aliased_view(alias)`` is a self-join's facade: the columns renamed
-'{alias}${col}' over the same arrays and the same device cache.
+``from_segments`` stacks immutable segments, dropping an upsert segment's
+rows outside its validDocIds.  ``aliased_view(alias)`` is a self-join's
+facade: the columns renamed '{alias}${col}' over the same arrays and the
+same device cache.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import threading
 from dataclasses import dataclass
@@ -243,6 +246,64 @@ class StackedTable:
                     f.name, f.data_type, None, None, vals.reshape(num_shards, D), padded_nulls, stats
                 )
         return StackedTable(schema, columns, valid.reshape(num_shards, D), n, indexes=indexes)
+
+    @staticmethod
+    def from_segments(
+        segments: List[Any],
+        num_shards: Optional[int] = None,
+        table_config=None,
+    ) -> "StackedTable":
+        """Stack immutable segments onto one shared key space: each column
+        decoded per segment, concatenated and rebuilt (the dictionary
+        union), as the JAX package's from_segments does.  num_shards
+        defaults to the number of segments.
+
+        An upsert segment is COMPACTED here: its rows outside validDocIds
+        (replaced by a newer row elsewhere) are dropped from every column
+        and null mask, so the distributed engine needs no per-row valid
+        mask at query time (the load-time analog of the reference's
+        UpsertCompaction task)."""
+        if not segments:
+            raise ValueError("no segments")
+        schema = segments[0].schema
+        names = schema.column_names
+        keeps = [np.nonzero(seg.valid_docs)[0] if seg.valid_docs is not None else None for seg in segments]
+        data: Dict[str, np.ndarray] = {}
+        null_cols: Dict[str, Optional[np.ndarray]] = {}
+        for name in names:
+            parts, nparts = [], []
+            any_nulls = False
+            for seg, keep in zip(segments, keeps):
+                c = seg.column(name)
+                vals = np.asarray(c.decoded())
+                nm = np.asarray(c.nulls) if c.nulls is not None else np.zeros(seg.num_docs, dtype=bool)
+                if keep is not None:
+                    vals, nm = vals[keep], nm[keep]
+                parts.append(vals)
+                any_nulls = any_nulls or c.nulls is not None
+                nparts.append(nm)
+            data[name] = np.concatenate(parts)
+            null_cols[name] = np.concatenate(nparts) if any_nulls else None
+        if any(null_cols[n] is not None and not schema.field(n).nullable for n in names):
+            # nulls held as None need a nullable field: on a copy of the
+            # schema, never the caller's
+            schema = Schema(
+                name=schema.name,
+                fields=[dataclasses.replace(f, nullable=f.nullable or null_cols[f.name] is not None)
+                        for f in schema.fields],
+                primary_key_columns=list(schema.primary_key_columns),
+            )
+        merged = {}
+        for name in names:
+            arr = data[name]
+            if null_cols[name] is not None:
+                arr = np.asarray(arr, dtype=object)
+                arr[null_cols[name]] = None
+            merged[name] = arr
+        no_dict = tuple(f.name for f in schema.fields if not segments[0].column(f.name).has_dictionary)
+        return StackedTable.build(
+            schema, merged, num_shards or len(segments), no_dictionary_columns=no_dict, table_config=table_config
+        )
 
     # -- device residency ----------------------------------------------
     @staticmethod

@@ -29,11 +29,17 @@ the process perf ledger (utils/perf.PERF_LEDGER: rows/s and the analytic
 kernel bytes/s per table and shape), which the residency tier reads as
 eviction heat.
 
+Realtime tables: `attach_realtime` binds a realtime/ RealtimeTableDataManager
+to a registered table; a query then scans the offline segments, the sealed
+realtime segments and a snapshot of each consuming segment
+(`TableState.query_segments`), an upsert segment's validDocIds mask ANDed
+into its filter (query/planner.py).
+
 ``QueryEngine(device=None)`` runs on CUDA and raises without it;
 ``device="cpu"`` runs the plain PyTorch path.  Left out: the JAX engine's
 plan-time static check (`analysis.plan_check.check_plan`, ROADMAP Queue 1
 item 9), so a malformed query fails later, in planning, with the port's own
-error; realtime tables (`attach_realtime`, item 11).  A JOIN raises
+error.  A JOIN raises
 NotImplementedError with the JAX engine's message: the distributed engine
 routes joins (mse.MultiStageEngine).
 """
@@ -72,6 +78,17 @@ class TableState:
     schema: Schema
     config: TableConfig
     segments: List[ImmutableSegment] = field(default_factory=list)
+    # realtime tables: the RealtimeTableDataManager owning the sealed and
+    # consuming segments (realtime/manager.py); None for offline tables
+    realtime: Optional[object] = None
+
+    def query_segments(self) -> List[ImmutableSegment]:
+        """The segments a query of this table scans: the offline ones, then
+        the realtime view (sealed segments and consuming snapshots)."""
+        segs = list(self.segments)
+        if self.realtime is not None:
+            segs.extend(self.realtime.query_segments())
+        return segs
 
 
 class QueryEngine:
@@ -93,6 +110,10 @@ class QueryEngine:
     def add_segment(self, table: str, segment: ImmutableSegment) -> None:
         self.tables[table].segments.append(segment)
 
+    def attach_realtime(self, table: str, manager) -> None:
+        """Bind a RealtimeTableDataManager to a registered table."""
+        self.table(table).realtime = manager
+
     def table(self, name: str) -> TableState:
         if name not in self.tables:
             raise KeyError(f"table {name!r} not registered (have {list(self.tables)})")
@@ -104,7 +125,7 @@ class QueryEngine:
         if ctx.options.get("__explain__"):
             # explain never executes anything — not subqueries, not set-op
             # components (per-component explains would union)
-            return self._explain(ctx, self.table(ctx.table).segments)
+            return self._explain(ctx, self.table(ctx.table).query_segments())
         if ctx.options.get("__analyze__"):
             return self._explain_analyze(ctx)
         resolve_subqueries(ctx, self.execute)
@@ -122,7 +143,7 @@ class QueryEngine:
         trace = Trace(bool(ctx.options.get("trace", False)), query_id=req_id)
         METRICS.counter("queries").inc()
         state = self.table(ctx.table)
-        segments = state.segments
+        segments = state.query_segments()
         self._inject_global_ranges(ctx, segments)
         # admission: charge the estimated device bytes up front (safety.py),
         # counting only the columns the query actually ships
@@ -242,7 +263,7 @@ class QueryEngine:
             rhs.options.pop("__analyze__", None)
             rhs.options["trace"] = True
         executed = self.execute(ctx)
-        return analyze_result(self._explain(ctx, self.table(ctx.table).segments), executed)
+        return analyze_result(self._explain(ctx, self.table(ctx.table).query_segments()), executed)
 
     def _explain(self, ctx: QueryContext, segments) -> ResultTable:
         """EXPLAIN PLAN FOR: per-shape operator tree rows (Pinot's explain

@@ -109,12 +109,17 @@ class GroupDim:
         return vals
 
     def device_code(self, cols, segment, dev: torch.device, dtype=torch.int32) -> torch.Tensor:
-        """Per-row dimension code in `dtype` (the group-key contribution)."""
+        """Per-row dimension code in `dtype` (the group-key contribution).
+        Value-derived codes are clamped into [0, cardinality): a real row's
+        code is inside already, and a stacked table's padded rows (raw value
+        0, masked in every launch) must not index outside a group table,
+        which torch's scatters refuse (XLA's drop such rows)."""
         if self.kind == "dict":
             return cols[self.name]["codes"].to(dtype)
         if self.kind == "rawint":
             v = cols[self.name]["values"]
-            return (v - self.base).to(dtype)  # subtract in storage dtype
+            top = min(self.cardinality - 1, torch.iinfo(v.dtype).max)
+            return (v - self.base).clamp(0, top).to(dtype)  # subtract in storage dtype
         if self.kind == "derived":
             remap = device_constant(self.remap, dev)
             return remap[cols[self.name]["codes"].to(torch.int64)].to(dtype)
@@ -122,7 +127,7 @@ class GroupDim:
         code = v.to(torch.int64) - self.base
         if self.step > 1:
             code = torch.div(code, self.step, rounding_mode="floor")
-        return code.to(dtype)
+        return code.clamp(0, self.cardinality - 1).to(dtype)
 
 
 def group_strides(group_dims: List[GroupDim]) -> List[int]:
@@ -1190,6 +1195,20 @@ def _build_plan(
     null_handling = ctx.null_handling
     fc = FilterCompiler(segment, null_handling)
     filter_fn = fc.compile(ctx.filter)
+    if segment.valid_docs is not None:
+        # upsert validDocIds: rows a newer row replaced are ANDed out of the
+        # WHERE (and its null mask), so out of every plan kind.  The mask is
+        # a per-query param, copied now: the upsert manager clears rows of
+        # a sealed segment's mask in place, and the next query must see it
+        # (the plan signature keys on its presence only)
+        fc.params["__valid__"] = np.array(segment.valid_docs, dtype=bool)
+        where_fn = filter_fn
+
+        def filter_fn(cols, params, dev):
+            t, nl = where_fn(cols, params, dev)
+            v = params["__valid__"]
+            return t & v, (nl & v if nl is not None else None)
+
     agg_specs = list(ctx.aggregations)
     aggs = bind_aggs(agg_specs, segment, ctx)
     # per-aggregation FILTER (WHERE ...) clauses, compiled after the WHERE;

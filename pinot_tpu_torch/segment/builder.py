@@ -175,9 +175,11 @@ def build_segment(
 
     # Sort by the configured sorted column (contiguous docId ranges for
     # predicates on that column).
+    sort_order = None  # new position -> input row (the upsert remap at seal)
     if idx_cfg.sorted_column and idx_cfg.sorted_column in arrays and num_docs > 1:
         order = np.argsort(arrays[idx_cfg.sorted_column], kind="stable")
         if not np.array_equal(order, np.arange(num_docs)):
+            sort_order = order
             for n in names:
                 a = arrays[n]
                 arrays[n] = a.take(order) if isinstance(a, RaggedColumn) else np.asarray(a)[order]
@@ -249,6 +251,7 @@ def build_segment(
         creation_time_ms=int(time.time() * 1000),
         time_range=time_range,
     )
+    seg.sort_order = sort_order
     if output_dir is not None:
         seg.save(output_dir)
     return seg

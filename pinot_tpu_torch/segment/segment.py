@@ -78,6 +78,19 @@ class ColumnData:
     def cardinality(self) -> int:
         return self.dictionary.cardinality if self.dictionary else self.stats.cardinality
 
+    def value_at(self, doc: int):
+        """Point read of one value (the upsert merge's reads): no column
+        decode.  MV rows read as tuples, a null as None."""
+        if self.mv_lengths is not None:
+            return tuple(self.decoded_rows(np.asarray([doc]))[0])
+        if self.nulls is not None and self.nulls[doc]:
+            return None
+        if self.dictionary is not None:
+            v = self.dictionary.get_values(np.asarray([self.codes[doc]]))[0]
+        else:
+            v = self.values[doc]
+        return v.item() if isinstance(v, np.generic) else v
+
     def decoded(self) -> np.ndarray:
         """Materialize raw values host-side (tests/golden comparisons).
         MV columns decode to an object array of tuples."""
@@ -158,8 +171,16 @@ class ImmutableSegment:
         self.indexes: Dict[str, Dict[str, Any]] = indexes or {}
         self.creation_time_ms = creation_time_ms
         self.time_range = time_range  # (min, max) of the table's time column
-        # upsert validDocIds: not produced by this slice's builder
+        # upsert validDocIds (realtime/upsert.py): a bool mask the planner
+        # ANDs into every filter as a per-query param.  A sealed segment's
+        # mask is shared with the upsert manager, which clears rows in
+        # place: it is never staged into the device cache.
         self.valid_docs: Optional[np.ndarray] = None
+        # new doc position -> input row, when the build sorted the rows
+        # (the upsert manager remaps its doc ids through it at seal)
+        self.sort_order: Optional[np.ndarray] = None
+        # a consuming segment's snapshot: not on disk
+        self.in_memory = False
         self._device_cache: Dict[str, Dict[str, Dict[str, torch.Tensor]]] = {}
         # guards _device_cache reads and publishes under tiered residency;
         # NEVER held across a device copy: owners stage with no lock held,

@@ -5,9 +5,9 @@ segment builder reads (inverted, range, bloom, JSON, text and vector
 indexes, star-tree configs, the sorted column, raw columns), the segments'
 time column and retention, and the settings a CREATE TABLE statement
 declares (sql/ddl.py): partitioning and the upsert, dedup and stream
-bindings, held as declared (the realtime tables that act on them are a
-later slice).  Replication, serialization, table types and quotas come with
-the slices that use them.
+bindings that the realtime tables (realtime/) act on, with the JAX
+package's dict forms of those three.  Replication, table types and quotas
+come with the slices that use them.
 """
 from __future__ import annotations
 
@@ -46,26 +46,84 @@ class SegmentsConfig:
 @dataclass
 class UpsertConfig:
     """Upsert mode: FULL replaces whole rows by primary key, PARTIAL merges
-    per column; the comparison column picks the winner."""
+    per column by strategy; the comparison column picks the winner."""
 
     mode: str = "NONE"  # NONE | FULL | PARTIAL
     comparison_column: Optional[str] = None
+    partial_upsert_strategies: Dict[str, str] = field(default_factory=dict)
+    # metadataTTL: primary keys whose comparison value trails the largest
+    # seen by more than this stop being tracked; 0 = off
+    metadata_ttl: float = 0.0
+    # deleteRecordColumn: a row with a truthy value here deletes its key
+    delete_record_column: Optional[str] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "mode": self.mode,
+            "comparisonColumn": self.comparison_column,
+            "partialUpsertStrategies": self.partial_upsert_strategies,
+            "metadataTTL": self.metadata_ttl,
+            "deleteRecordColumn": self.delete_record_column,
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "UpsertConfig":
+        return UpsertConfig(
+            mode=d.get("mode", "NONE"),
+            comparison_column=d.get("comparisonColumn"),
+            partial_upsert_strategies=d.get("partialUpsertStrategies", {}),
+            metadata_ttl=float(d.get("metadataTTL", 0.0) or 0.0),
+            delete_record_column=d.get("deleteRecordColumn"),
+        )
 
 
 @dataclass
 class DedupConfig:
-    """Exact-duplicate dropping by primary key at ingest time."""
+    """Exact-duplicate dropping by primary key at ingest time: the first row
+    of a key wins."""
 
     enabled: bool = True
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"dedupEnabled": self.enabled}
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "DedupConfig":
+        return DedupConfig(enabled=bool(d.get("dedupEnabled", True)))
 
 
 @dataclass
 class StreamConfig:
-    """Realtime stream binding: consumer type, topic and rows a segment."""
+    """Realtime stream binding: consumer type, topic, decoder, free-form
+    properties (a file stream's "path") and the segment end criteria."""
 
     stream_type: str = "memory"  # memory | kafka | file
     topic: str = ""
+    decoder: str = "json"
+    properties: Dict[str, Any] = field(default_factory=dict)
     max_rows_per_segment: int = 1 << 20
+    max_segment_seconds: int = 6 * 3600
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "streamType": self.stream_type,
+            "topic": self.topic,
+            "decoder": self.decoder,
+            "properties": self.properties,
+            "maxRowsPerSegment": self.max_rows_per_segment,
+            "maxSegmentSeconds": self.max_segment_seconds,
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "StreamConfig":
+        return StreamConfig(
+            stream_type=d.get("streamType", "memory"),
+            topic=d.get("topic", ""),
+            decoder=d.get("decoder", "json"),
+            properties=d.get("properties", {}),
+            max_rows_per_segment=int(d.get("maxRowsPerSegment", 1 << 20)),
+            max_segment_seconds=int(d.get("maxSegmentSeconds", 6 * 3600)),
+        )
 
 
 @dataclass

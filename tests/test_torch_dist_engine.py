@@ -471,3 +471,28 @@ def test_dist_slice_entry_sets_reach_the_kernel(engines, monkeypatch, sql, varia
     for c in calls:
         assert c["variant"] == variant and c["masks"] == masks and c["mask_words"], c
     assert_rows_match(rows, engines["many"][0].query(sql).rows, ordered="ORDER BY" in sql)
+
+
+@pytest.mark.parametrize("num_shards", [1, 8])
+def test_group_by_raw_int_column_over_padded_rows(num_shards):
+    """A group key over a raw int column (value - min, or an expression of
+    it) on a stacked table whose padded rows hold 0: the port clamps the
+    masked rows' codes into the table and answers as the JAX engine does."""
+    rng = np.random.default_rng(5)
+    n = 370  # not a multiple of 32: padded rows in every shard layout
+    data = {"k": rng.integers(0, 12, n).astype(np.int32), "v": rng.integers(3, 1000, n).astype(np.int64)}
+    out = {}
+    for name, S, stacked, eng in (
+        ("jax", jax_schema, JaxStacked, JaxDist(mesh=jax_mesh.default_mesh(num_devices=1 if num_shards == 1 else 8))),
+        ("port", port_schema, PortStacked, PortDist(device="cpu")),
+    ):
+        schema = S.Schema("t", [S.FieldSpec("k", S.DataType.INT),
+                                S.FieldSpec("v", S.DataType.LONG, role=S.FieldRole.METRIC)])
+        eng.register_table("t", stacked.build(schema, dict(data), num_shards=num_shards))
+        out[name] = [eng.query(sql).rows for sql in (
+            "SELECT v, COUNT(*) FROM t GROUP BY v ORDER BY v LIMIT 20",
+            "SELECT k, v, COUNT(*), MIN(k) FROM t GROUP BY k, v ORDER BY v DESC LIMIT 20",
+            "SELECT 2000 - v, COUNT(*) FROM t GROUP BY 2000 - v ORDER BY COUNT(*) DESC, 2000 - v LIMIT 20",
+        )]
+    for got, want in zip(out["port"], out["jax"]):
+        assert_rows_match(got, want, ordered=True)
