@@ -31,6 +31,18 @@ Phases, in order; any failure raises and the process exits non-zero:
                 as the library yardstick (never called by the port).  Also
                 printed: ptxas's registers/shared memory/spills of each
                 instantiation and the atomic instructions in the SASS.
+                Then the member axis: four shapes of W = 8 members, each one
+                torch.func.vmap of the wrapper (one member-axis launch,
+                counted) held EXACTLY against the plain version member by
+                member: the segment batch of phase 4j (q2) (2^23 rows, the
+                shared packed key and revenue, 8 row masks of lo_quantity <
+                18..25), the same filter as 8 members' mask_words, and at
+                2^27 rows 8 code ranges lo_discount [k, k + 3) and, as
+                (q4) launches it, 8 row masks; each timed (the vmapped
+                call, 8 unbatched calls, the plain version 8 times, and one
+                index_add_ an entry into W x G cells keyed by key + G *
+                member as the yardstick) beside its bound (shared streams
+                once, each member's once, the tables).
   4. main path - SSB lineorder, --segments x --rows-per-segment rows (default
                 8 x 2^23 = 67,108,864, just above SSB scale factor 10) from
                 --seed, registered in QueryEngine() on CUDA; three queries
@@ -48,7 +60,7 @@ Phases, in order; any failure raises and the process exits non-zero:
                 the device merge.  Every result EXACTLY equal to a numpy
                 golden at both batchings, the route of each query checked
                 from the counters around one counted run per engine; the
-                20-literal sweep plans once; warm medians of 5 ((d): of 3),
+                20-literal sweep plans once; warm medians of 5 ((d): of 2),
                 the host ms of the words and their copy, then a profile of
                 each query.
  4c. transform_path - on the tables of phases 4 and 4b (no second build):
@@ -117,10 +129,10 @@ Phases, in order; any failure raises and the process exits non-zero:
                 its useStarTree=false twin; TEXT_MATCH / JSON_MATCH over 4 x
                 2^20 rows; VECTOR_SIMILARITY over 2^20 x 384 float32.  Every
                 result against a numpy golden, then warm medians.
-                Profiles (phases 4-4i) run last: in each session the query
+                Profiles (phases 4-4j) run last: in each session the query
                 runs once unmeasured, then once inside a record_function
                 range whose device events are summed; the main paths'
-                queries (phases 4 and 4b) take up to three sessions (one
+                queries (phases 4 and 4b) take up to two sessions (one
                 complete session past 1 s of wall, (d), stops them), every
                 other phase's one session each (the script's time limit).
  4g. front_door (after 4f) - on the tables of phases 4 and 4b: (y1)
@@ -185,16 +197,35 @@ Phases, in order; any failure raises and the process exits non-zero:
                 seal s, snapshot ms, wall, device busy and idle share from
                 one profile an engine, launches by instantiation, recovery
                 s, peak allocated bytes).
+ 4j. batch_path (after 4i) - cross-query batching on the tables of phases 4
+                and 4b (no new table): (q1) ServerInstance("s0") on CUDA
+                serving phase 4's 8 segments, config 2 through execute exact
+                against numpy, one traced call's device_wait and deviceMs;
+                (q2) execute_batch of the 8 members lo_quantity < 18..25,
+                each exact and equal to its own execute, in 8 member-axis
+                launches (one a segment) against 64 for the 8 executes;
+                (q3) the same batch with one member's deadline expired (it
+                detaches, 7 exact); (q4) DistributedEngine().execute_many
+                over phase 4b's table: 8 members lo_discount BETWEEN k AND
+                k + 2 in 1 batched launch with dist.batchFallbacks
+                unchanged, and 8 config-2 members (range-index words are
+                row-sharded: not eligible) one launch each, all exact;
+                (q5) three malformed queries raising PlanCheckError on the
+                segment, distributed and multi-stage engines with 0
+                launches; (q6) the named plan caches' entries, hits and
+                misses.  Warm medians of the batches against their
+                members one by one; one profile session each.
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
                 query (c)'s shapes the same for the generic instantiation; at
                 the segment main path's shape, after a write flush and after
                 a read flush, scan_ms beside a float32 sum and a device copy
-                of the same input bytes.
+                of the same input bytes; each member-axis shape's scan_ms.
   6. summary  - one {"kernels": [...]} JSON line (fused_scan, funnel_scan; launches_by_path
-                includes front_door, join_path and realtime_path), the card's nvidia-smi line,
-                and last the {"ok": true, "device": {...}} line.
+                includes front_door, join_path, realtime_path and batch_path; the
+                member-axis launches by instantiation and shapes), the card's
+                nvidia-smi line, and last the {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
 
@@ -526,6 +557,229 @@ def _timed_shapes(seed: int, dev):
             raise AssertionError(f"fused scan differs from its plain version at {label}: {err}")
         timings.append(_timed_shape(label, ents, key, g, kw, flush))
     return worst, timings
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the member axis: the fused scan under torch.func.vmap
+# ---------------------------------------------------------------------------
+# members of one batched launch in phases 3 and 4j (batch_width()'s default),
+# and the rows of the segment and the distributed member-axis shapes
+BATCH_W = 8
+MEMBER_SEG_ROWS = 1 << 23
+MEMBER_DIST_ROWS = 1 << 27
+
+
+def _member_shapes(seed: int, dev):
+    """The member-axis shapes, on the card, made from the seed: (label, W,
+    G, members, batched).  members(w) gives member w's unbatched (entries,
+    key, kwargs); batched() makes the one vmapped wrapper call that the
+    main path's batched closures make (one member-axis launch)."""
+    from pinot_tpu_torch.ops import fused_scan, segmented
+
+    rng = np.random.default_rng(seed)
+    W, g = BATCH_W, 2406
+    plan = segmented.sum_limb_plan(100, 999_999)
+    ks = torch.arange(18, 18 + W)  # lo_quantity < k, k = 18..25
+    out = []
+    # the segment main path's batch (q2): one segment of 2^23 rows, the
+    # packed lo_orderdate key and int32 revenue shared; each member's row
+    # mask of lo_quantity < k (the range-index words the segment filter
+    # unpacks); then the same filter handed over as each member's words
+    n = MEMBER_SEG_ROWS
+    words = torch.from_numpy(_pack(rng.integers(0, g, n).astype(np.int32), 16).view(np.int32)).to(dev)
+    rev = torch.from_numpy(rng.integers(100, 1_000_000, n).astype(np.int32)).to(dev)
+    qty = torch.from_numpy(rng.integers(1, 51, n).astype(np.int32)).to(dev)
+    masks = torch.stack([qty < k for k in ks.tolist()])
+    qwords = torch.stack([torch.from_numpy(np.packbits(
+        (qty < k).cpu().numpy().reshape(-1, 32), axis=1, bitorder="little").view(np.int32).reshape(-1)).to(dev)
+        for k in ks.tolist()])
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def seg_member(w):
+        return [("count", None, masks[w], None), ("int_sum", rev, masks[w], plan)], None, \
+            {"codes_packed": (words, 16)}
+
+    def seg_batched():
+        return torch.func.vmap(lambda m: fused_scan.fused_group_tables(
+            [("count", None, m, None), ("int_sum", rev, m, plan)], None, g, codes_packed=(words, 16)))(masks)
+
+    def segw_member(w):
+        return [("count", None, ones, None), ("int_sum", rev, ones, plan)], None, \
+            {"codes_packed": (words, 16), "mask_words": qwords[w]}
+
+    def segw_batched():
+        return torch.func.vmap(lambda mw: fused_scan.fused_group_tables(
+            [("count", None, ones, None), ("int_sum", rev, ones, plan)], None, g, codes_packed=(words, 16),
+            mask_words=mw))(qwords)
+
+    rows = f"n=2^{n.bit_length() - 1} packed16 G=2406 E=2, W=8"
+    out.append((f"segment batch (q2): {rows} row masks lo_quantity < 18..25, key and values shared",
+                W, g, seg_member, seg_batched))
+    out.append((f"segment batch, words: {rows} mask_words lo_quantity < 18..25, all-true mask shared",
+                W, g, segw_member, segw_batched))
+    # the distributed launch (q4): 2^27 rows, lo_orderdate packed and
+    # revenue shared, lo_discount BETWEEN k AND k + 2 for k = 0..7: each
+    # member's code range [k, k + 3) over the shared discount codes, then
+    # as the closure hands it over, each member's row mask
+    n2 = MEMBER_DIST_ROWS
+    words2 = torch.from_numpy(_pack(rng.integers(0, g, n2).astype(np.int32), 16).view(np.int32)).to(dev)
+    rev2 = torch.from_numpy(rng.integers(100, 1_000_000, n2).astype(np.int32)).to(dev)
+    disc = torch.from_numpy(rng.integers(0, 11, n2).astype(np.uint8)).to(dev)
+    ones2 = torch.ones(n2, dtype=torch.bool, device=dev)
+    los = torch.arange(W, dtype=torch.int64)
+    dmasks = torch.stack([(disc >= k) & (disc <= k + 2) for k in range(W)])
+
+    def pred_member(w):
+        return [("count", None, ones2, None), ("int_sum", rev2, ones2, plan)], None, \
+            {"codes_packed": (words2, 16), "code_pred": (disc, w, w + 3)}
+
+    def pred_batched():
+        return torch.func.vmap(lambda lo: fused_scan.fused_group_tables(
+            [("count", None, ones2, None), ("int_sum", rev2, ones2, plan)], None, g, codes_packed=(words2, 16),
+            code_pred=(disc, lo, lo + 3)))(los)
+
+    def dmask_member(w):
+        return [("count", None, dmasks[w], None), ("int_sum", rev2, dmasks[w], plan)], None, \
+            {"codes_packed": (words2, 16)}
+
+    def dmask_batched():
+        return torch.func.vmap(lambda m: fused_scan.fused_group_tables(
+            [("count", None, m, None), ("int_sum", rev2, m, plan)], None, g, codes_packed=(words2, 16)))(dmasks)
+
+    rows2 = f"n=2^{n2.bit_length() - 1} packed16 G=2406 E=2, W=8"
+    out.append((f"dist batch: {rows2} code ranges lo_discount [k, k+3) k=0..7, all-true mask shared",
+                W, g, pred_member, pred_batched))
+    out.append((f"dist batch (q4): {rows2} row masks lo_discount BETWEEN k AND k+2, key and values shared",
+                W, g, dmask_member, dmask_batched))
+    return out
+
+
+def _member_bound(W, g, members):
+    """Least time for a member-axis launch: every distinct input stream
+    read once (a shared operand once for all members, a stacked one once a
+    member; shared values at the rows any member counts), the W tables
+    written once; one 64-bit add per counted row, entry and member."""
+    streams, counted_rows = {}, 0
+    value_rows = {}
+    for w in range(W):
+        ents, key, kw = members(w)
+        key_in, _ = _key_input(ents, key, kw)
+        streams[key_in.data_ptr()] = key_in.numel() * key_in.element_size()
+        if "mask_words" in kw:
+            streams[kw["mask_words"].data_ptr()] = kw["mask_words"].numel() * 4
+        eff = _effective_masks(ents, kw)
+        if "code_pred" in kw:
+            pc, lo, hi = kw["code_pred"]
+            streams[pc.data_ptr()] = pc.numel() * pc.element_size()
+            eff = [m & (pc >= lo) & (pc < hi) for m in eff]
+        for (_k, v, m, _lp), e in zip(ents, eff):
+            streams[m.data_ptr()] = m.numel()
+            counted_rows += int(e.sum())
+            if v is not None:
+                prev = value_rows.get(v.data_ptr(), (None, v.element_size()))[0]
+                value_rows[v.data_ptr()] = (e if prev is None else prev | e, v.element_size())
+    read_bytes = sum(streams.values()) + sum(int(m.sum()) * size for m, size in value_rows.values())
+    write_bytes = W * len(members(0)[0]) * g * 8
+    bytes_ms = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = counted_rows / SCALAR_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_moved": read_bytes + write_bytes}
+
+
+def _member_library(W, g, members):
+    """The yardstick: one index_add_ per entry into W x G int64 cells keyed
+    by key + G * member, over the members' counted rows (made before the
+    clock starts); never called by the port."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    idx, adds = [], None
+    for w in range(W):
+        ents, key, kw = members(w)
+        _key_in, key64 = _key_input(ents, key, kw)
+        eff = _effective_masks(ents, kw)
+        if "code_pred" in kw:
+            pc, lo, hi = kw["code_pred"]
+            eff = [m & (pc >= lo) & (pc < hi) for m in eff]
+        rows = eff[0]  # every entry of these shapes shares one mask
+        idx.append(key64[rows] + g * w)
+        vals = [torch.ones_like(idx[-1]) if k == "count" else fused_scan._entry_values(k, v, lp)[rows]
+                for k, v, _m, lp in ents]
+        adds = [[a] for a in vals] if adds is None else [acc + [a] for acc, a in zip(adds, vals)]
+    idx = torch.cat(idx)
+    adds = [torch.cat(a) for a in adds]
+    dev = idx.device
+
+    def library():
+        for a in adds:
+            torch.zeros(W * g, dtype=torch.int64, device=dev).index_add_(0, idx, a)
+
+    return library
+
+
+def _timed_member_shapes(shapes, dev):
+    """Each member-axis shape (_member_shapes): the vmapped wrapper call
+    once, counted (one launch, W members) and held EXACTLY against the
+    plain version member by member; then kernel_ms (the vmapped call),
+    w_sequential_ms (W unbatched wrapper calls on the same inputs),
+    plain_ms (the plain version W times, one run: 1.3 s at 2^27 rows),
+    library_ms, all with CUDA events; and the bound."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    worst, timings = 0.0, []
+    flush = _flushes(dev)["write"]
+    for label, W, g, members, batched in shapes:
+        before = (fused_scan.LAUNCHES, dict(fused_scan.BATCH_LAUNCHES), fused_scan.BATCH_MEMBERS)
+        got = batched()
+        torch.cuda.synchronize()
+        launches = fused_scan.LAUNCHES - before[0]
+        variants = {k: v - before[1].get(k, 0) for k, v in fused_scan.BATCH_LAUNCHES.items()
+                    if v != before[1].get(k, 0)}
+        if launches != 1 or sum(variants.values()) != 1 or fused_scan.BATCH_MEMBERS - before[2] != W:
+            raise AssertionError(f"{label}: {launches} launches {variants}, want one member-axis launch of {W}")
+        err = 0.0
+        for w in range(W):
+            ents, key, kw = members(w)
+            ref = fused_scan.fused_group_tables_reference(ents, key, g, **kw)
+            err = max(err, _max_abs_err([t[w] for t in got], ref))
+        worst = max(worst, err)
+        log("kernel_check", variant=label, max_abs_err=err, launches=launches, member_axis=variants)
+        if err != 0.0:
+            raise AssertionError(f"the member-axis scan differs from its plain version at {label}: {err}")
+
+        def sequential():
+            for w in range(W):
+                ents, key, kw = members(w)
+                fused_scan.fused_group_tables(ents, key, g, **kw)
+
+        def plain():
+            for w in range(W):
+                ents, key, kw = members(w)
+                fused_scan.fused_group_tables_reference(ents, key, g, **kw)
+
+        kernel_ms = _time_cuda(batched, flush)
+        w_sequential_ms = _time_cuda(sequential, flush)
+        plain_ms = _time_cuda(plain, flush, iters=1)
+        library = _member_library(W, g, members)
+        library_ms = _time_cuda(library, flush, iters=5)
+        del library
+        timing = {"shape": label, "members": W, "variant": sorted(variants), "kernel_ms": kernel_ms,
+                  "w_sequential_ms": w_sequential_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  **_member_bound(W, g, members)}
+        log("kernel_timing", iters=TIMED_ITERS, bound_divisor=f"{HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3 peak)",
+            **timing)
+        timings.append(timing)
+        torch.cuda.empty_cache()
+    return worst, timings
+
+
+def _member_scan_ms(shapes, dev, timings):
+    """Phase 5's device time of each member-axis shape's kernel
+    (torch.profiler), on phase 3's inputs (kept on the card: ~2.1 GB)."""
+    flush = _flushes(dev)["write"]
+    for timing, (label, _W, _g, _members, batched) in zip(timings, shapes):
+        timing["scan_ms"] = _device_ms(batched, flush, "fused_scan_batch_kernel")
+        log("kernel_profile", shape=label, scan_ms=timing["scan_ms"], iters=PROFILED_ITERS)
+    torch.cuda.empty_cache()
 
 
 def _generic_scan(ents, key, g, kw):
@@ -907,7 +1161,8 @@ def _profile_once(engine, sql: str) -> dict:
     out = {
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": sum(r[0] for r in rows) if rows else "not measured",
-        "scan_launches": {"made": made, "captured": sum(n for _ms, n, k in rows if "fused_scan_kernel" in k)},
+        "scan_launches": {"made": made, "captured": sum(n for _ms, n, k in rows
+                                                        if "fused_scan_kernel" in k or "fused_scan_batch_kernel" in k)},
         "funnel_scan_launches": {"made": funnel_made,
                                  "captured": sum(n for _ms, n, k in rows if "funnel_scan_kernel" in k)},
         "top_device_ops": [{"ms": ms, "calls": n, "name": k[:90]} for ms, n, k in rows[:8]],
@@ -1155,7 +1410,7 @@ def phase_dist_main_path(args, dev):
     for label, e in engines.items():
         for name, sql in DIST_QUERIES.items():
             ms = []
-            for _ in range(3 if name == "d_sparse_groupby" else 5):  # (d) takes ~6 s a run
+            for _ in range(2 if name == "d_sparse_groupby" else 5):  # (d) takes ~6 s a run
                 s = time.perf_counter()
                 e.query(sql)
                 torch.cuda.synchronize()
@@ -2010,7 +2265,7 @@ def phase_sketch_path(seg, dist, dev, seed):
             records[f"{label}/{name}"] = r
     for label, e, names, _g, _n in runs:
         for name in names:
-            records[f"{label}/{name}"].update(_wall_ms(e, SKETCH_QUERIES[name], runs=3 if name == "o_sparse_hll" else 5))
+            records[f"{label}/{name}"].update(_wall_ms(e, SKETCH_QUERIES[name], runs=2 if name == "o_sparse_hll" else 5))
             profiles.append(("sketch_profile", {"engine": label, "query": name}, e, SKETCH_QUERIES[name]))
     timing = _funnel_timing(datas[0], d, dev, small, seed + 1)
     timing["max_abs_err"] = max(worst, timing["max_abs_err"])
@@ -3939,6 +4194,251 @@ def _copy_rates(dev, nbytes: int = 512 << 20, chunk: int = 64 << 20) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4j: cross-query batching on the server and the distributed engine
+# ---------------------------------------------------------------------------
+def _batch_q(k: int) -> str:
+    """BASELINE config 2 with the lo_quantity bound as the member's literal."""
+    return CONFIG2.replace("lo_quantity < 25", f"lo_quantity < {k}")
+
+
+def _batch_disc_q(k: int) -> str:
+    return ("SELECT lo_orderdate, SUM(lo_revenue), COUNT(*) FROM lineorder "
+            f"WHERE lo_discount BETWEEN {k} AND {k + 2} GROUP BY lo_orderdate LIMIT 2500")
+
+
+def _od_tables(datas, col: str, width: int):
+    """COUNT(*) and SUM(lo_revenue) by (day, value of `col`), [2406, width]
+    (the revenue sums exact in f64: below 2^53)."""
+    cnt = np.zeros(2406 * width, np.int64)
+    rev = np.zeros(2406 * width, np.float64)
+    for d in datas:
+        key = (d["lo_orderdate"] - 19920101).astype(np.int64) * width + d[col]
+        cnt += np.bincount(key, minlength=2406 * width)
+        rev += np.bincount(key, weights=d["lo_revenue"], minlength=2406 * width)
+    return cnt.reshape(2406, width), rev.reshape(2406, width)
+
+
+def _od_rows(cnt, rev, lo: int, hi: int):
+    """The golden rows of a group-by of days over values [lo, hi) of the
+    table's second axis."""
+    c, r = cnt[:, lo:hi].sum(axis=1), rev[:, lo:hi].sum(axis=1)
+    return sorted((19920101 + int(i), float(r[i]), int(c[i])) for i in np.nonzero(c)[0])
+
+
+class _Call:
+    """A zero-argument call under the profiler's query interface."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def query(self, _sql):
+        return self.fn()
+
+
+def _scan_counts():
+    from pinot_tpu_torch.ops import fused_scan
+
+    return (fused_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES), dict(fused_scan.BATCH_LAUNCHES),
+            fused_scan.BATCH_MEMBERS)
+
+
+def _scan_delta(before):
+    """Launches, launches by instantiation, member-axis launches by
+    instantiation and members since `before` (a _scan_counts())."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    def diff(now, then):
+        return {k: v - then.get(k, 0) for k, v in now.items() if v != then.get(k, 0)}
+
+    return {"launches": fused_scan.LAUNCHES - before[0],
+            "instantiations": diff(fused_scan.VARIANT_LAUNCHES, before[1]),
+            "member_axis_launches": diff(fused_scan.BATCH_LAUNCHES, before[2]),
+            "members": fused_scan.BATCH_MEMBERS - before[3]}
+
+
+def phase_batch_path(seg, dist):
+    """Phase 4j: (q1)-(q6), each counted run exact against numpy; returns the
+    counted runs' launches, the records and the profiles."""
+    from pinot_tpu_torch.analysis.plan_check import PlanCheckError
+    from pinot_tpu_torch.cluster import ServerInstance
+    from pinot_tpu_torch.ops import fused_scan
+    from pinot_tpu_torch.parallel.engine import DistributedEngine
+    from pinot_tpu_torch.query.reduce import reduce_results
+    from pinot_tpu_torch.query.safety import Deadline, QueryTimeoutError
+    from pinot_tpu_torch.sql.parser import parse_query
+    from pinot_tpu_torch.utils.cache import named_cache_stats
+    from pinot_tpu_torch.utils.metrics import METRICS
+
+    t0 = time.perf_counter()
+    fused_scan.reset_counters()
+    counted = []  # the counted runs' _scan_delta records
+    records = {}
+    q_cnt, q_rev = _od_tables(seg["datas"], "lo_quantity", 51)
+
+    # (q1) a server on the card over phase 4's 8 segments
+    server = ServerInstance("s0")
+    for s in seg["engine"].table("lineorder").query_segments():
+        server.add_segment("lineorder", s)
+    names = server.segment_names("lineorder")
+
+    def execute(sql):
+        ctx = parse_query(sql)
+        res, st = server.execute(ctx, names)
+        return reduce_results(ctx, res, st)
+
+    before = _scan_counts()
+    out = execute(CONFIG2)
+    torch.cuda.synchronize()
+    d = _scan_delta(before)
+    counted.append(d)
+    if sorted(out.rows) != seg["golden"]["a_config2"] or d["launches"] != len(names):
+        raise AssertionError(f"(q1) server config 2: exact {sorted(out.rows) == seg['golden']['a_config2']}, {d}")
+    res, st = server.execute(parse_query("SET trace = true; " + CONFIG2), names)
+    spans = {c["name"]: c for c in st.trace["children"]}
+    if "device_wait" not in spans or "deviceMs" not in spans["device_wait"].get("attrs", {}):
+        raise AssertionError(f"(q1) the traced call has no device_wait span with deviceMs: {st.trace}")
+    records["q1_server_execute"] = {**d, "exact": True, "wall_ms": _wall_ms(_Call(lambda: execute(CONFIG2)), "")[
+        "median_ms"], "traced_device_wait_ms": spans["device_wait"]["ms"],
+        "traced_device_ms": spans["device_wait"]["attrs"]["deviceMs"], "stats_device_ms": st.device_ms,
+        "spans": [c["name"] for c in st.trace["children"]]}
+    log("batch_check", item="q1_server_execute", **records["q1_server_execute"])
+
+    # (q2) the same 8 members as phase 3: one member-axis launch a segment
+    ks = list(range(18, 18 + BATCH_W))
+    want = {k: _od_rows(q_cnt, q_rev, 1, k) for k in ks}
+
+    def batch(deadlines=None):
+        ctxs = [parse_query(_batch_q(k)) for k in ks]
+        res, stats, errors, _ = server.execute_batch(ctxs, names, deadlines=deadlines)
+        rows = [None if errors[i] else reduce_results(ctxs[i], res[i], stats[i]).rows for i in range(len(ks))]
+        return rows, errors
+
+    before = _scan_counts()
+    rows, errors = batch()
+    torch.cuda.synchronize()
+    d_batch = _scan_delta(before)
+    before = _scan_counts()
+    own = [execute(_batch_q(k)).rows for k in ks]
+    torch.cuda.synchronize()
+    d_seq = _scan_delta(before)
+    counted += [d_batch, d_seq]
+    for k, r, o, e in zip(ks, rows, own, errors):
+        if e is not None or sorted(r) != want[k] or r != o:
+            raise AssertionError(f"(q2) member lo_quantity < {k}: error {e}, exact {sorted(r) == want[k]}, "
+                                 f"equal to its own execute {r == o}")
+    if (d_batch["launches"], sum(d_batch["member_axis_launches"].values()), d_batch["members"]) != (
+            len(names), len(names), BATCH_W * len(names)) or d_seq["launches"] != BATCH_W * len(names):
+        raise AssertionError(f"(q2) launches: batch {d_batch}, sequential {d_seq}")
+    batch_ms = _wall_ms(_Call(batch), "")
+    seq_ms = _wall_ms(_Call(lambda: [execute(_batch_q(k)) for k in ks]), "")
+    records["q2_server_batch"] = {"batch": d_batch, "sequential": d_seq, "exact": True,
+                                  "batch_wall_ms": batch_ms["median_ms"], "batch_runs_ms": batch_ms["runs_ms"],
+                                  "sequential_wall_ms": seq_ms["median_ms"], "sequential_runs_ms": seq_ms["runs_ms"]}
+    log("batch_check", item="q2_server_batch", **records["q2_server_batch"])
+
+    # (q3) one member's deadline already expired: it detaches, 7 stay exact
+    bad = 3
+    before = _scan_counts()
+    rows, errors = batch([Deadline(0.0) if i == bad else None for i in range(BATCH_W)])
+    torch.cuda.synchronize()
+    d = _scan_delta(before)
+    counted.append(d)
+    if not isinstance(errors[bad], QueryTimeoutError):
+        raise AssertionError(f"(q3) the expired member did not time out: {errors[bad]!r}")
+    for i, k in enumerate(ks):
+        if i != bad and (errors[i] is not None or sorted(rows[i]) != want[k]):
+            raise AssertionError(f"(q3) sibling lo_quantity < {k} is not exact: {errors[i]!r}")
+    records["q3_expired_member"] = {**d, "exact_siblings": BATCH_W - 1, "error": type(errors[bad]).__name__}
+    log("batch_check", item="q3_expired_member", **records["q3_expired_member"])
+
+    # (q4) the distributed engine at the default launch budget over phase
+    # 4b's table: 8 lo_discount members in one batched launch; 8 config-2
+    # members (row-sharded range-index words: not eligible) one by one
+    engine = DistributedEngine()
+    engine.register_table("lineorder", dist["stacked"])
+    d_cnt, d_rev = _od_tables([dist["data"]], "lo_discount", 11)
+    dq_cnt, dq_rev = _od_tables([dist["data"]], "lo_quantity", 51)
+    dks = list(range(BATCH_W))
+    fallbacks0, batches0 = METRICS.counter("dist.batchFallbacks").value, METRICS.counter("dist.batches").value
+    before = _scan_counts()
+    outs = engine.execute_many([parse_query(_batch_disc_q(k)) for k in dks])
+    torch.cuda.synchronize()
+    d_disc = _scan_delta(before)
+    before = _scan_counts()
+    outs2 = engine.execute_many([parse_query(_batch_q(k)) for k in ks])
+    torch.cuda.synchronize()
+    d_cfg2 = _scan_delta(before)
+    counted += [d_disc, d_cfg2]
+    fallbacks = METRICS.counter("dist.batchFallbacks").value - fallbacks0
+    batches = METRICS.counter("dist.batches").value - batches0
+    for k, o in zip(dks, outs):
+        if sorted(o.rows) != _od_rows(d_cnt, d_rev, k, k + 3):
+            raise AssertionError(f"(q4) lo_discount BETWEEN {k} AND {k + 2} is not exact")
+    for k, o in zip(ks, outs2):
+        if sorted(o.rows) != _od_rows(dq_cnt, dq_rev, 1, k):
+            raise AssertionError(f"(q4) config 2 lo_quantity < {k} is not exact")
+    if (d_disc["launches"], sum(d_disc["member_axis_launches"].values()), fallbacks, batches) != (1, 1, 0, 1):
+        raise AssertionError(f"(q4) lo_discount members: {d_disc}, fallbacks {fallbacks}, batches {batches}")
+    if d_cfg2["launches"] != BATCH_W or d_cfg2["member_axis_launches"]:
+        raise AssertionError(f"(q4) config-2 members did not run one by one: {d_cfg2}")
+    many_ms = _wall_ms(_Call(lambda: engine.execute_many([parse_query(_batch_disc_q(k)) for k in dks])), "", runs=3)
+    one_ms = _wall_ms(_Call(lambda: [engine.query(_batch_disc_q(k)) for k in dks]), "", runs=3)
+    records["q4_dist_execute_many"] = {
+        "discount_members": d_disc, "config2_members": d_cfg2, "batch_fallbacks": fallbacks, "batches": batches,
+        "exact": True, "batched_wall_ms": many_ms["median_ms"], "batched_runs_ms": many_ms["runs_ms"],
+        "sequential_wall_ms": one_ms["median_ms"], "sequential_runs_ms": one_ms["runs_ms"]}
+    log("batch_check", item="q4_dist_execute_many", **records["q4_dist_execute_many"])
+
+    # (q5) malformed queries fail the plan check before any launch
+    bad_sql = ["SELECT FROBNICATE(lo_revenue) FROM lineorder",
+               "SELECT SUM(MAX(lo_revenue)) FROM lineorder",
+               "SELECT POWER(lo_quantity) FROM lineorder"]
+    before = _scan_counts()
+    codes = {}
+    for name, run in (("segment_engine", seg["engine"].query), ("distributed_engine", engine.query),
+                      ("multi_stage_engine", lambda q: engine.query(
+                          q.replace("FROM lineorder", "FROM lineorder JOIN dates ON lo_orderdate = d_datekey")))):
+        for q in bad_sql:
+            try:
+                run(q)
+            except PlanCheckError as exc:
+                codes.setdefault(name, []).append(exc.code)
+            else:
+                raise AssertionError(f"(q5) {name} ran the malformed {q!r}")
+    d = _scan_delta(before)
+    counted.append(d)
+    if d["launches"] != 0:
+        raise AssertionError(f"(q5) the malformed queries launched the scan: {d}")
+    records["q5_plan_check"] = {"codes": codes, "launches": d["launches"]}
+    log("batch_check", item="q5_plan_check", **records["q5_plan_check"])
+
+    # (q6) the named plan caches
+    counters = METRICS.snapshot()["counters"]
+    records["q6_plan_caches"] = {
+        name: {**stats, **{k: counters.get(f"{name}.{k}", 0) for k in ("hits", "misses", "evictions")}}
+        for name, stats in named_cache_stats().items() if name.startswith("compile.")}
+    log("batch_check", item="q6_plan_caches", caches=records["q6_plan_caches"])
+    for name in ("compile.sse", "compile.dist", "compile.batch", "compile.batch.dist"):
+        if name not in records["q6_plan_caches"]:
+            raise AssertionError(f"(q6) no named cache {name}")
+
+    launches = sum(c["launches"] for c in counted)
+    variants, member_axis = {}, {}
+    for c in counted:
+        for k, v in c["instantiations"].items():
+            variants[k] = variants.get(k, 0) + v
+        for k, v in c["member_axis_launches"].items():
+            member_axis[k] = member_axis.get(k, 0) + v
+    profiles = [("batch_profile", {"engine": "server", "query": "q2_batch"}, _Call(batch), ""),
+                ("batch_profile", {"engine": "server", "query": "q2_sequential"},
+                 _Call(lambda: [execute(_batch_q(k)) for k in ks]), ""),
+                ("batch_profile", {"engine": "dist", "query": "q4_execute_many"},
+                 _Call(lambda: engine.execute_many([parse_query(_batch_disc_q(k)) for k in dks])), "")]
+    return {"launches": launches, "variants": variants, "member_axis_launches": member_axis, "records": records,
+            "profiles": profiles, "engine": engine, "batch_s": time.perf_counter() - t0}
+
+
 def phase_storage(seg, dist, transform, dev) -> dict:
     t0 = time.perf_counter()
     log("storage_copy_rates", unit="GB/s", torch_threads=torch.get_num_threads(), **_copy_rates(dev))
@@ -3963,9 +4463,10 @@ def run_profiles(tasks) -> dict:
     one log line each, and the results by (phase, engine, query)."""
     out = {}
     for phase, labels, engine, sql in tasks:
-        # three sessions for the two main paths, one for the other phases:
-        # a session costs ~1 s of profiler set-up on the card's host
-        prof = profile_query(engine, sql, sessions=3 if phase in ("main_path_profile", "dist_profile") else 1)
+        # two sessions for the two main paths, one for the other phases:
+        # a session costs ~1 s of profiler set-up on the card's host (the
+        # script's time limit)
+        prof = profile_query(engine, sql, sessions=2 if phase in ("main_path_profile", "dist_profile") else 1)
         log(phase, **labels, **prof)
         out[(phase, labels.get("engine"), labels["query"])] = prof
     return out
@@ -4003,7 +4504,9 @@ def main() -> int:
     # 3. kernels vs plain versions
     worst = phase_kernels(np.random.default_rng(args.seed), dev)
     shape_worst, timings = _timed_shapes(args.seed + 1, dev)
-    worst = max(worst, shape_worst)
+    member_shapes = _member_shapes(args.seed + 5, dev)
+    member_worst, member_timings = _timed_member_shapes(member_shapes, dev)
+    worst = max(worst, shape_worst, member_worst)
     timing = timings[0]  # the distributed main path's shape
     seg_timing = timings[1]  # the segment main path's shape (the single numbers up to slice 2)
 
@@ -4019,17 +4522,20 @@ def main() -> int:
     front = phase_front_door(seg, dist)
     join = phase_join_path(seg, dist)
     realtime = phase_realtime_path(seg, args.seed + 4)
+    batch = phase_batch_path(seg, dist)
     main_variants = dict(seg["variants"])
-    for part in (dist, transform, sketch, storage, index, front, join, realtime):
+    for part in (dist, transform, sketch, storage, index, front, join, realtime, batch):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
     storage_launches, sketch_launches, index_launches = storage["launches"], sketch["launches"], index["launches"]
     front_launches, join_launches, realtime_launches = front["launches"], join["launches"], realtime["launches"]
+    batch_launches, member_axis_launches = batch["launches"], batch["member_axis_launches"]
     main_launches = (sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
-                     + index_launches + front_launches + join_launches + realtime_launches)
+                     + index_launches + front_launches + join_launches + realtime_launches + batch_launches)
     profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"]
-                            + index["profiles"] + front["profiles"] + join["profiles"] + realtime["profiles"])
+                            + index["profiles"] + front["profiles"] + join["profiles"] + realtime["profiles"]
+                            + batch["profiles"])
     for key, rec in transform["records"].items():
         engine, _, query = key.partition("/")
         prof = profiles.get(("transform_profile", engine, query), {})
@@ -4075,6 +4581,18 @@ def main() -> int:
             profiled_wall_ms=prof.get("profiled_wall_ms", "not run"),
             top_device_ops=prof.get("top_device_ops", "not run"))
     log("realtime_seconds", phase_4i_s=realtime["realtime_s"])
+    for item, rec in batch["records"].items():
+        log("batch_path", item=item, **rec)
+    for query in ("q2_batch", "q2_sequential", "q4_execute_many"):
+        engine = "dist" if query.startswith("q4") else "server"
+        prof = profiles.get(("batch_profile", engine, query), {})
+        log("batch_profile_summary", engine=engine, query=query,
+            device_busy_ms=prof.get("device_busy_ms", "not run"),
+            device_idle_share=prof.get("device_idle_share", "not run"),
+            profiled_wall_ms=prof.get("profiled_wall_ms", "not run"),
+            top_device_ops=prof.get("top_device_ops", "not run"))
+    log("batch_seconds", phase_4j_s=batch["batch_s"])
+    batch["engine"].residency.shutdown()
     realtime["dist_engine"].residency.shutdown()
     shutil.rmtree(realtime["root"], ignore_errors=True)
     funnel, funnel_launches = sketch["funnel"], sketch["funnel_launches"]
@@ -4082,11 +4600,13 @@ def main() -> int:
     for e in list(dist["engines"].values()) + [index["mv_dist"]] + list(join["engines"].values()):
         e.residency.shutdown()
     vector_timing = index["vector"]
-    del seg, dist, transform, sketch, storage, index, front, join, realtime
+    del seg, dist, transform, sketch, storage, index, front, join, realtime, batch
     torch.cuda.empty_cache()
 
     # 5. profile
     generic, flush_check = phase_kernel_profile(args.seed + 1, dev, timings)
+    _member_scan_ms(member_shapes, dev, member_timings)
+    del member_shapes
 
     # 6. summary
     kernels = [{
@@ -4102,7 +4622,8 @@ def main() -> int:
                              "transform_path": transform_launches, "sketch_path": sketch_launches,
                              "storage": storage_launches, "index_path": index_launches,
                              "front_door": front_launches, "join_path": join_launches,
-                             "realtime_path": realtime_launches},
+                             "realtime_path": realtime_launches, "batch_path": batch_launches},
+        "member_axis_launches_on_main_path": member_axis_launches,
         "max_abs_err": worst,
         "shape": timing["shape"],
         "ms": timing["kernel_ms"],
@@ -4123,6 +4644,9 @@ def main() -> int:
         "join_shape": {k: timings[8][k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
         "instantiations_on_main_path": main_variants,
+        "member_axis_shapes": [{k: t[k] for k in (
+            "shape", "members", "kernel_ms", "scan_ms", "w_sequential_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for t in member_timings],
         "shapes": timings,
         "specialised_vs_generic": generic,
         "flush_check": flush_check,

@@ -46,6 +46,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pinot_tpu_torch.analysis.compile_audit import MSE_AUDIT
 from pinot_tpu_torch.device import DeviceLike, resolve_device
 from pinot_tpu_torch.mse import exchange as ex
 from pinot_tpu_torch.mse.join import KEY_SENTINEL, lookup_join, range_join
@@ -67,6 +68,7 @@ from pinot_tpu_torch.query.result import (
 from pinot_tpu_torch.query.shape import column_info_from, params_structure, shape_digest
 from pinot_tpu_torch.spi.schema import DataType
 from pinot_tpu_torch.utils import perf
+from pinot_tpu_torch.utils.cache import LruCache
 from pinot_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["ExchangeOverflowError", "JoinPlanError", "MultiStageEngine"]
@@ -206,7 +208,13 @@ class MultiStageEngine:
         self.device = resolve_device(device)
         self.tables: Dict[str, Any] = tables if tables is not None else {}
         self.residency = residency
-        self._plan_cache = planner._PlanCache()
+        # plan-cache bytes charge the process host ledger the admission
+        # controller tracks (cluster/admission.py)
+        from pinot_tpu_torch.cluster.admission import process_host_budget
+
+        self._plan_cache = LruCache(
+            max_entries=planner._plan_cache_entries(), name="compile.mse", budget=process_host_budget()
+        )
         # plan-cache misses (plans built) and hits since construction, and
         # the shape fingerprint of the last plan (the perf ledger's key)
         self.plan_misses = 0
@@ -338,8 +346,10 @@ class MultiStageEngine:
             if params_structure(plan.params) == params_structure(cached.params):
                 plan.cost = cached.cost
                 self.plan_hits += 1
+                MSE_AUDIT.record_hit(key[0])
                 return plan
         self.plan_misses += 1
+        MSE_AUDIT.record_compile(key[0])
         plan = self._build_plan(rq, strategy, slack)
         self._plan_cache.put(key, plan)
         return plan

@@ -9,9 +9,9 @@ on fact FK = dim PK, snowflake chains through an earlier dimension) is
 resolved directly.  Qualified names are stripped to plain column names,
 every reference gets an owning table, self-joins get per-alias facades
 (StackedTable.aliased_view), and WHERE conjuncts are pushed to the one table
-they touch.  The JAX package runs its static plan check (analysis/
-plan_check.check_plan) first; the port leaves it out, as its QueryEngine
-does (ROADMAP Queue 1 item 9).
+they touch.  The static plan check (analysis/plan_check.check_plan) runs
+first, as in the JAX package: a malformed query raises PlanCheckError
+before any launch.
 """
 from __future__ import annotations
 
@@ -62,6 +62,12 @@ class ResolvedQuery:
 
 def resolve(ctx: QueryContext, schemas: Dict[str, "object"]) -> ResolvedQuery:
     """schemas: table name -> object with .column_names (Schema/StackedTable)."""
+    # schema-free static validation (function existence/arity, agg nesting,
+    # limit sanity) before join resolution; column ownership is checked by
+    # resolve_name below against the per-table column sets
+    from pinot_tpu_torch.analysis.plan_check import check_plan
+
+    check_plan(ctx)
     fact = ctx.table
     if fact not in schemas:
         raise JoinPlanError(f"table {fact!r} is not registered")

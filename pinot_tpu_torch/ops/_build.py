@@ -117,6 +117,10 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             lib.pinot_fused_scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
             lib.pinot_fused_scan.restype = ctypes.c_int
+            lib.pinot_fused_scan_batch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            lib.pinot_fused_scan_batch.restype = ctypes.c_int
+            lib.pinot_fused_scan_max_members.argtypes = []
+            lib.pinot_fused_scan_max_members.restype = ctypes.c_int
             lib.pinot_device_smem_optin.argtypes = [ctypes.c_void_p]
             lib.pinot_device_smem_optin.restype = ctypes.c_int
             lib.pinot_fused_scan_params_size.argtypes = []

@@ -47,6 +47,17 @@
 // add straight into the global int64 table.  The wrapper (ops/fused_scan.py)
 // picks the instantiation and converts int64 to f64.
 //
+// The member axis (pinot_fused_scan_batch): the JAX package runs W
+// same-shape queries as one vmapped launch, whose pallas_call grid gains a
+// member axis.  Here each member has its own complete ScanParams (its own
+// operand pointers: a shared operand is the same address in every member,
+// a stacked one member w's slice), all W ride one kernel parameter block
+// (ScanBatch, within the 32 KB parameter space of CUDA 12.1+ on sm_90a),
+// blockIdx.y picks the member and the same tile loop runs over x; member
+// w's tables are rows [w * E, (w + 1) * E) of the output.  Every member
+// reads the operands it shares with the others again: W times the shared
+// bytes of one launch, beside the per-member ones.
+//
 // Plain C interface for ctypes: every pointer and the stream are void*, and
 // pinot_fused_scan returns the cudaError_t of the launch.
 
@@ -56,6 +67,7 @@
 #include <mutex>
 
 #define PINOT_MAX_ENTRIES 16
+#define PINOT_MAX_MEMBERS 8
 #define PINOT_BLOCK 1024
 #define PINOT_MIN_BLOCKS_PER_SM 1
 #define PINOT_TILE 16
@@ -377,19 +389,20 @@ __device__ __forceinline__ void scan_tile(const ScanParams& p, int64_t r0, int c
 }
 
 // ---------------------------------------------------------------------------
-// the kernel
+// the kernels
 // ---------------------------------------------------------------------------
 
+// one block's share of one launch's rows: block `blk` of `nblk` blocks
+// scans its tiles into its shared tables and flushes them into out
 template <int KM, int VM, bool SHARED>
-__global__ void __launch_bounds__(PINOT_BLOCK, PINOT_MIN_BLOCKS_PER_SM)
-fused_scan_kernel(const __grid_constant__ ScanParams p, unsigned long long* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
+__device__ __forceinline__ void scan_rows(const ScanParams& p, unsigned long long* __restrict__ out,
+                                          uint32_t* smem, int64_t blk, int64_t nblk) {
   if constexpr (SHARED) {
     for (int i = threadIdx.x; i < p.smem_words; i += blockDim.x) smem[i] = 0u;
     __syncthreads();
   }
-  const int64_t nthreads = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t nthreads = nblk * blockDim.x;
+  const int64_t tid = blk * blockDim.x + threadIdx.x;
   // vector tiles: a warp takes PINOT_WARP_ROWS rows a step
   for (int64_t t = tid >> 5; t < p.tiles; t += nthreads >> 5)
     scan_tile<KM, VM, SHARED, true>(p, p.head + t * PINOT_WARP_ROWS + (threadIdx.x & 31) * 4,
@@ -418,25 +431,51 @@ fused_scan_kernel(const __grid_constant__ ScanParams p, unsigned long long* __re
   }
 }
 
+template <int KM, int VM, bool SHARED>
+__global__ void __launch_bounds__(PINOT_BLOCK, PINOT_MIN_BLOCKS_PER_SM)
+fused_scan_kernel(const __grid_constant__ ScanParams p, unsigned long long* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  scan_rows<KM, VM, SHARED>(p, out, smem, blockIdx.x, gridDim.x);
+}
+
+// W members' launches in one grid: member blockIdx.y, its tables at
+// out + blockIdx.y * out_stride
+struct ScanBatch {
+  ScanParams m[PINOT_MAX_MEMBERS];
+};
+
+template <int KM, int VM, bool SHARED>
+__global__ void __launch_bounds__(PINOT_BLOCK, PINOT_MIN_BLOCKS_PER_SM)
+fused_scan_batch_kernel(const __grid_constant__ ScanBatch b, unsigned long long* __restrict__ out,
+                        int64_t out_stride) {
+  extern __shared__ uint32_t smem[];
+  scan_rows<KM, VM, SHARED>(b.m[blockIdx.y], out + blockIdx.y * out_stride, smem, blockIdx.x, gridDim.x);
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 typedef void (*ScanKernel)(const ScanParams, unsigned long long*);
+typedef void (*BatchKernel)(const ScanBatch, unsigned long long*, int64_t);
 
-// the four instantiations (ops/fused_scan.py: INSTANTIATIONS)
-static ScanKernel pick_kernel(int km, int vm, int shared) {
-  if (km == KM_ANY && vm == VM_ANY) return shared ? fused_scan_kernel<KM_ANY, VM_ANY, true>
-                                                  : fused_scan_kernel<KM_ANY, VM_ANY, false>;
-  if (!shared || vm != VM_I32) return nullptr;
-  if (km == KM_I32) return fused_scan_kernel<KM_I32, VM_I32, true>;
-  if (km == KM_P16) return fused_scan_kernel<KM_P16, VM_I32, true>;
+// the four instantiations (ops/fused_scan.py: INSTANTIATIONS), unbatched
+// and with the member axis
+#define PINOT_PICK(KERNEL)                                                           \
+  if (km == KM_ANY && vm == VM_ANY) return shared ? KERNEL<KM_ANY, VM_ANY, true>     \
+                                                  : KERNEL<KM_ANY, VM_ANY, false>;   \
+  if (!shared || vm != VM_I32) return nullptr;                                       \
+  if (km == KM_I32) return KERNEL<KM_I32, VM_I32, true>;                             \
+  if (km == KM_P16) return KERNEL<KM_P16, VM_I32, true>;                             \
   return nullptr;
-}
+
+static ScanKernel pick_kernel(int km, int vm, int shared) { PINOT_PICK(fused_scan_kernel) }
+static BatchKernel pick_batch_kernel(int km, int vm, int shared) { PINOT_PICK(fused_scan_batch_kernel) }
+#undef PINOT_PICK
 
 // what a launch of one instantiation may use, computed once
 struct LaunchPlan {
   int dev;
-  ScanKernel fn;
+  const void* fn;
   int smem;
   int max_blocks;  // co-resident blocks on the card
 };
@@ -445,7 +484,7 @@ static std::mutex g_mu;
 static LaunchPlan g_plans[256];
 static int g_num_plans = 0;
 
-static cudaError_t launch_plan(int dev, ScanKernel fn, int smem, LaunchPlan* out) {
+static cudaError_t launch_plan(int dev, const void* fn, int smem, LaunchPlan* out) {
   std::lock_guard<std::mutex> lock(g_mu);
   for (int i = 0; i < g_num_plans; ++i) {
     const LaunchPlan& c = g_plans[i];
@@ -474,14 +513,22 @@ static cudaError_t launch_plan(int dev, ScanKernel fn, int smem, LaunchPlan* out
   return cudaSuccess;
 }
 
+static bool params_ok(const ScanParams* p) {
+  return p->num_entries >= 1 && p->num_entries <= PINOT_MAX_ENTRIES && p->num_groups >= 1 && p->n >= 0 &&
+         p->num_masks >= 1 && p->num_masks <= p->num_entries && p->head >= 0 && p->tiles >= 0 &&
+         p->head + p->tiles * PINOT_WARP_ROWS <= p->n;
+}
+
+// threads one launch needs: a warp a vector tile, a thread a scalar tile
+static int64_t threads_needed(const ScanParams* p) {
+  return p->tiles * 32 + 2 + (p->n - p->head - p->tiles * PINOT_WARP_ROWS) / PINOT_TILE;
+}
+
 extern "C" {
 
 // out: zeroed int64[num_entries, num_groups] on the current device.
 int pinot_fused_scan(const ScanParams* p, void* out, void* stream) {
-  if (p->num_entries < 1 || p->num_entries > PINOT_MAX_ENTRIES || p->num_groups < 1 || p->n < 0 ||
-      p->num_masks < 1 || p->num_masks > p->num_entries || p->head < 0 || p->tiles < 0 ||
-      p->head + p->tiles * PINOT_WARP_ROWS > p->n)
-    return (int)cudaErrorInvalidValue;
+  if (!params_ok(p)) return (int)cudaErrorInvalidValue;
   const ScanKernel fn = pick_kernel(p->key_mode, p->val_mode, p->shared);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (p->n == 0) return (int)cudaSuccess;
@@ -490,12 +537,9 @@ int pinot_fused_scan(const ScanParams* p, void* out, void* stream) {
   if (err != cudaSuccess) return (int)err;
   const int smem = p->shared ? p->smem_words * (int)sizeof(uint32_t) : 0;
   LaunchPlan plan;
-  err = launch_plan(dev, fn, smem, &plan);
+  err = launch_plan(dev, (const void*)fn, smem, &plan);
   if (err != cudaSuccess) return (int)err;
-  // threads needed: a warp a vector tile, a thread a scalar tile
-  const int64_t threads =
-      p->tiles * 32 + 2 + (p->n - p->head - p->tiles * PINOT_WARP_ROWS) / PINOT_TILE;
-  int64_t grid = (threads + PINOT_BLOCK - 1) / PINOT_BLOCK;
+  int64_t grid = (threads_needed(p) + PINOT_BLOCK - 1) / PINOT_BLOCK;
   if (grid > plan.max_blocks) grid = plan.max_blocks;
   // a block's 32-bit counters hold fewer than 2^32 rows (2^31 leaves room
   // for the uneven split of tiles between blocks)
@@ -503,6 +547,48 @@ int pinot_fused_scan(const ScanParams* p, void* out, void* stream) {
   fn<<<(unsigned)grid, PINOT_BLOCK, smem, (cudaStream_t)stream>>>(*p, (unsigned long long*)out);
   return (int)cudaGetLastError();
 }
+
+// ps: `members` launches' params, one instantiation (key mode, value mode,
+// shared) and one table shape (entries, groups) for all; out: zeroed
+// int64[members, num_entries, num_groups] on the current device.  The
+// co-resident blocks split evenly between the members.
+int pinot_fused_scan_batch(const ScanParams* ps, int members, void* out, void* stream) {
+  if (members < 1 || members > PINOT_MAX_MEMBERS) return (int)cudaErrorInvalidValue;
+  ScanBatch b;
+  int64_t threads = 0, n_max = 0;
+  int smem_words = 0;
+  for (int w = 0; w < members; ++w) {
+    const ScanParams* p = ps + w;
+    if (!params_ok(p) || p->key_mode != ps->key_mode || p->val_mode != ps->val_mode ||
+        p->shared != ps->shared || p->num_entries != ps->num_entries || p->num_groups != ps->num_groups)
+      return (int)cudaErrorInvalidValue;
+    b.m[w] = *p;
+    const int64_t t = threads_needed(p);
+    threads = t > threads ? t : threads;
+    n_max = p->n > n_max ? p->n : n_max;
+    smem_words = p->smem_words > smem_words ? p->smem_words : smem_words;
+  }
+  const BatchKernel fn = pick_batch_kernel(ps->key_mode, ps->val_mode, ps->shared);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (n_max == 0) return (int)cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = ps->shared ? smem_words * (int)sizeof(uint32_t) : 0;
+  LaunchPlan plan;
+  err = launch_plan(dev, (const void*)fn, smem, &plan);
+  if (err != cudaSuccess) return (int)err;
+  int64_t grid = (threads + PINOT_BLOCK - 1) / PINOT_BLOCK;
+  const int64_t per_member = plan.max_blocks / members > 0 ? plan.max_blocks / members : 1;
+  if (grid > per_member) grid = per_member;
+  if (ps->shared && n_max / grid >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 blocks((unsigned)grid, (unsigned)members);
+  fn<<<blocks, PINOT_BLOCK, smem, (cudaStream_t)stream>>>(
+      b, (unsigned long long*)out, (int64_t)ps->num_entries * ps->num_groups);
+  return (int)cudaGetLastError();
+}
+
+int pinot_fused_scan_max_members(void) { return PINOT_MAX_MEMBERS; }
 
 int pinot_fused_scan_params_size(void) { return (int)sizeof(ScanParams); }
 

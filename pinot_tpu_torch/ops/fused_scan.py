@@ -30,6 +30,19 @@ it only for tensors on the CPU; on a CUDA tensor it launches the kernel or
 raises.  ``LAUNCHES`` counts kernel launches and nothing else;
 ``VARIANT_LAUNCHES`` splits them by instantiation and
 ``MASK_WORDS_LAUNCHES`` counts those that read packed filter words.
+
+The member axis.  The JAX package runs W same-shape queries as one
+``jax.vmap`` of the planned function, and Pallas' batching rule turns the
+scan into ONE ``pallas_call`` whose grid gains a member axis.  Here the
+scan is the torch custom op ``pinot_tpu_torch::fused_group_tables`` (the
+entry tuples flattened into its schema) with a vmap rule, so
+``torch.func.vmap`` over a planned closure reaches it with the physical
+tensors and their batch dims: on CUDA the rule issues one launch of the
+kernel's member-axis form (``pinot_fused_scan_batch``: each member its own
+operand pointers, a shared operand the same address in every member, and
+``[W, E, G]`` tables); on the CPU it runs the plain version once a member.
+``BATCH_LAUNCHES`` counts member-axis launches by instantiation and
+``BATCH_MEMBERS`` the members they carried.
 """
 from __future__ import annotations
 
@@ -66,6 +79,19 @@ INSTANTIATIONS = tuple(f"{k}/{v}/shared" for k, v in SPECIALISED) + ("any/any/sh
 LAUNCHES = 0
 VARIANT_LAUNCHES: Dict[str, int] = {}
 MASK_WORDS_LAUNCHES = 0
+BATCH_LAUNCHES: Dict[str, int] = {}
+BATCH_MEMBERS = 0
+# members one member-axis launch takes (PINOT_MAX_MEMBERS in
+# csrc/fused_scan.cu); a wider vmap launches once per chunk of members
+MAX_MEMBERS = 8
+
+
+def reset_counters() -> None:
+    """Zero every launch counter of this module."""
+    global LAUNCHES, MASK_WORDS_LAUNCHES, BATCH_MEMBERS
+    LAUNCHES = MASK_WORDS_LAUNCHES = BATCH_MEMBERS = 0
+    VARIANT_LAUNCHES.clear()
+    BATCH_LAUNCHES.clear()
 
 _INT_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.uint16, torch.int32, torch.uint32, torch.int64)
 # ElemType codes of csrc/fused_scan.cu
@@ -389,6 +415,8 @@ def _library():
         lib = _build.load()
         if lib.pinot_fused_scan_params_size() != ctypes.sizeof(_ScanParams):
             raise RuntimeError("csrc/fused_scan.cu ScanParams layout differs from the ctypes mirror")
+        if lib.pinot_fused_scan_max_members() != MAX_MEMBERS:
+            raise RuntimeError("csrc/fused_scan.cu PINOT_MAX_MEMBERS differs from MAX_MEMBERS")
         _LIB = lib
     return _LIB
 
@@ -403,6 +431,16 @@ def _smem_optin(lib, index: int) -> int:
             raise RuntimeError(f"shared-memory query failed: {lib.pinot_cuda_error_string(err).decode()}")
         _SMEM_OPTIN[index] = got.value
     return _SMEM_OPTIN[index]
+
+
+def _entry_order(rows: torch.Tensor, order: List[int]) -> List[torch.Tensor]:
+    """A launch's f64 [E, G] rows (kernel order) as tables in entry order:
+    the kernel's row j is entry order[j]."""
+    rows = rows.unbind(0)
+    tables: List[Optional[torch.Tensor]] = [None] * len(order)
+    for j, i in enumerate(order):
+        tables[i] = rows[j]
+    return tables
 
 
 def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> List[torch.Tensor]:
@@ -423,11 +461,173 @@ def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> L
     LAUNCHES += 1
     VARIANT_LAUNCHES[variant] = VARIANT_LAUNCHES.get(variant, 0) + 1
     MASK_WORDS_LAUNCHES += mask_words is not None
-    rows = out.to(torch.float64).unbind(0)
-    tables: List[Optional[torch.Tensor]] = [None] * len(entries)
-    for j, i in enumerate(order):
-        tables[i] = rows[j]
-    return tables
+    return _entry_order(out.to(torch.float64), order)
+
+
+def _launch_batch(members, num_groups: int) -> torch.Tensor:
+    """ONE member-axis launch over W <= MAX_MEMBERS members, each given as
+    (entries, key, key_bits, n, mask_words, code_pred) on one device, with
+    one table shape and one instantiation; returns f64 [W, E, G]."""
+    global LAUNCHES, MASK_WORDS_LAUNCHES, BATCH_MEMBERS
+    lib = _library()
+    W = len(members)
+    E = len(members[0][0])
+    device = members[0][1].device
+    out = torch.zeros((W, E, num_groups), dtype=torch.int64, device=device)
+    arr = (_ScanParams * W)()
+    orders, variants = [], set()
+    current = torch.cuda.current_device()
+    with torch.cuda.device(device) if device.index not in (None, current) else contextlib.nullcontext():
+        smem = _smem_optin(lib, torch.cuda.current_device())
+        for w, (entries, key_t, key_bits, n, mask_words, code_pred) in enumerate(members):
+            p, order, variant = build_params(entries, key_t, key_bits, n, num_groups, mask_words, code_pred, smem)
+            arr[w] = p
+            orders.append(order)
+            variants.add(variant)
+        if len(variants) != 1:
+            raise ValueError(f"members of one launch resolve to different instantiations {sorted(variants)}")
+        err = lib.pinot_fused_scan_batch(arr, W, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused scan member-axis launch failed: {lib.pinot_cuda_error_string(err).decode()}")
+    variant = variants.pop()
+    LAUNCHES += 1
+    VARIANT_LAUNCHES[variant] = VARIANT_LAUNCHES.get(variant, 0) + 1
+    BATCH_LAUNCHES[variant] = BATCH_LAUNCHES.get(variant, 0) + 1
+    BATCH_MEMBERS += W
+    MASK_WORDS_LAUNCHES += members[0][4] is not None
+    out = out.to(torch.float64)
+    if all(o == sorted(o) for o in orders):
+        return out
+    return torch.stack([torch.stack(_entry_order(out[w], orders[w])) for w in range(W)])
+
+
+# ---------------------------------------------------------------------------
+# the custom op: the entry tuples flattened into a schema torch.library takes
+# ---------------------------------------------------------------------------
+def _flatten(entries):
+    """(kinds, sum values, masks, limb counts, signs): limb count -1 for no
+    plan; values only for the sum entries, in entry order."""
+    kinds, values, masks, limbs, signs = [], [], [], [], []
+    for kind, v, m, lp in entries:
+        kinds.append(_KIND_CODES[kind])
+        masks.append(m)
+        if kind != "count":
+            values.append(v)
+        if lp is None:
+            limbs.append(-1)
+            signs.append(0)
+        elif kind == "int_sum":
+            limbs.append(int(lp[0]))
+            signs.append(int(bool(lp[1])))
+        else:
+            limbs.append(int(lp))
+            signs.append(0)
+    return kinds, values, masks, limbs, signs
+
+
+_KINDS = {c: k for k, c in _KIND_CODES.items()}
+
+
+def _unflatten(kinds, values, masks, limbs, signs) -> List[Entry]:
+    entries, vi = [], 0
+    for kc, m, nl, sg in zip(kinds, masks, limbs, signs):
+        kind = _KINDS[int(kc)]
+        v = None
+        if kind != "count":
+            v = values[vi]
+            vi += 1
+        lp = None if nl < 0 else ((nl, bool(sg)) if kind == "int_sum" else nl)
+        entries.append((kind, v, m, lp))
+    return entries
+
+
+def _scan(entries, key, key_bits, n, num_groups, mask_words, code_pred) -> List[torch.Tensor]:
+    """One unbatched call's tables: the plain version on the CPU, on CUDA
+    one launch a chunk of MAX_ENTRIES entries."""
+    if key.device.type == "cpu":
+        codes, packed = (None, (key, key_bits)) if key_bits else (key, None)
+        return fused_group_tables_reference(
+            entries, codes, num_groups, mask_words=mask_words, code_pred=code_pred, codes_packed=packed)
+    return [
+        t for i in range(0, len(entries), MAX_ENTRIES)
+        for t in _launch(list(entries[i:i + MAX_ENTRIES]), key, key_bits, n, num_groups, mask_words, code_pred)
+    ]
+
+
+def _scan_args(key, key_bits, kinds, values, masks, limbs, signs, mask_words, pred, pred_lo, pred_hi):
+    """(entries, rows, code_pred) of one call, from the op's arguments."""
+    entries = _unflatten(kinds, values, masks, limbs, signs)
+    code_pred = None if pred is None else (pred, int(pred_lo), int(pred_hi))
+    n = int(masks[0].shape[0]) if key_bits else int(key.shape[0])
+    return entries, n, code_pred
+
+
+@torch.library.custom_op("pinot_tpu_torch::fused_group_tables", mutates_args=())
+def _fused_op(
+    key: torch.Tensor, key_bits: int, num_groups: int, kinds: List[int], values: List[torch.Tensor],
+    masks: List[torch.Tensor], limbs: List[int], signs: List[int], mask_words: Optional[torch.Tensor],
+    pred: Optional[torch.Tensor], pred_lo: Optional[torch.Tensor], pred_hi: Optional[torch.Tensor],
+) -> torch.Tensor:
+    entries, n, code_pred = _scan_args(
+        key, key_bits, kinds, values, masks, limbs, signs, mask_words, pred, pred_lo, pred_hi)
+    return torch.stack(_scan(entries, key, key_bits, n, num_groups, mask_words, code_pred))
+
+
+@_fused_op.register_fake
+def _(key, key_bits, num_groups, kinds, values, masks, limbs, signs, mask_words, pred, pred_lo, pred_hi):
+    return key.new_empty((len(kinds), num_groups), dtype=torch.float64)
+
+
+_is_batched = torch._C._functorch.is_batchedtensor
+
+
+def member_args(W: int, in_dims, key, key_bits, num_groups, kinds, values, masks, limbs, signs,
+                mask_words, pred, pred_lo, pred_hi) -> List[tuple]:
+    """The op's arguments for each of W members, from the physical tensors
+    and their member dims under vmap.  A shared operand (dim None) is the
+    same tensor for every member; a stacked one is made member-major and
+    dense once, and member w takes its slice (a dense view)."""
+    kd, _kb, _ng, _k, vd, md, _l, _s, wd, pd, lod, hid = in_dims
+    dense = {}
+    for t, d in [(key, kd), (mask_words, wd), (pred, pd), (pred_lo, lod), (pred_hi, hid),
+                 *zip(values, vd), *zip(masks, md)]:
+        if t is not None and d is not None and id(t) not in dense:
+            dense[id(t)] = t.movedim(d, 0).contiguous()
+
+    def mem(t, w):
+        return dense[id(t)][w] if t is not None and id(t) in dense else t
+
+    return [
+        (mem(key, w), key_bits, num_groups, kinds, [mem(v, w) for v in values], [mem(m, w) for m in masks],
+         limbs, signs, mem(mask_words, w), mem(pred, w), mem(pred_lo, w), mem(pred_hi, w))
+        for w in range(W)
+    ]
+
+
+def _fused_vmap(info, in_dims, *args):
+    """The op under torch.func.vmap.  CUDA: one member-axis launch a chunk
+    of MAX_MEMBERS members and MAX_ENTRIES entries; CPU: the plain version
+    once a member."""
+    members = member_args(info.batch_size, in_dims, *args)
+    if args[0].device.type != "cuda":
+        return torch.stack([_fused_op(*a) for a in members]), 0
+    launches = []
+    for a in members:
+        entries, n, code_pred = _scan_args(a[0], a[1], *a[3:])
+        launches.append((entries, a[0], a[1], n, a[8], code_pred))
+    num_groups = args[2]
+    chunks = []
+    for e0 in range(0, len(args[3]), MAX_ENTRIES):
+        rows = [
+            _launch_batch([(ent[e0:e0 + MAX_ENTRIES], *rest) for ent, *rest in launches[w0:w0 + MAX_MEMBERS]],
+                          num_groups)
+            for w0 in range(0, len(launches), MAX_MEMBERS)
+        ]
+        chunks.append(torch.cat(rows))
+    return torch.cat(chunks, dim=1), 0
+
+
+_fused_op.register_vmap(_fused_vmap)
 
 
 def fused_group_tables(
@@ -436,7 +636,7 @@ def fused_group_tables(
     num_groups: int,
     *,
     mask_words: Optional[torch.Tensor] = None,
-    code_pred: Optional[Tuple[torch.Tensor, int, int]] = None,
+    code_pred: Optional[Tuple[Any, Any, Any]] = None,
     codes_packed: Optional[Tuple[torch.Tensor, int]] = None,
 ) -> List[torch.Tensor]:
     """Per-entry f64[num_groups] tables, as pallas_scan.fused_group_tables_pallas.
@@ -444,23 +644,28 @@ def fused_group_tables(
     entries: (kind, values, mask, limb_plan) with kind in KERNEL_KINDS.
     mask_words: optional packed filter bitmap ([n // 32] words, bit r of word
     w is row 32w + r) ANDed into every entry mask.  code_pred: optional
-    (codes, lo, hi) dictionary-code range, likewise ANDed.  codes_packed:
+    (codes, lo, hi) dictionary-code range, likewise ANDed (lo and hi ints or
+    0-d tensors, which may differ by member under vmap).  codes_packed:
     optional (words, code_bits) packed forward index of the key; the kernel
     reads the words and `codes` may then be None.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel; anything else raises."""
+    version; CUDA tensors launch the kernel; anything else raises.  Under
+    torch.func.vmap, with any operand batched, the call goes through the
+    custom op, whose vmap rule launches the member-axis kernel."""
     n = _check_args(entries, codes, num_groups, mask_words, codes_packed)
-    key_t = codes_packed[0] if codes_packed is not None else codes
-    if key_t.device.type == "cpu":
-        return fused_group_tables_reference(
-            entries, codes, num_groups, mask_words=mask_words, code_pred=code_pred,
-            codes_packed=codes_packed,
-        )
-    if key_t.device.type != "cuda":
-        raise ValueError(f"fused scan runs on CUDA or CPU tensors, not {key_t.device}")
     key_bits = int(codes_packed[1]) if codes_packed is not None else 0
-    tables: List[torch.Tensor] = []
-    for i in range(0, len(entries), MAX_ENTRIES):
-        tables.extend(_launch(
-            list(entries[i:i + MAX_ENTRIES]), key_t, key_bits, n, num_groups, mask_words, code_pred,
-        ))
-    return tables
+    key = codes_packed[0] if codes_packed is not None else codes
+    if key.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused scan runs on CUDA or CPU tensors, not {key.device}")
+    operands = [key, mask_words, *(code_pred or ())] + [t for e in entries for t in e[1:3]]
+    if not any(isinstance(t, torch.Tensor) and _is_batched(t) for t in operands):
+        # outside vmap (or with every operand shared): straight to the
+        # plain version or the launch, without the op's dispatch (~0.1 ms
+        # of host a call on the card)
+        return _scan(entries, key, key_bits, n, num_groups, mask_words, code_pred)
+    pred = lo = hi = None
+    if code_pred is not None:
+        pred, lo, hi = code_pred
+        lo, hi = (b if isinstance(b, torch.Tensor) else torch.tensor(int(b)) for b in (lo, hi))
+    kinds, values, masks, limbs, signs = _flatten(entries)
+    out = _fused_op(key, key_bits, num_groups, kinds, values, masks, limbs, signs, mask_words, pred, lo, hi)
+    return list(out.unbind(0))

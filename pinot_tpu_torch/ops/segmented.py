@@ -4,7 +4,9 @@ Port of pinot_tpu/ops/segmented.py.  The JAX package's TPU design (two-level
 one-hot MXU matmuls over 8-bit limbs, int32 chunk tables) exists because
 the TPU has no fast scatter and no 64-bit ALU.  The H100 has both, so the
 port follows the JAX package's CPU "wide" policy (segmented.py:269-303):
-native int64/f64 scatters with ``index_add_`` / ``scatter_reduce_``.
+native int64/f64 scatters with ``index_add`` / ``scatter_reduce``, out of
+place so that torch.func.vmap carries them (cross-query batching: a
+batched update cannot add into an unbatched table in place).
 
 ``fused_group_tables`` is the dense group-by's one scan over all additive
 entries.  On CUDA, entry sets the kernel admits (integer kinds, 1 <= G <=
@@ -68,7 +70,7 @@ FUSED_KINDS = ("count", "int_sum", "int64_sum", "f32_sum", "f32_sumsq")
 
 
 def _wide_tables(entries, codes, num_groups: int):
-    """f64 torch path: one index_add_ per entry into f64 tables (exact for
+    """f64 torch path: one index_add per entry into f64 tables (exact for
     integer sums below 2^53, like the JAX package's wide policy)."""
     idx = codes.to(torch.int64)
     out = []
@@ -81,7 +83,7 @@ def _wide_tables(entries, codes, num_groups: int):
                 v = v * v
             upd = torch.where(mask, v, torch.zeros((), dtype=torch.float64, device=v.device))
         t = torch.zeros(num_groups, dtype=torch.float64, device=idx.device)
-        out.append(t.index_add_(0, idx, upd))
+        out.append(t.index_add(0, idx, upd))
     return out
 
 
@@ -123,7 +125,7 @@ def _idx(codes):
 def group_sum(values, mask, codes, num_groups: int):
     """f64[num_groups] sum of values where mask, by group code."""
     v = torch.where(mask, values.to(torch.float64), torch.zeros((), dtype=torch.float64, device=values.device))
-    return torch.zeros(num_groups, dtype=torch.float64, device=v.device).index_add_(0, _idx(codes), v)
+    return torch.zeros(num_groups, dtype=torch.float64, device=v.device).index_add(0, _idx(codes), v)
 
 
 def group_sum_sq(values, mask, codes, num_groups: int):
@@ -133,7 +135,7 @@ def group_sum_sq(values, mask, codes, num_groups: int):
 
 def group_count(mask, codes, num_groups: int):
     """int64[num_groups] count of mask-true rows by group code."""
-    return torch.zeros(num_groups, dtype=torch.int64, device=mask.device).index_add_(
+    return torch.zeros(num_groups, dtype=torch.int64, device=mask.device).index_add(
         0, _idx(codes), mask.to(torch.int64)
     )
 
@@ -144,7 +146,7 @@ def group_register_max(values, mask, codes, num_groups: int):
     an f64 group_max and clamps at 0; an int32 amax on a zero table gives
     the same registers at a quarter of the bytes."""
     v = torch.where(mask, values.to(torch.int32), torch.zeros((), dtype=torch.int32, device=mask.device))
-    return torch.zeros(num_groups, dtype=torch.int32, device=mask.device).scatter_reduce_(
+    return torch.zeros(num_groups, dtype=torch.int32, device=mask.device).scatter_reduce(
         0, _idx(codes), v, reduce="amax", include_self=True
     )
 
@@ -153,7 +155,7 @@ def _group_extreme(values, mask, codes, num_groups: int, is_min: bool):
     ident = _POS_INF if is_min else _NEG_INF
     v = torch.where(mask, values.to(torch.float64), torch.full((), ident, dtype=torch.float64, device=values.device))
     base = torch.full((num_groups,), ident, dtype=torch.float64, device=v.device)
-    return base.scatter_reduce_(0, _idx(codes), v, reduce="amin" if is_min else "amax", include_self=True)
+    return base.scatter_reduce(0, _idx(codes), v, reduce="amin" if is_min else "amax", include_self=True)
 
 
 def group_min(values, mask, codes, num_groups: int):

@@ -62,8 +62,14 @@ A query with JOIN clauses goes to the multi-stage engine
 (mse.MultiStageEngine), built at first use over this engine's table
 registry, device and residency manager, as the JAX engine routes it.
 
-Not ported, raising NotImplementedError naming its ROADMAP Queue 1 item:
-cross-query batching `execute_many` (item 6).  Refused with NotImplementedError, each a reference fault (ROADMAP Queue 3):
+Cross-query batching (`execute_many`): same-shape queries run as one
+torch.func.vmap of their shared closure, the fused scan's member-axis
+launch, under the JAX engine's eligibility rule.  A malformed query raises
+PlanCheckError before planning (analysis/plan_check.py); plans are cached
+in the named LRU "compile.dist" and the batched closures in
+"compile.batch.dist" (utils/cache.py).
+
+Refused with NotImplementedError, each a reference fault (ROADMAP Queue 3):
 set operations and EXPLAIN / EXPLAIN ANALYZE, which the JAX engine ignores
 (it answers the first component, or runs the query), and IN (SELECT ...),
 on which it faults with a TypeError; the broker routes them in the JAX
@@ -82,6 +88,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pinot_tpu_torch.analysis.compile_audit import DIST_AUDIT
+from pinot_tpu_torch.analysis.plan_check import check_plan_cached
+from pinot_tpu_torch.cluster.admission import current_pressure_level, pipeline_depth_under_pressure
 from pinot_tpu_torch.device import DeviceLike, resolve_device
 from pinot_tpu_torch.ops.sparse_merge import merge_sparse_tables
 from pinot_tpu_torch.query import executor, planner
@@ -101,6 +110,7 @@ from pinot_tpu_torch.query.result import (
 from pinot_tpu_torch.query.shape import column_info_from, params_structure, shape_digest
 from pinot_tpu_torch.segment.residency import default_residency
 from pinot_tpu_torch.utils import perf
+from pinot_tpu_torch.utils.cache import LruCache
 from pinot_tpu_torch.utils.metrics import METRICS, Trace
 
 
@@ -189,22 +199,33 @@ class DistributedEngine:
     PyTorch path.  launch_bytes: the bytes of table one launch may cover
     (macro-batching threshold, default PINOT_TPU_LAUNCH_BYTES or 2 GiB).
     pipeline_depth: launches in flight before the first drain, and batches
-    staged ahead (default 2).  residency: a caller-owned ResidencyManager;
-    else hbm_cache_bytes > 0 makes one of that budget, 0 turns tiering off,
-    and None takes default_residency() (8 GiB unless
-    PINOT_TPU_HBM_CACHE_BYTES says otherwise), as in the JAX package."""
+    staged ahead; None reads the autopilot's `pipeline_depth` knob at each
+    query (PINOT_TPU_PIPELINE_DEPTH, default 2), a value pins it.
+    residency: a caller-owned ResidencyManager; else hbm_cache_bytes > 0
+    makes one of that budget, 0 turns tiering off, and None takes
+    default_residency() (8 GiB unless PINOT_TPU_HBM_CACHE_BYTES says
+    otherwise), as in the JAX package."""
 
     def __init__(
         self,
         device: DeviceLike = None,
         launch_bytes: Optional[int] = None,
-        pipeline_depth: int = 2,
+        pipeline_depth: Optional[int] = None,
         hbm_cache_bytes: Optional[int] = None,
         residency=None,
     ):
         self.device = resolve_device(device)
         self.tables: Dict[str, Any] = {}
-        self._plan_cache = planner._PlanCache()
+        # plan-cache bytes charge the process host ledger the admission
+        # controller tracks (cluster/admission.py)
+        from pinot_tpu_torch.cluster.admission import process_host_budget
+
+        self._plan_cache = LruCache(
+            max_entries=planner._plan_cache_entries(), name="compile.dist", budget=process_host_budget()
+        )
+        # execute_many's batched closures (torch.func.vmap of a plan's
+        # closure, made once), keyed on the base closure
+        self._batch_fn_cache = LruCache(max_entries=32, name="compile.batch.dist")
         # plan-cache misses (plans built) and hits since construction
         self.plan_misses = 0
         self.plan_hits = 0
@@ -212,7 +233,7 @@ class DistributedEngine:
             launch_bytes if launch_bytes is not None
             else int(os.environ.get("PINOT_TPU_LAUNCH_BYTES", str(2 << 30)))
         )
-        self.pipeline_depth = int(pipeline_depth)
+        self._pipeline_depth_override: Optional[int] = None if pipeline_depth is None else int(pipeline_depth)
         self._qid_seq = itertools.count(1)
         if residency is not None:
             self.residency = residency
@@ -229,6 +250,20 @@ class DistributedEngine:
         # the tiered path's CUDA copy stream and pinned ring (made at first use)
         self._copy_stream = None
         self._mse_engine = None
+
+    @property
+    def pipeline_depth(self) -> int:
+        """In-flight launch depth, read per launch loop (the autopilot's
+        KnobRegistry unless pinned by the ctor or an assignment)."""
+        if self._pipeline_depth_override is not None:
+            return self._pipeline_depth_override
+        from pinot_tpu_torch.cluster import autopilot
+
+        return int(autopilot.knobs().get("pipeline_depth"))
+
+    @pipeline_depth.setter
+    def pipeline_depth(self, value: int) -> None:
+        self._pipeline_depth_override = int(value)
 
     @property
     def num_devices(self) -> int:
@@ -297,7 +332,7 @@ class DistributedEngine:
             stats.compile_ms = (time.perf_counter() - t0) * 1000.0
         stats.add_index_uses(plan.index_uses)
         with trace.span("run"):
-            result = self._run(ctx, plan, stacked, stats)
+            result = self._run(ctx, plan, stacked, stats, trace)
         with trace.span("reduce"):
             out = reduce_mod.reduce_results(ctx, [result], stats)
         out.stats.trace = trace.finish()
@@ -318,7 +353,134 @@ class DistributedEngine:
         return out
 
     def execute_many(self, ctxs: List[QueryContext]) -> List[ResultTable]:
-        raise NotImplementedError("cross-query batching is a later slice of the port (ROADMAP Queue 1 item 6)")
+        """Cross-query batching: queries that share one planned closure run
+        as ONE torch.func.vmap of it, their literal params stacked on a
+        leading member axis (the fused scan's member-axis launch).
+
+        Eligibility is the JAX engine's, kept narrow: aggregation or dense
+        group-by plans with no row-sharded bitmap params and a single
+        macro-batch.  Ineligible queries, singleton groups and any group
+        whose batched attempt fails (counted in dist.batchFallbacks) run
+        through execute() one by one, so results always match the
+        unbatched path.  Queries execute() refuses go to it as they are."""
+        results: List[Optional[ResultTable]] = [None] * len(ctxs)
+        groups: Dict[Any, List[int]] = {}
+        for i, ctx in enumerate(ctxs):
+            if (ctx.joins or ctx.set_ops or ctx.table not in self.tables or ctx.options.get("__explain__")
+                    or ctx.options.get("__analyze__") or _has_subquery(ctx.filter) or _has_subquery(ctx.having)):
+                results[i] = self.execute(ctx)
+                continue
+            stacked = self.tables[ctx.table]
+            key = (ctx.table, shape_digest(ctx.shape_fingerprint(column_info_from(stacked))))
+            groups.setdefault(key, []).append(i)
+        for idxs in groups.values():
+            outs = self._execute_group([ctxs[i] for i in idxs]) if len(idxs) > 1 else None
+            if outs is None:
+                for i in idxs:
+                    results[i] = self.execute(ctxs[i])
+            else:
+                for i, o in zip(idxs, outs):
+                    results[i] = o
+        return results
+
+    def _execute_group(self, ctxs: List[QueryContext]) -> Optional[List[ResultTable]]:
+        """One batched launch for a same-shape group; None = not eligible or
+        the attempt failed (the caller executes the members one by one)."""
+        table = ctxs[0].table
+        stacked = self.tables[table]
+        n = len(ctxs)
+        dev = self.device
+        t0 = time.perf_counter()
+        try:
+            for ctx in ctxs:
+                self._inject_sketch_info(ctx, stacked)
+            plans = [self._plan(ctx, stacked) for ctx in ctxs]
+            base = plans[0]
+            if any(p.fn is not base.fn for p in plans[1:]):
+                return None
+            if base.kind not in ("aggregation", "groupby_dense"):
+                return None
+            if base.row_sharded_params or len(base.batch_offsets) != 1:
+                return None
+            if n > executor.batch_width():
+                return None
+            cols, params = self._await_staged(*self._stage_batch(base, stacked, 0, {}))
+            axes = {}
+            for k in base.params:
+                if k in _SCHEDULE_PARAMS:
+                    axes[k] = None  # launch-schedule ints: one schedule for every member
+                else:
+                    params[k] = torch.from_numpy(
+                        np.stack([executor.param_array(p.params[k]) for p in plans])).to(dev)
+                    axes[k] = 0
+            fnb = self._batch_fn_cache.get(base.fn)
+            first_batched = fnb is None
+            if first_batched:
+                fnb = torch.func.vmap(base.fn, in_dims=(None, axes, None))
+                self._batch_fn_cache.put(base.fn, fnb)
+                executor.BATCH_AUDIT.record_compile()
+            else:
+                executor.BATCH_AUDIT.record_hit()
+            td0 = time.perf_counter()
+            host = executor._to_host(fnb(cols, params, dev))
+            run_ms = (time.perf_counter() - td0) * 1000.0
+        except Exception:  # noqa: BLE001 — a failed attempt runs the members one by one
+            METRICS.counter("dist.batchFallbacks").inc()
+            return None
+        compile_ms = run_ms if first_batched else 0.0
+        kernel_bytes = stacked.num_shards * base.batch_docs * perf.analytic_bytes_per_row(
+            stacked.column(nm) for nm in base.needed_columns
+        )
+        share, rem = divmod(stacked.num_docs, n)
+        shim = SimpleNamespace(group_dims=base.group_dims, aggs=base.aggs)
+        outs = []
+        for i, (ctx, plan) in enumerate(zip(ctxs, plans)):
+            member = executor._member(host, i)
+            stats = ExecutionStats(
+                num_segments_queried=stacked.num_shards,
+                num_segments_processed=stacked.num_shards,
+                num_docs_scanned=share + (1 if i < rem else 0),
+                total_docs=stacked.num_docs,
+            )
+            stats.add_index_uses(plan.index_uses)
+            stats.kernel_bytes = kernel_bytes / n
+            if i == 0 and compile_ms:
+                stats.compile_ms = compile_ms
+            if base.kind == "aggregation":
+                result = AggSegmentResult(partials=[fn.host_partial(p) for fn, p in zip(base.aggs, member)])
+            else:
+                presence, partials = member
+                keys, sliced = executor._dense_to_present(
+                    shim, presence, partials, ctx.num_groups_limit,
+                    order_trim=planner.order_by_agg_index(ctx),
+                )
+                stats.num_groups = len(keys[0]) if keys else 0
+                result = GroupBySegmentResult(
+                    keys=keys, partials=sliced,
+                    dense=DenseGroupData(
+                        presence=presence, partials=partials, key_space=executor._key_space_id(shim),
+                        group_dims=base.group_dims,
+                    ),
+                )
+            out = reduce_mod.reduce_results(ctx, [result], stats)
+            out.stats.time_ms = (time.perf_counter() - t0) * 1000
+            out.stats.query_id = f"dist_{next(self._qid_seq)}"
+            METRICS.counter("dist.queries").inc()
+            METRICS.histogram("dist.queryLatency").update(out.stats.time_ms)
+            perf.PERF_LEDGER.record(
+                ctx.table,
+                shape_digest(ctx.shape_fingerprint(column_info_from(stacked))),
+                rows=out.stats.num_docs_scanned,
+                time_ms=out.stats.time_ms,
+                kernel_bytes=out.stats.kernel_bytes,
+                compile_ms=out.stats.compile_ms,
+                cache_hit=not first_batched,
+                engine="dist",
+            )
+            outs.append(out)
+        METRICS.counter("dist.batches").inc()
+        METRICS.histogram("dist.batchSize").update(n)
+        return outs
 
     @staticmethod
     def _inject_sketch_info(ctx: QueryContext, stacked) -> None:
@@ -340,6 +502,7 @@ class DistributedEngine:
 
     # ------------------------------------------------------------------
     def _plan(self, ctx: QueryContext, stacked) -> _DistPlan:
+        check_plan_cached(ctx)
         batch_docs, batch_offsets = self._batching(ctx, stacked)
         # keyed on the SHAPE fingerprint: predicate literals are parameter
         # slots, so distinct-literal variants of one query share the entry
@@ -357,8 +520,10 @@ class DistributedEngine:
                 and plan.row_sharded_params == cached.row_sharded_params
             ):
                 self.plan_hits += 1
+                DIST_AUDIT.record_hit(key[0])
                 return plan
         self.plan_misses += 1
+        DIST_AUDIT.record_compile(key[0])
         plan = self._build_plan(ctx, stacked, batch_docs, batch_offsets)
         self._plan_cache.put(key, plan)
         return plan
@@ -644,6 +809,22 @@ class DistributedEngine:
         ready = self._copy_stream.record() if copy is not None else None
         return cols, params, ready
 
+    def _await_staged(self, cols, params, ready):
+        """A staged batch made usable on the compute stream: it waits on the
+        batch's copy event, and the copied tensors are marked in use there."""
+        if ready is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(ready)
+            # the caching allocator must not hand a block of a slice
+            # evicted mid-scan to the next copy before this scan is done
+            for entry in cols.values():
+                for t in entry.values():
+                    t.record_stream(compute)
+            for t in params.values():
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(compute)
+        return cols, params
+
     @staticmethod
     def _combine_partials(aggs, parts_list):
         """Fold per-launch partials (a list over launches of per-agg field
@@ -675,9 +856,17 @@ class DistributedEngine:
             ev.synchronize()
         return out
 
-    def _run(self, ctx, plan: _DistPlan, stacked, stats: ExecutionStats):
+    def _run(self, ctx, plan: _DistPlan, stacked, stats: ExecutionStats, trace: Optional[Trace] = None):
         dev = self.device
         depth = max(1, int(self.pipeline_depth))
+        # graceful degradation: under process-wide memory pressure
+        # (cluster/admission.py) the pipeline sheds in-flight launches, one
+        # fewer per pressure level past 1, down to a serialised loop
+        pressure = current_pressure_level()
+        if pressure:
+            depth = pipeline_depth_under_pressure(depth, pressure)
+            if trace is not None:
+                trace.annotate(pressure=pressure)
         n_batches = len(plan.batch_offsets)
         shared = self._shared_params(plan)
         # Staging pipeline.  With residency, batch j+1's copies run on the
@@ -712,19 +901,7 @@ class DistributedEngine:
                     item = item.result()
                     METRICS.counter("engine.stagingStalls").inc()
                     METRICS.histogram("residency.stagingStallMs").update((time.perf_counter() - tw0) * 1000.0)
-            cols, params, ready = item
-            if ready is not None:
-                compute = torch.cuda.current_stream(dev)
-                compute.wait_event(ready)
-                # the caching allocator must not hand a block of a slice
-                # evicted mid-scan to the next copy before this scan is done
-                for entry in cols.values():
-                    for t in entry.values():
-                        t.record_stream(compute)
-                for t in params.values():
-                    if isinstance(t, torch.Tensor):
-                        t.record_stream(compute)
-            return cols, params
+            return self._await_staged(*item)
 
         batch_outs: List[Any] = []
         pending: List[Any] = []

@@ -36,10 +36,9 @@ realtime segments and a snapshot of each consuming segment
 into its filter (query/planner.py).
 
 ``QueryEngine(device=None)`` runs on CUDA and raises without it;
-``device="cpu"`` runs the plain PyTorch path.  Left out: the JAX engine's
-plan-time static check (`analysis.plan_check.check_plan`, ROADMAP Queue 1
-item 9), so a malformed query fails later, in planning, with the port's own
-error.  A JOIN raises
+``device="cpu"`` runs the plain PyTorch path.  The plan-time static check
+(`analysis.plan_check.check_plan`) runs against the table's schema before
+any segment plans, as in the JAX engine.  A JOIN raises
 NotImplementedError with the JAX engine's message: the distributed engine
 routes joins (mse.MultiStageEngine).
 """
@@ -143,6 +142,11 @@ class QueryEngine:
         trace = Trace(bool(ctx.options.get("trace", False)), query_id=req_id)
         METRICS.counter("queries").inc()
         state = self.table(ctx.table)
+        # schema-aware static validation before any per-segment planning:
+        # malformed plans fail here with a structured PlanCheckError
+        from pinot_tpu_torch.analysis.plan_check import check_plan
+
+        check_plan(ctx, state.schema)
         segments = state.query_segments()
         self._inject_global_ranges(ctx, segments)
         # admission: charge the estimated device bytes up front (safety.py),

@@ -17,9 +17,21 @@ ranks within the segment) and gathers the decoded rows; UNNEST(mvcol)
 repeats each gathered row once per element.  A segment whose star-tree
 covers the query answers from the tree's level instead
 (query/startree.py).
+
+Cross-query batching (``launch_segment_batch`` / ``collect_segment_batch``):
+N same-shape queries over one segment run as ONE call of
+``torch.func.vmap`` over the shared planned closure, the members' literal
+params stacked on a leading member axis and the segment's columns shared;
+the fused scan's vmap rule (ops/fused_scan.py) makes that one member-axis
+kernel launch.  The JAX package pads a batch to ``batch_width()`` lanes so
+one compiled program serves every size; eager torch compiles nothing, so
+the port launches exactly the n live members.
 """
 from __future__ import annotations
 
+import os
+import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -112,10 +124,12 @@ def _param_tensor(v, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(param_array(v))).to(device)
 
 
-def launch_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.device):
+def launch_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.device, residency=None):
     """Plan, ship inputs and run the segment's planned closure.  Returns the
     pending state collect_segment finishes.  A query a star-tree of the
-    segment answers runs over the tree's level instead (query/startree.py)."""
+    segment answers runs over the tree's level instead (query/startree.py).
+    residency: the server's device cache the columns page through (None:
+    the segment's own pinned cache)."""
     from pinot_tpu_torch.query.startree import try_startree
 
     star = try_startree(ctx, segment, device)
@@ -139,10 +153,15 @@ def launch_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.d
     stats.kernel_bytes = cost.bytes_accessed
     stats.kernel_flops = cost.flops
     stats.kernel_cost_source = cost.source
-    cols = segment.to_device(device, columns=plan.needed_columns, packed_codes=True)
+    cols = segment.to_device(device, columns=plan.needed_columns, packed_codes=True, residency=residency)
     params = {k: _param_tensor(v, device) for k, v in plan.params.items()}
     out = plan.fn(cols, params, device)
     return ctx, segment, plan, out, stats
+
+
+def launch_stats(state) -> Optional[ExecutionStats]:
+    """The stats of an unbatched launch state (None for a star-tree answer)."""
+    return None if state[0] == "star" else state[4]
 
 
 def pending_outputs(states) -> list:
@@ -150,7 +169,7 @@ def pending_outputs(states) -> list:
     answer has none): what the trace fence waits for, once over all of
     them, never per launch (a fence in the launch loop would serialise the
     pipeline)."""
-    return [st[3] for st in states if st[0] != "star"]
+    return [st[4] if st[0] == "batch" else st[3] for st in states if st[0] != "star"]
 
 
 def _to_host(x):
@@ -178,7 +197,12 @@ def collect_segment(state):
         docids = matched_docids(out)
         stats.bytes_to_host = int(docids.nbytes)
         return _gather_selection(ctx, plan, segment, docids), stats
-    host = _to_host(out)
+    return _decode_host(ctx, segment, plan, _to_host(out), stats)
+
+
+def _decode_host(ctx, segment, plan, host, stats):
+    """Host decode of one query's (already fetched) outputs, shared by the
+    unbatched collect and each member of a batched one."""
     if plan.kind == "aggregation":
         return AggSegmentResult(partials=[fn.host_partial(p) for fn, p in zip(plan.aggs, host)]), stats
     if plan.kind == "groupby_sparse":
@@ -202,6 +226,177 @@ def collect_segment(state):
     )
     stats.num_groups = len(keys[0]) if keys else 0
     return GroupBySegmentResult(keys=keys, partials=sliced, dense=dense), stats
+
+
+# ---------------------------------------------------------------------------
+# cross-query batching (the serving tier's kernel layer)
+# ---------------------------------------------------------------------------
+class BatchShapeError(RuntimeError):
+    """Batch members do not share one planned closure, or the closure does
+    not run under torch.func.vmap: callers fall back to per-member
+    execution (never a user-visible failure)."""
+
+
+class BatchAudit:
+    """Counts batched-closure builds against cache hits, beside SSE_AUDIT
+    for the base plans: one base plan (SSE_AUDIT) + one batched closure
+    (here) per query shape."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.compiles = 0
+        self.hits = 0
+
+    def record_compile(self):
+        with self._lock:
+            self.compiles += 1
+
+    def record_hit(self):
+        with self._lock:
+            self.hits += 1
+
+    def reset(self):
+        with self._lock:
+            self.compiles = 0
+            self.hits = 0
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return {"compiles": self.compiles, "hits": self.hits}
+
+
+BATCH_AUDIT = BatchAudit()
+
+
+def batch_width() -> int:
+    """The most members one batched launch takes (PINOT_TPU_BATCH_MAX,
+    default 8, at least 2)."""
+    return max(2, int(os.environ.get("PINOT_TPU_BATCH_MAX", "8")))
+
+
+_BATCH_FN_CACHE = None
+
+
+def _batch_fn_cache():
+    global _BATCH_FN_CACHE
+    if _BATCH_FN_CACHE is None:
+        from pinot_tpu_torch.utils.cache import LruCache
+
+        _BATCH_FN_CACHE = LruCache(
+            max_entries=int(os.environ.get("PINOT_TPU_BATCH_PLAN_ENTRIES", "64")),
+            name="compile.batch",
+        )
+    return _BATCH_FN_CACHE
+
+
+def launch_segment_batch(ctxs: List[QueryContext], segment: ImmutableSegment, device: torch.device,
+                         residency=None):
+    """Run N same-shape queries over one segment as ONE torch.func.vmap of
+    their shared planned closure: the members' literal params stack along a
+    leading member axis, the segment's columns and `__valid__` are shared,
+    and the fused scan's vmap rule makes one member-axis launch.  The
+    batched closure lives in a bounded LRU ("compile.batch") keyed on the
+    plan-cache key.
+
+    Per-member ExecutionStats divide the launch's docs scanned and kernel
+    bytes/flops across the n members, so summing member stats reproduces
+    ONE unbatched run; compile_ms lands on member 0.
+
+    Raises BatchShapeError when members do not resolve to one planned
+    closure, the batch is wider than batch_width(), or the closure does not
+    run under vmap (in-place scatters of the min/max and sparse paths,
+    host reads of device values): callers launch the members one by one.
+    Star-tree shortcuts are not taken here."""
+    n = len(ctxs)
+    if n < 1:
+        raise ValueError("launch_segment_batch needs at least one member")
+    plans = [planner.plan_segment(ctx, segment, device) for ctx in ctxs]
+    base = plans[0]
+    for p in plans[1:]:
+        if p.fn is not base.fn or p.kind != base.kind:
+            raise BatchShapeError("batch members resolved to different planned closures")
+    width = batch_width()
+    if n > width:
+        raise BatchShapeError(f"batch of {n} exceeds lane width {width}")
+
+    shared_keys = frozenset(k for k in base.params if k == "__valid__")
+    cols = segment.to_device(device, columns=base.needed_columns, packed_codes=True, residency=residency)
+    params = {
+        k: _param_tensor(v0, device) if k in shared_keys
+        else torch.from_numpy(np.stack([param_array(p.params[k]) for p in plans])).to(device)
+        for k, v0 in base.params.items()
+    }
+    key = (base.cache_key or id(base.fn), shared_keys)
+    cache = _batch_fn_cache()
+    fnb = cache.get(key)
+    first_batched = fnb is None
+    if first_batched:
+        axes = {k: (None if k in shared_keys else 0) for k in base.params}
+        fnb = torch.func.vmap(base.fn, in_dims=(None, axes, None))
+        cache.put(key, fnb)
+        BATCH_AUDIT.record_compile()
+    else:
+        BATCH_AUDIT.record_hit()
+    cost = perf.analytic_cost(
+        segment.num_docs,
+        perf.analytic_bytes_per_row(segment.column(nm) for nm in base.needed_columns),
+        kind=base.kind,
+        num_groups=base.num_groups,
+        num_entries=len(base.aggs),
+    )
+    t0 = time.perf_counter()
+    try:
+        out = fnb(cols, params, device)
+    except Exception as exc:  # noqa: BLE001 — any vmap refusal means "run the members one by one"
+        raise BatchShapeError(f"the planned closure does not run under torch.func.vmap: {exc}") from exc
+    compile_ms = (time.perf_counter() - t0) * 1000.0 if first_batched else 0.0
+
+    docs = segment.num_docs
+    share, rem = divmod(docs, n)
+    stats_list = []
+    for i in range(n):
+        st = ExecutionStats(
+            num_segments_queried=1,
+            num_segments_processed=1,
+            num_docs_scanned=share + (1 if i < rem else 0),
+            total_docs=docs,
+        )
+        st.filter_index_uses = tuple(plans[i].index_uses)
+        st.kernel_bytes = cost.bytes_accessed / n
+        st.kernel_flops = cost.flops / n
+        st.kernel_cost_source = cost.source
+        stats_list.append(st)
+    if first_batched:
+        stats_list[0].compile_ms = compile_ms
+    return ("batch", ctxs, segment, plans, out, stats_list)
+
+
+def _member(x, i: int):
+    """Member i's slice of a batched output tree."""
+    if isinstance(x, dict):
+        return {k: _member(v, i) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_member(v, i) for v in x)
+    return np.asarray(x[i])
+
+
+def collect_segment_batch(state):
+    """Phase 2 of a batched launch: one copy home for all members, then
+    each member's slice decoded by the path the unbatched collect takes —
+    batched results equal sequential ones."""
+    _, ctxs, segment, plans, out, stats_list = state
+    if plans[0].kind == "selection":
+        results = []
+        for i, (ctx, plan, st) in enumerate(zip(ctxs, plans, stats_list)):
+            docids = matched_docids(out[i])
+            st.bytes_to_host = int(docids.nbytes)
+            results.append((_gather_selection(ctx, plan, segment, docids), st))
+        return results
+    host = _to_host(out)
+    return [
+        _decode_host(ctx, segment, plan, _member(host, i), st)
+        for i, (ctx, plan, st) in enumerate(zip(ctxs, plans, stats_list))
+    ]
 
 
 def _key_space_id(plan) -> Tuple:

@@ -84,6 +84,8 @@ class AggFunction:
     """Base: one aggregation function's device/host contract."""
 
     name: str = ""
+    # an argument expression is required (the plan check reads it)
+    needs_expr: bool = True
     # static partial field names (keys of partial()/partial_grouped() output)
     fields: tuple = ()
     # the planner feeds dictionary codes / range-offset ints instead of values
@@ -149,6 +151,7 @@ class AggFunction:
 
 class CountFunction(AggFunction):
     name = "count"
+    needs_expr = False  # COUNT(*) — COUNT(col) counts non-null via mask
     fields = ("count",)
     field_kinds = {"count": "count"}
 

@@ -40,8 +40,7 @@ element matrix and its mask (mv_agg_input).
 """
 from __future__ import annotations
 
-import threading
-from collections import OrderedDict
+import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -59,6 +58,7 @@ from pinot_tpu_torch.query.shape import column_info_from, params_structure
 from pinot_tpu_torch.segment import packing
 from pinot_tpu_torch.segment.segment import ImmutableSegment
 from pinot_tpu_torch.spi.schema import DataType
+from pinot_tpu_torch.utils.cache import LruCache
 
 _INT_TYPES = (DataType.INT, DataType.LONG, DataType.TIMESTAMP, DataType.BOOLEAN)
 # raw ints bind as a dense "rawint" key space when (max - min + 1) is this small
@@ -166,41 +166,34 @@ class SegmentPlan:
     cache_key: Optional[Tuple] = None
 
 
-class _PlanCache:
-    """Bounded LRU of planned closures."""
-
-    def __init__(self, max_entries: int = 512):
-        self.max_entries = max_entries
-        self._d: "OrderedDict[Tuple, SegmentPlan]" = OrderedDict()
-        self._lock = threading.Lock()
-
-    def get(self, key) -> Optional[SegmentPlan]:
-        with self._lock:
-            plan = self._d.get(key)
-            if plan is not None:
-                self._d.move_to_end(key)
-            return plan
-
-    def put(self, key, plan: SegmentPlan) -> None:
-        with self._lock:
-            self._d[key] = plan
-            self._d.move_to_end(key)
-            while len(self._d) > self.max_entries:
-                self._d.popitem(last=False)
-
-    def clear(self) -> None:
-        with self._lock:
-            self._d.clear()
-
-    def __len__(self) -> int:
-        return len(self._d)
+# plan cache: (query SHAPE fingerprint, segment signature, backend) -> plan.
+# Shape-keyed (query/shape.py): literals ride the params, so distinct
+# literals of one query shape share one planned closure.  A bounded named
+# LruCache (utils/cache.py, "compile.sse"), as in the JAX package.
+_PLAN_CACHE_ENTRIES = 512  # override: PINOT_TPU_PLAN_CACHE_ENTRIES
 
 
-_PLAN_CACHE = _PlanCache()
+def _plan_cache_entries() -> int:
+    return int(os.environ.get("PINOT_TPU_PLAN_CACHE_ENTRIES", _PLAN_CACHE_ENTRIES))
+
+
+_PLAN_CACHE: LruCache = LruCache(max_entries=_plan_cache_entries(), name="compile.sse")
 
 
 def plan_cache_clear() -> None:
     _PLAN_CACHE.clear()
+
+
+def attach_plan_cache_budget(budget) -> None:
+    """Charge the SSE plan cache's byte accounting to a shared host ledger
+    (cluster.admission.ResourceBudget), so cached plans, cached results and
+    in-flight working sets bound against ONE budget.  Clears the cache on
+    first attach so every resident entry is charged exactly once;
+    idempotent for the same ledger."""
+    if _PLAN_CACHE.budget is budget:
+        return
+    _PLAN_CACHE.clear()
+    _PLAN_CACHE.budget = budget
 
 
 def plan_cache_size() -> int:
@@ -1146,7 +1139,12 @@ def sparse_tables_fn(ctx: QueryContext, aggs, group_dims: List[GroupDim], num_gr
 
 
 def plan_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.device) -> SegmentPlan:
-    """Plan one query over one segment for `device` (cached by shape)."""
+    """Plan one query over one segment for `device` (cached by shape).  A
+    malformed query raises PlanCheckError here, before any launch."""
+    from pinot_tpu_torch.analysis.compile_audit import SSE_AUDIT
+    from pinot_tpu_torch.analysis.plan_check import check_plan_cached
+
+    check_plan_cached(ctx)
     needed = _needed_columns(ctx, segment)
     key = (
         ctx.shape_fingerprint(column_info_from(segment)),
@@ -1159,7 +1157,9 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.dev
         plan = _build_plan(ctx, segment, needed, key[2], planned_fn=cached.fn)
         if params_structure(plan.params) == params_structure(cached.params):
             plan.cache_key = key
+            SSE_AUDIT.record_hit(key[0])
             return plan
+    SSE_AUDIT.record_compile(key[0])
     plan = _build_plan(ctx, segment, needed, key[2], planned_fn=None)
     plan.cache_key = key
     _PLAN_CACHE.put(key, plan)

@@ -295,12 +295,13 @@ class ResidencyManager:
                 e.event.set()
 
     def _select_victim_locked(self, exclude: Tuple) -> Optional[_Entry]:
-        """Cost-ranked victim: coldest table first (PERF_LEDGER bytes/s — a
-        hot table's groups are the expensive ones to refetch), then least
-        recently used within a heat class.  The JAX package ranks the most
-        over-share table first when its autopilot publishes per-table
-        residency splits; the port has no autopilot yet (cluster slice), so
-        none are published and this is that policy with no splits."""
+        """Cost-ranked victim: most over-share table first when the
+        autopilot has published per-table residency splits (a table resident
+        beyond its traffic-weighted fraction of the budget donates first),
+        then coldest table (PERF_LEDGER bytes/s — a hot table's groups are
+        the expensive ones to refetch), then least recently used within a
+        heat class.  With no splits set (autopilot off) this is exactly the
+        pre-autopilot heat/LRU policy."""
         candidates = [
             e
             for e in self._entries.values()
@@ -309,7 +310,32 @@ class ResidencyManager:
         if not candidates:
             return None
         heat = self._table_heat({e.table for e in candidates})
-        return min(candidates, key=lambda e: (heat.get(e.table, 0.0), e.last_access))
+        over = self._table_overshare_locked({e.table for e in candidates})
+        return min(
+            candidates,
+            key=lambda e: (-over.get(e.table, 0.0), heat.get(e.table, 0.0), e.last_access),
+        )
+
+    def _table_overshare_locked(self, tables: Iterable[str]) -> Dict[str, float]:
+        """Bytes each table is resident BEYOND its autopilot split share of
+        the budget (0 when under share or when no splits are published)."""
+        from pinot_tpu_torch.cluster import autopilot
+
+        splits = autopilot.knobs().splits()
+        if not splits:
+            return {}
+        resident: Dict[str, int] = {}
+        for e in self._entries.values():
+            if e.state == RESIDENT and e.nbytes > 0:
+                resident[e.table] = resident.get(e.table, 0) + e.nbytes
+        total_budget = float(self.budget.budget_bytes)
+        out: Dict[str, float] = {}
+        for t in tables:
+            share = splits.get(t)
+            if share is None:
+                continue
+            out[t] = max(0.0, resident.get(t, 0) - share * total_budget)
+        return out
 
     def _table_heat(self, tables: Iterable[str]) -> Dict[str, float]:
         if self._ledger is None:

@@ -311,8 +311,8 @@ def test_unported_paths_raise():
     # an *MV aggregation over a single-value column: the JAX package's error
     with pytest.raises(ValueError, match="requires a multi-value column"):
         pe.query("SELECT SUMMV(rev) FROM t")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pe.execute_many([port_parse(BENCH_Q)])
+    # cross-query batching (item 6) is ported: a singleton runs as execute()
+    assert pe.execute_many([port_parse(BENCH_Q)])[0].rows == pe.query(BENCH_Q).rows
     # residency (item 3) is ported: a budget makes a manager, and a
     # prefetch without one takes the plain cache, as in the JAX package
     assert PortDist(device="cpu", hbm_cache_bytes=1 << 20).residency.budget.budget_bytes == 1 << 20
