@@ -31,18 +31,27 @@ Phases, in order; any failure raises and the process exits non-zero:
                 as the library yardstick (never called by the port).  Also
                 printed: ptxas's registers/shared memory/spills of each
                 instantiation and the atomic instructions in the SASS.
-                Then the member axis: four shapes of W = 8 members, each one
-                torch.func.vmap of the wrapper (one member-axis launch,
-                counted) held EXACTLY against the plain version member by
-                member: the segment batch of phase 4j (q2) (2^23 rows, the
-                shared packed key and revenue, 8 row masks of lo_quantity <
-                18..25), the same filter as 8 members' mask_words, and at
-                2^27 rows 8 code ranges lo_discount [k, k + 3) and, as
-                (q4) launches it, 8 row masks; each timed (the vmapped
-                call, 8 unbatched calls, the plain version 8 times, and one
-                index_add_ an entry into W x G cells keyed by key + G *
-                member as the yardstick) beside its bound (shared streams
-                once, each member's once, the tables).
+                Then the member axis: a grid of vmapped calls (stacked and
+                shared keys, masks, values, words and code ranges, both
+                specialised instantiations and the generic one, ragged
+                tails, no common aligned head, two entry chunks, two member
+                chunks, groups of 4 and 1, the global path), each EXACT
+                against the plain version member by member with its
+                launches' "W/Wg" layouts counted; then five shapes of W = 8
+                members, each one torch.func.vmap of the wrapper (one
+                member-axis launch, counted, its layout asserted) held
+                EXACTLY against the plain version member by member: the
+                segment batch of phase 4j (q2) (2^23 rows, the shared
+                packed key and revenue, 8 row masks of lo_quantity <
+                18..25), the same filter as 8 members' mask_words, at 2^27
+                rows 8 code ranges lo_discount [k, k + 3) and, as (q4)
+                launches it, 8 row masks (all four one group of 8), and
+                (q2)'s rows with three entries (two groups of 4); each
+                timed (the vmapped call, 8 unbatched calls, the plain
+                version 8 times, and one index_add_ an entry into W x G
+                cells keyed by key + G * member as the yardstick) beside
+                its bound (shared streams once, each member's once, the
+                tables).
   4. main path - SSB lineorder, --segments x --rows-per-segment rows (default
                 8 x 2^23 = 67,108,864, just above SSB scale factor 10) from
                 --seed, registered in QueryEngine() on CUDA; three queries
@@ -203,7 +212,8 @@ Phases, in order; any failure raises and the process exits non-zero:
                 against numpy, one traced call's device_wait and deviceMs;
                 (q2) execute_batch of the 8 members lo_quantity < 18..25,
                 each exact and equal to its own execute, in 8 member-axis
-                launches (one a segment) against 64 for the 8 executes;
+                launches (one a segment, each one group of 8) against 64
+                for the 8 executes;
                 (q3) the same batch with one member's deadline expired (it
                 detaches, 7 exact); (q4) DistributedEngine().execute_many
                 over phase 4b's table: 8 members lo_discount BETWEEN k AND
@@ -221,10 +231,17 @@ Phases, in order; any failure raises and the process exits non-zero:
                 query (c)'s shapes the same for the generic instantiation; at
                 the segment main path's shape, after a write flush and after
                 a read flush, scan_ms beside a float32 sum and a device copy
-                of the same input bytes; each member-axis shape's scan_ms.
+                of the same input bytes; each shape's launch_ms (CUDA events
+                around a bare launch of the library); each member-axis
+                shape's scan_ms and launch_ms (a bare launch of the vmap
+                rule's own ScanBatch; the flush's share of it is
+                member_phases.py's); and the code-range shape asserted
+                under half of 8 x the distributed main path's launch.
   6. summary  - one {"kernels": [...]} JSON line (fused_scan, funnel_scan; launches_by_path
                 includes front_door, join_path, realtime_path and batch_path; the
-                member-axis launches by instantiation and shapes), the card's
+                member-axis launches by instantiation and by layout, and each
+                member-axis shape with its Wg; flush_ms names
+                member_phases.py, which measures it), the card's
                 nvidia-smi line, and last the {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
@@ -251,6 +268,10 @@ SCALAR_OPS_PER_S = 67e12
 TIMED_ITERS = 20
 # profiled launches per scan_ms measurement
 PROFILED_ITERS = 10
+# least share of a bare launch's CUDA-event time that a profiler session's
+# median launch may take: sessions that caught every launch have read
+# 0.86-1.0 of it, and one read every event at 0.43 (0.018 against 0.043 ms)
+SESSION_FLOOR = 0.7
 
 CONFIG2 = (
     "SELECT lo_orderdate, SUM(lo_revenue), COUNT(*) FROM lineorder "
@@ -439,27 +460,65 @@ def _time_cuda(fn, flush, iters: int = TIMED_ITERS) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, flush, kernel: str):
-    """Mean device ms of one launch of the kernels whose name holds
-    `kernel`, over PROFILED_ITERS calls (one launch each) under
-    torch.profiler (flush() before each)."""
+def _device_ms(fn, flush, kernel: str, launch_ms: float, launches: int = 1):
+    """Median device ms of one launch of the kernels whose name holds
+    `kernel`, each launch's own device event, over PROFILED_ITERS calls
+    (`launches` launches each) under torch.profiler (flush() before each).
+    A session counts when it captured every launch once, each with a
+    positive duration (a session can lose events), and its median is at
+    least SESSION_FLOOR of launch_ms, the CUDA-event time of one bare launch
+    of the same kernel (a session can also report every event at about
+    half its length); up to three sessions, else "not measured".  Each
+    session's capture is logged (kernel_events)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_ITERS):
-            flush()
-            fn()
-        torch.cuda.synchronize()
-    total_us, calls = 0.0, 0
-    for e in prof.key_averages():
-        if kernel in e.key:
-            us = getattr(e, "self_device_time_total", None)
-            total_us += us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
-            calls += e.count
-    # per launch captured: a session can lose events (see profile_query)
-    return total_us / calls / 1e3 if calls else "not measured"
+    want, seen = PROFILED_ITERS * launches, []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_ITERS):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        good = [m for m in ms if m > 0.0]
+        seen.append({"captured": len(ms), "positive": len(good), "min_ms": min(ms, default=None),
+                     "median_ms": statistics.median(ms) if ms else None, "max_ms": max(ms, default=None),
+                     "names": sorted({e.name[:60] for e in prof.events() if kernel in e.name})})
+        seen[-1]["floor_ms"] = SESSION_FLOOR * launch_ms
+        if len(ms) == want and len(good) == want and statistics.median(good) >= SESSION_FLOOR * launch_ms:
+            log("kernel_events", kernel=kernel, want=want, sessions=seen)
+            return statistics.median(good)
+    log("kernel_events", kernel=kernel, want=want, sessions=seen)
+    return "not measured"
+
+
+def _bare_launch(ents, key, g, kw, generic: bool = False):
+    """One shape's launch straight through the library, its parameters
+    built once (no wrapper host work between CUDA events; no counter
+    moves), with the key and value modes set to "any" when `generic`:
+    (zero-argument launch, its int64 [E, G] tables, the entry order)."""
+    import ctypes
+
+    from pinot_tpu_torch.ops import fused_scan
+
+    lib = fused_scan._library()
+    key_t, bits = kw["codes_packed"] if "codes_packed" in kw else (key, 0)
+    p, order, _variant = fused_scan.build_params(
+        ents, key_t, bits, int(ents[0][2].shape[0]), g, kw.get("mask_words"), kw.get("code_pred"),
+        fused_scan._smem_optin(lib, torch.cuda.current_device()))
+    if generic:
+        p.key_mode = p.val_mode = 0
+    out = torch.zeros((len(ents), g), dtype=torch.int64, device=key_t.device)
+
+    def launch():
+        err = lib.pinot_fused_scan(ctypes.byref(p), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fused scan launch failed: {lib.pinot_cuda_error_string(err).decode()}")
+    return launch, out, order
 
 
 def _effective_masks(ents, kw):
@@ -571,9 +630,11 @@ MEMBER_DIST_ROWS = 1 << 27
 
 def _member_shapes(seed: int, dev):
     """The member-axis shapes, on the card, made from the seed: (label, W,
-    G, members, batched).  members(w) gives member w's unbatched (entries,
-    key, kwargs); batched() makes the one vmapped wrapper call that the
-    main path's batched closures make (one member-axis launch)."""
+    G, members, batched, layout).  members(w) gives member w's unbatched
+    (entries, key, kwargs); batched() makes the one vmapped wrapper call
+    that the main path's batched closures make (one member-axis launch);
+    layout is that launch's "W/Wg" (fused_scan.BATCH_LAYOUTS: W members,
+    Wg of them a block)."""
     from pinot_tpu_torch.ops import fused_scan, segmented
 
     rng = np.random.default_rng(seed)
@@ -614,9 +675,9 @@ def _member_shapes(seed: int, dev):
 
     rows = f"n=2^{n.bit_length() - 1} packed16 G=2406 E=2, W=8"
     out.append((f"segment batch (q2): {rows} row masks lo_quantity < 18..25, key and values shared",
-                W, g, seg_member, seg_batched))
+                W, g, seg_member, seg_batched, "8/8"))
     out.append((f"segment batch, words: {rows} mask_words lo_quantity < 18..25, all-true mask shared",
-                W, g, segw_member, segw_batched))
+                W, g, segw_member, segw_batched, "8/8"))
     # the distributed launch (q4): 2^27 rows, lo_orderdate packed and
     # revenue shared, lo_discount BETWEEN k AND k + 2 for k = 0..7: each
     # member's code range [k, k + 3) over the shared discount codes, then
@@ -648,9 +709,26 @@ def _member_shapes(seed: int, dev):
 
     rows2 = f"n=2^{n2.bit_length() - 1} packed16 G=2406 E=2, W=8"
     out.append((f"dist batch: {rows2} code ranges lo_discount [k, k+3) k=0..7, all-true mask shared",
-                W, g, pred_member, pred_batched))
+                W, g, pred_member, pred_batched, "8/8"))
     out.append((f"dist batch (q4): {rows2} row masks lo_discount BETWEEN k AND k+2, key and values shared",
-                W, g, dmask_member, dmask_batched))
+                W, g, dmask_member, dmask_batched, "8/8"))
+    # three entries (COUNT(*), SUM(lo_revenue), SUM(lo_quantity)) over the
+    # segment batch's rows: 5 x 2406 table words a member, so a block holds
+    # 4 members' tables and the 8 members run as two groups of 4
+    qplan = segmented.sum_limb_plan(1, 50)
+
+    def seg3_member(w):
+        return [("count", None, masks[w], None), ("int_sum", rev, masks[w], plan),
+                ("int_sum", qty, masks[w], qplan)], None, {"codes_packed": (words, 16)}
+
+    def seg3_batched():
+        return torch.func.vmap(lambda m: fused_scan.fused_group_tables(
+            [("count", None, m, None), ("int_sum", rev, m, plan), ("int_sum", qty, m, qplan)], None, g,
+            codes_packed=(words, 16)))(masks)
+
+    out.append((f"segment batch, three entries: n=2^{n.bit_length() - 1} packed16 G=2406 E=3, W=8, row masks "
+                "lo_quantity < 18..25, key, revenue and quantity shared (two groups of 4)",
+                W, g, seg3_member, seg3_batched, "8/4"))
     return out
 
 
@@ -683,7 +761,7 @@ def _member_bound(W, g, members):
     bytes_ms = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = counted_rows / SCALAR_OPS_PER_S * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes_moved": read_bytes + write_bytes}
+            "bytes_moved": read_bytes + write_bytes, "adds": counted_rows}
 
 
 def _member_library(W, g, members):
@@ -727,22 +805,28 @@ def _timed_member_shapes(shapes, dev):
 
     worst, timings = 0.0, []
     flush = _flushes(dev)["write"]
-    for label, W, g, members, batched in shapes:
-        before = (fused_scan.LAUNCHES, dict(fused_scan.BATCH_LAUNCHES), fused_scan.BATCH_MEMBERS)
+    for label, W, g, members, batched, layout in shapes:
+        before = (fused_scan.LAUNCHES, dict(fused_scan.BATCH_LAUNCHES), fused_scan.BATCH_MEMBERS,
+                  dict(fused_scan.BATCH_LAYOUTS))
         got = batched()
         torch.cuda.synchronize()
         launches = fused_scan.LAUNCHES - before[0]
         variants = {k: v - before[1].get(k, 0) for k, v in fused_scan.BATCH_LAUNCHES.items()
                     if v != before[1].get(k, 0)}
+        layouts = {k: v - before[3].get(k, 0) for k, v in fused_scan.BATCH_LAYOUTS.items()
+                   if v != before[3].get(k, 0)}
         if launches != 1 or sum(variants.values()) != 1 or fused_scan.BATCH_MEMBERS - before[2] != W:
             raise AssertionError(f"{label}: {launches} launches {variants}, want one member-axis launch of {W}")
+        if layouts != {layout: 1}:
+            raise AssertionError(f"{label}: member-axis layouts {layouts}, want one launch of {layout} (W/Wg)")
         err = 0.0
         for w in range(W):
             ents, key, kw = members(w)
             ref = fused_scan.fused_group_tables_reference(ents, key, g, **kw)
             err = max(err, _max_abs_err([t[w] for t in got], ref))
         worst = max(worst, err)
-        log("kernel_check", variant=label, max_abs_err=err, launches=launches, member_axis=variants)
+        log("kernel_check", variant=label, max_abs_err=err, launches=launches, member_axis=variants,
+            layout=layout)
         if err != 0.0:
             raise AssertionError(f"the member-axis scan differs from its plain version at {label}: {err}")
 
@@ -762,7 +846,8 @@ def _timed_member_shapes(shapes, dev):
         library = _member_library(W, g, members)
         library_ms = _time_cuda(library, flush, iters=5)
         del library
-        timing = {"shape": label, "members": W, "variant": sorted(variants), "kernel_ms": kernel_ms,
+        timing = {"shape": label, "members": W, "layout": layout, "group": int(layout.split("/")[1]),
+                  "variant": sorted(variants), "kernel_ms": kernel_ms,
                   "w_sequential_ms": w_sequential_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                   **_member_bound(W, g, members)}
         log("kernel_timing", iters=TIMED_ITERS, bound_divisor=f"{HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3 peak)",
@@ -772,35 +857,276 @@ def _timed_member_shapes(shapes, dev):
     return worst, timings
 
 
-def _member_scan_ms(shapes, dev, timings):
-    """Phase 5's device time of each member-axis shape's kernel
-    (torch.profiler), on phase 3's inputs (kept on the card: ~2.1 GB)."""
-    flush = _flushes(dev)["write"]
-    for timing, (label, _W, _g, _members, batched) in zip(timings, shapes):
-        timing["scan_ms"] = _device_ms(batched, flush, "fused_scan_batch_kernel")
-        log("kernel_profile", shape=label, scan_ms=timing["scan_ms"], iters=PROFILED_ITERS)
-    torch.cuda.empty_cache()
-
-
-def _generic_scan(ents, key, g, kw):
-    """The shape's scan through the generic shared instantiation: the
-    wrapper's launch parameters with the key and value modes set to "any",
-    launched straight through the library.  A comparison launch: no counter
-    moves."""
+def _bare_member_launch(batched, W=None, lib=None):
+    """One member-axis launch straight through the library (or a copy of
+    it, `lib`) on the ScanBatch that the vmap rule builds for the shape's
+    vmapped call: fused_scan.vmap_batch's arguments, captured from one run
+    of `batched`, built again for the first W members (all by default).
+    Returns (zero-argument launch, its int64 [W, E, G] tables, the layout);
+    the capture run is a counted wrapper call, the launch moves no counter."""
     import ctypes
 
     from pinot_tpu_torch.ops import fused_scan
 
-    lib = fused_scan._library()
-    key_t, bits = kw["codes_packed"] if "codes_packed" in kw else (key, 0)
-    p, order, _variant = fused_scan.build_params(
-        ents, key_t, bits, int(ents[0][2].shape[0]), g, None, None,
-        fused_scan._smem_optin(lib, torch.cuda.current_device()))
-    p.key_mode = p.val_mode = 0
-    out = torch.zeros((len(ents), g), dtype=torch.int64, device=key_t.device)
-    err = lib.pinot_fused_scan(ctypes.byref(p), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"generic fused scan launch failed: {lib.pinot_cuda_error_string(err).decode()}")
+    build, calls = fused_scan.vmap_batch, []
+
+    def spy(*a):
+        calls.append(a)
+        return build(*a)
+
+    fused_scan.vmap_batch = spy
+    try:
+        batched()
+    finally:
+        fused_scan.vmap_batch = build
+    if len(calls) != 1:
+        raise AssertionError(f"the vmapped call built {len(calls)} member-axis launches, want 1")
+    args = list(calls[0])  # (dense, entries, key, key_bits, mask_words, pred, ranges, w0, W, G, smem_optin)
+    if W is not None:
+        args[8] = W
+    b, order, _variant, layout = build(*args)
+    real = fused_scan._library()
+    lib = lib or real
+    out = torch.zeros((b.h.members, len(order), args[9]), dtype=torch.int64, device=args[2].device)
+
+    def launch():
+        err = lib.pinot_fused_scan_batch(ctypes.byref(b), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"member-axis launch failed: {real.pinot_cuda_error_string(err).decode()}")
+    launch.batch = b
+    launch.operands = args  # the tensors the batch points into stay alive with the launch
+    return launch, out, layout
+
+
+def _member_scan_ms(shapes, dev, timings):
+    """Phase 5's device time of each member-axis shape's kernel, on phase
+    3's inputs (kept on the card: ~2.1 GB): scan_ms (torch.profiler, each
+    launch's own event) and launch_ms (CUDA events around a bare launch of
+    the vmap rule's ScanBatch, median of TIMED_ITERS, L2 flushed).  The
+    flush's share of a launch comes from member_phases.py's clocked copy of
+    the kernel, which this script does not build."""
+    flush = _flushes(dev)["write"]
+    for timing, (label, _W, _g, _members, batched, _layout) in zip(timings, shapes):
+        launch, _out, layout = _bare_member_launch(batched)
+        timing["launch_ms"] = _time_cuda(launch, flush)
+        timing["scan_ms"] = _device_ms(batched, flush, "fused_scan_batch_kernel", timing["launch_ms"])
+        timing["group"] = layout.group
+        timing["flush_ms"] = "see member_phases.py"
+        log("kernel_profile", shape=label, scan_ms=timing["scan_ms"], launch_ms=timing["launch_ms"],
+            group=timing["group"], iters=PROFILED_ITERS)
+    torch.cuda.empty_cache()
+
+
+def _member_axis_check(member_timings, dist_timing) -> dict:
+    """The code-range shape (8 members over 2^27 rows) against 8 unbatched
+    launches of the distributed main path's shape in the same run: its
+    device ms must be under half of 8 x theirs (each shared stream read
+    once, not 8 times).  Profiler times where both were measured, else the
+    bare launches' CUDA-event times."""
+    code_range = next(t for t in member_timings if t["shape"].startswith("dist batch: "))
+    basis = "scan_ms"
+    if not (isinstance(code_range["scan_ms"], float) and isinstance(dist_timing["scan_ms"], float)):
+        basis = "launch_ms"
+    got, one = code_range[basis], dist_timing[basis]
+    check = {"basis": basis, "member_axis_ms": got, "unbatched_ms": one, "limit_ms": 0.5 * BATCH_W * one,
+             "ratio_to_8_unbatched": got / (BATCH_W * one)}
+    log("member_axis_check", **check)
+    if not got < 0.5 * BATCH_W * one:
+        raise AssertionError(f"the code-range member-axis launch is not under half of {BATCH_W} unbatched: {check}")
+    return check
+
+
+def _member_variants(seed: int, dev):
+    """The member-axis grid on the card: (label, layouts, f, args), f(fn,
+    *member args) one member's call of fn (the wrapper or the plain
+    version), args stacked on dim 0; layouts the launches' "W/Wg" the
+    vmapped call must make.  Stacked and shared keys, masks, values, words
+    and code ranges; the specialised and generic instantiations; ragged
+    tails and rows with no common aligned head (scalar tiles); two entry
+    chunks, two member chunks, two member groups and the global path."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def words_of(n, W):
+        return t(np.packbits(rng.random((W, n)) < 0.5, axis=1, bitorder="little").view(np.int32))
+
+    out = []
+    W, n, g = 5, 512 * 40 + 38, 2406
+    pk = t(_pack(rng.integers(0, g + 40, n).astype(np.int32), 16).view(np.int32))
+    vals = t(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32))
+    shared_mask = t(rng.random(n) < 0.7)
+    thr = t(rng.integers(-(2**30), 2**30, W).astype(np.int32))
+
+    def f1(fn, th):
+        m = vals < th
+        return fn([("count", None, m, None), ("int_sum", vals, m, (4, True)), ("count", None, shared_mask, None),
+                   ("int_sum", vals, shared_mask, (4, True))], None, g, codes_packed=(pk, 16))
+    out.append(("p16 key shared, stacked and shared masks, ragged tail, W=5 in groups of 4 and 1", {"5/4": 1},
+                f1, (thr,)))
+
+    n = 512 * 64
+    key = t(rng.integers(-3, 553, n).astype(np.int32))
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    vals2 = t(rng.integers(100, 1_000_000, n).astype(np.int32))
+
+    def f2(fn, w):
+        return fn([("count", None, ones, None), ("int_sum", vals2, ones, (3, False))], key, 550, mask_words=w)
+    out.append(("i32 key shared, stacked mask_words", {"5/5": 1}, f2, (words_of(n, W),)))
+
+    pc = t(rng.integers(0, 11, n).astype(np.uint8))
+    big = t(rng.integers(-(2**39), 2**39, n).astype(np.int64))
+    los = t(rng.integers(0, 8, W).astype(np.int64))
+
+    def f3(fn, lo, w):
+        return fn([("count", None, ones, None), ("int64_sum", big, ones, 5)], key, 550, mask_words=w,
+                  code_pred=(pc, lo, lo + 3))
+    out.append(("per-member code ranges over shared uint8 codes, stacked words, int64 sums (generic)",
+                {"5/1": 1}, f3, (los, words_of(n, W))))
+
+    n = 512 * 30 + 11
+    keys = t(rng.integers(0, 300, (W, n)).astype(np.int16))
+    vs = t(rng.integers(0, 65536, (W, n)).astype(np.uint16))
+    m4 = t(rng.random(n) < 0.6)
+
+    def f4(fn, k, v):
+        return fn([("count", None, m4, None), ("int_sum", v, m4, (2, False))], k, 300)
+    out.append(("stacked int16 keys and uint16 values (generic, each member's key)", {"5/1": 1}, f4, (keys, vs)))
+    keys32 = t(rng.integers(-2, 302, (W, n)).astype(np.int32))
+    v4 = t(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32))
+
+    def f4b(fn, k):
+        return fn([("count", None, m4, None), ("int_sum", v4, m4, (4, True))], k, 300)
+    out.append(("stacked int32 keys, shared int32 values (i32/i32, each member's key)", {"5/1": 1}, f4b,
+                (keys32,)))
+
+    n = 8192 + 5
+    key5 = t(rng.integers(0, 50, n).astype(np.int32))
+    v5 = t(rng.integers(-1000, 1000, n).astype(np.int32))
+
+    def f5(fn, th):
+        return fn([("int_sum", v5 + i, v5 < th + i, None) for i in range(fused_scan.MAX_ENTRIES + 3)], key5, 50)
+    out.append(("19 entries (two entry chunks), stacked masks", {"5/5": 2}, f5,
+                (t(rng.integers(-500, 500, W).astype(np.int32)),)))
+
+    n = 1 << 16
+    pk6 = t(_pack(rng.integers(0, g, n).astype(np.int32), 16).view(np.int32))
+    rev6 = t(rng.integers(100, 1_000_000, n).astype(np.int32))
+    qty6 = t(rng.integers(1, 51, n).astype(np.int32))
+
+    def f6(fn, k):
+        m = qty6 < k
+        return fn([("count", None, m, None), ("int_sum", rev6, m, (3, False)), ("int_sum", qty6, m, (1, False))],
+                  None, g, codes_packed=(pk6, 16))
+    out.append(("3 entries over G=2406, W=8 (two groups of 4)", {"8/4": 1}, f6,
+                (torch.arange(18, 26, dtype=torch.int32, device=dev),)))
+
+    n = 1 << 18
+    key7 = t(rng.integers(0, 8192, n).astype(np.int32))
+    v7 = t(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32))
+
+    def f7(fn, th):
+        m = v7 < th
+        return fn([("int_sum", v7, m, None), ("int_sum", v7 >> 3, m, None), ("int_sum", v7 >> 5, m, None),
+                   ("int_sum", v7 >> 7, m, None)], key7, 8192)
+    out.append(("G=8192, 4 sums (global path, one member a grid row)", {"3/1": 1}, f7,
+                (t(rng.integers(-(2**30), 2**30, 3).astype(np.int32)),)))
+
+    n = 1 << 16
+    pk8 = t(_pack(rng.integers(0, 14, n).astype(np.int32), 4).view(np.int32))
+    m8 = t(rng.integers(0, 8, n).astype(np.int32))
+    v8 = t(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32))
+
+    def f8(fn, k):
+        m = m8 < k
+        return fn([("count", None, m, None), ("int_sum", v8, m, None)], None, 11, codes_packed=(pk8, 4))
+    out.append(("p4 key shared (generic: one member a grid row), W=8", {"8/1": 1}, f8,
+                (torch.arange(1, 9, dtype=torch.int32, device=dev),)))
+
+    n = 1025
+    key9 = t(rng.integers(0, 50, n).astype(np.int32))
+    v9 = t(rng.integers(-100, 100, (3, n)).astype(np.int8))
+    m9 = t(rng.random(n) < 0.5)
+
+    def f9(fn, v):
+        return fn([("count", None, m9, None), ("int_sum", v, m9, (1, True))], key9, 50)
+    out.append(("stacked int8 values 1025 rows apart (no common aligned head; generic)", {"3/1": 1}, f9, (v9,)))
+
+    n = 4096 + 16
+    key10 = t(rng.integers(0, 37, n).astype(np.int32))
+    v10 = t(rng.integers(-1000, 1000, n).astype(np.int32))
+
+    def f10(fn, th):
+        m = v10 < th
+        return fn([("count", None, m, None), ("int_sum", v10, m, None)], key10, 37)
+    out.append(("W=10 (two member chunks)", {"8/8": 1, "2/2": 1}, f10,
+                (t(rng.integers(-1000, 1000, 10).astype(np.int32)),)))
+
+    n = 512 * 24 + 7
+    key11 = t(rng.integers(0, 100, n).astype(np.int32))
+    ones11 = torch.ones(n, dtype=torch.bool, device=dev)
+    v11 = t(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32))
+
+    def f11(fn, pc, lo):
+        return fn([("count", None, ones11, None), ("int_sum", v11, ones11, None)], key11, 100,
+                  code_pred=(pc, lo, lo + 6))
+    out.append(("stacked int16 code ranges, i32 key shared (each member's codes in the group path)", {"5/5": 1}, f11,
+                (t(rng.integers(-5, 20, (W, n)).astype(np.int16)), t(rng.integers(-5, 10, W).astype(np.int64)))))
+    # int64 codes, half of them 2^32 past a code in range (a 32-bit compare
+    # would count them), shared by the members of the group path
+    pc12 = t(rng.integers(-5, 20, n).astype(np.int64) + (rng.random(n) < 0.5).astype(np.int64) * (1 << 32))
+
+    def f12(fn, lo):
+        return fn([("count", None, ones11, None), ("int_sum", v11, ones11, None)], key11, 100,
+                  code_pred=(pc12, lo, lo + 6))
+    out.append(("shared int64 code ranges, i32 key shared (the group path's 64-bit compare)", {"5/5": 1}, f12,
+                (t(rng.integers(-5, 10, W).astype(np.int64)),)))
+    pc13 = t(rng.integers(-300, 300, n).astype(np.int16))
+
+    def f13(fn, lo):
+        return fn([("count", None, ones11, None), ("int_sum", v11, ones11, None)], key11, 100,
+                  code_pred=(pc13, lo, lo + 150))
+    out.append(("shared int16 code ranges below and above 0, i32 key shared (read once, 32-bit compares)",
+                {"5/5": 1}, f13, (t(rng.integers(-400, 200, W).astype(np.int64)),)))
+    return out
+
+
+def phase_member_grid(seed: int, dev) -> float:
+    """Each _member_variants case: one vmapped wrapper call, its launches'
+    layouts counted, held EXACTLY against the plain version member by
+    member; the worst error."""
+    import functools
+
+    from pinot_tpu_torch.ops import fused_scan
+
+    worst = 0.0
+    for label, layouts, f, args in _member_variants(seed, dev):
+        before = dict(fused_scan.BATCH_LAYOUTS)
+        got = torch.func.vmap(functools.partial(f, fused_scan.fused_group_tables))(*args)
+        torch.cuda.synchronize()
+        made = {k: v - before.get(k, 0) for k, v in fused_scan.BATCH_LAYOUTS.items() if v != before.get(k, 0)}
+        err = 0.0
+        for w in range(args[0].shape[0]):
+            ref = f(fused_scan.fused_group_tables_reference, *(a[w] for a in args))
+            err = max(err, _max_abs_err([x[w] for x in got], ref))
+        worst = max(worst, err)
+        log("member_grid_check", case=label, max_abs_err=err, layouts=made)
+        if err != 0.0:
+            raise AssertionError(f"the member-axis scan differs from its plain version on {label}: {err}")
+        if made != layouts:
+            raise AssertionError(f"{label}: member-axis layouts {made}, want {layouts}")
+    return worst
+
+
+def _generic_scan(ents, key, g, kw):
+    """The shape's scan through the generic shared instantiation (a bare
+    launch with the key and value modes set to "any"); its f64 tables in
+    entry order.  A comparison launch: no counter moves."""
+    launch, out, order = _bare_launch(ents, key, g, kw, generic=True)
+    launch()
     return [out[j].to(torch.float64) for j in sorted(range(len(order)), key=order.__getitem__)]
 
 
@@ -817,9 +1143,11 @@ def phase_kernel_profile(seed: int, dev, timings):
     flushes = _flushes(dev)
     shapes = _shapes(seed, dev)
     for timing, (label, ents, key, g, kw) in zip(timings, shapes):
+        timing["launch_ms"] = _time_cuda(_bare_launch(ents, key, g, kw)[0], flushes["write"])
         timing["scan_ms"] = _device_ms(lambda: fused_scan.fused_group_tables(ents, key, g, **kw),
-                                       flushes["write"], "fused_scan_kernel")
-        log("kernel_profile", shape=label, scan_ms=timing["scan_ms"], iters=PROFILED_ITERS)
+                                       flushes["write"], "fused_scan_kernel", timing["launch_ms"])
+        log("kernel_profile", shape=label, scan_ms=timing["scan_ms"], launch_ms=timing["launch_ms"],
+            iters=PROFILED_ITERS)
 
     generic = {}
     for timing, (label, ents, key, g, kw) in zip(timings[1:3], shapes[1:3]):
@@ -827,8 +1155,9 @@ def phase_kernel_profile(seed: int, dev, timings):
         if err != 0.0:
             raise AssertionError(f"the generic instantiation differs from the plain version at {label}: {err}")
         generic[label] = {"specialised": timing["variant"], "scan_ms": timing["scan_ms"], "generic_max_abs_err": err,
-                          "generic_scan_ms": _device_ms(lambda: _generic_scan(ents, key, g, kw), flushes["write"],
-                                                        "fused_scan_kernel")}
+                          "generic_scan_ms": _device_ms(
+                              lambda: _generic_scan(ents, key, g, kw), flushes["write"], "fused_scan_kernel",
+                              _time_cuda(_bare_launch(ents, key, g, kw, generic=True)[0], flushes["write"]))}
     log("specialised_vs_generic", iters=PROFILED_ITERS, shapes=generic)
 
     # the main path's inputs, read in full (every revenue sector holds a
@@ -842,7 +1171,8 @@ def phase_kernel_profile(seed: int, dev, timings):
     dst = torch.empty_like(blob)
     check = {"shape": label, "input_bytes": nbytes}
     for name, flush in flushes.items():
-        scan_ms = _device_ms(lambda: fused_scan.fused_group_tables(ents, key, g, **kw), flush, "fused_scan_kernel")
+        scan_ms = _device_ms(lambda: fused_scan.fused_group_tables(ents, key, g, **kw), flush, "fused_scan_kernel",
+                             _time_cuda(_bare_launch(ents, key, g, kw)[0], flush))
         sum_ms = _time_cuda(blob.sum, flush)
         copy_ms = _time_cuda(lambda: dst.copy_(blob), flush)
         check[f"{name}_flush"] = {
@@ -4240,12 +4570,13 @@ def _scan_counts():
     from pinot_tpu_torch.ops import fused_scan
 
     return (fused_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES), dict(fused_scan.BATCH_LAUNCHES),
-            fused_scan.BATCH_MEMBERS)
+            fused_scan.BATCH_MEMBERS, dict(fused_scan.BATCH_LAYOUTS))
 
 
 def _scan_delta(before):
     """Launches, launches by instantiation, member-axis launches by
-    instantiation and members since `before` (a _scan_counts())."""
+    instantiation, members, and member-axis launches by "W/Wg" (members,
+    members a block) since `before` (a _scan_counts())."""
     from pinot_tpu_torch.ops import fused_scan
 
     def diff(now, then):
@@ -4254,7 +4585,8 @@ def _scan_delta(before):
     return {"launches": fused_scan.LAUNCHES - before[0],
             "instantiations": diff(fused_scan.VARIANT_LAUNCHES, before[1]),
             "member_axis_launches": diff(fused_scan.BATCH_LAUNCHES, before[2]),
-            "members": fused_scan.BATCH_MEMBERS - before[3]}
+            "members": fused_scan.BATCH_MEMBERS - before[3],
+            "layouts": diff(fused_scan.BATCH_LAYOUTS, before[4])}
 
 
 def phase_batch_path(seg, dist):
@@ -4330,6 +4662,8 @@ def phase_batch_path(seg, dist):
     if (d_batch["launches"], sum(d_batch["member_axis_launches"].values()), d_batch["members"]) != (
             len(names), len(names), BATCH_W * len(names)) or d_seq["launches"] != BATCH_W * len(names):
         raise AssertionError(f"(q2) launches: batch {d_batch}, sequential {d_seq}")
+    if d_batch["layouts"] != {f"{BATCH_W}/{BATCH_W}": len(names)}:
+        raise AssertionError(f"(q2) member-axis launches are not one group of {BATCH_W}: {d_batch['layouts']}")
     batch_ms = _wall_ms(_Call(batch), "")
     seq_ms = _wall_ms(_Call(lambda: [execute(_batch_q(k)) for k in ks]), "")
     records["q2_server_batch"] = {"batch": d_batch, "sequential": d_seq, "exact": True,
@@ -4349,6 +4683,8 @@ def phase_batch_path(seg, dist):
     for i, k in enumerate(ks):
         if i != bad and (errors[i] is not None or sorted(rows[i]) != want[k]):
             raise AssertionError(f"(q3) sibling lo_quantity < {k} is not exact: {errors[i]!r}")
+    if d["layouts"] != {f"{BATCH_W - 1}/{BATCH_W - 1}": len(names)}:
+        raise AssertionError(f"(q3) the live members' launches are not one group of {BATCH_W - 1}: {d['layouts']}")
     records["q3_expired_member"] = {**d, "exact_siblings": BATCH_W - 1, "error": type(errors[bad]).__name__}
     log("batch_check", item="q3_expired_member", **records["q3_expired_member"])
 
@@ -4380,6 +4716,8 @@ def phase_batch_path(seg, dist):
             raise AssertionError(f"(q4) config 2 lo_quantity < {k} is not exact")
     if (d_disc["launches"], sum(d_disc["member_axis_launches"].values()), fallbacks, batches) != (1, 1, 0, 1):
         raise AssertionError(f"(q4) lo_discount members: {d_disc}, fallbacks {fallbacks}, batches {batches}")
+    if d_disc["layouts"] != {f"{BATCH_W}/{BATCH_W}": 1}:
+        raise AssertionError(f"(q4) the member-axis launch is not one group of {BATCH_W}: {d_disc['layouts']}")
     if d_cfg2["launches"] != BATCH_W or d_cfg2["member_axis_launches"]:
         raise AssertionError(f"(q4) config-2 members did not run one by one: {d_cfg2}")
     many_ms = _wall_ms(_Call(lambda: engine.execute_many([parse_query(_batch_disc_q(k)) for k in dks])), "", runs=3)
@@ -4424,18 +4762,21 @@ def phase_batch_path(seg, dist):
             raise AssertionError(f"(q6) no named cache {name}")
 
     launches = sum(c["launches"] for c in counted)
-    variants, member_axis = {}, {}
+    variants, member_axis, layouts = {}, {}, {}
     for c in counted:
         for k, v in c["instantiations"].items():
             variants[k] = variants.get(k, 0) + v
         for k, v in c["member_axis_launches"].items():
             member_axis[k] = member_axis.get(k, 0) + v
+        for k, v in c["layouts"].items():
+            layouts[k] = layouts.get(k, 0) + v
     profiles = [("batch_profile", {"engine": "server", "query": "q2_batch"}, _Call(batch), ""),
                 ("batch_profile", {"engine": "server", "query": "q2_sequential"},
                  _Call(lambda: [execute(_batch_q(k)) for k in ks]), ""),
                 ("batch_profile", {"engine": "dist", "query": "q4_execute_many"},
                  _Call(lambda: engine.execute_many([parse_query(_batch_disc_q(k)) for k in dks])), "")]
-    return {"launches": launches, "variants": variants, "member_axis_launches": member_axis, "records": records,
+    return {"launches": launches, "variants": variants, "member_axis_launches": member_axis,
+            "member_axis_layouts": layouts, "records": records,
             "profiles": profiles, "engine": engine, "batch_s": time.perf_counter() - t0}
 
 
@@ -4503,6 +4844,7 @@ def main() -> int:
 
     # 3. kernels vs plain versions
     worst = phase_kernels(np.random.default_rng(args.seed), dev)
+    worst = max(worst, phase_member_grid(args.seed + 6, dev))
     shape_worst, timings = _timed_shapes(args.seed + 1, dev)
     member_shapes = _member_shapes(args.seed + 5, dev)
     member_worst, member_timings = _timed_member_shapes(member_shapes, dev)
@@ -4531,6 +4873,7 @@ def main() -> int:
     storage_launches, sketch_launches, index_launches = storage["launches"], sketch["launches"], index["launches"]
     front_launches, join_launches, realtime_launches = front["launches"], join["launches"], realtime["launches"]
     batch_launches, member_axis_launches = batch["launches"], batch["member_axis_launches"]
+    member_axis_layouts = batch["member_axis_layouts"]
     main_launches = (sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
                      + index_launches + front_launches + join_launches + realtime_launches + batch_launches)
     profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"]
@@ -4607,6 +4950,7 @@ def main() -> int:
     generic, flush_check = phase_kernel_profile(args.seed + 1, dev, timings)
     _member_scan_ms(member_shapes, dev, member_timings)
     del member_shapes
+    member_axis_check = _member_axis_check(member_timings, timings[0])
 
     # 6. summary
     kernels = [{
@@ -4624,6 +4968,7 @@ def main() -> int:
                              "front_door": front_launches, "join_path": join_launches,
                              "realtime_path": realtime_launches, "batch_path": batch_launches},
         "member_axis_launches_on_main_path": member_axis_launches,
+        "member_axis_layouts_on_main_path": member_axis_layouts,
         "max_abs_err": worst,
         "shape": timing["shape"],
         "ms": timing["kernel_ms"],
@@ -4644,9 +4989,10 @@ def main() -> int:
         "join_shape": {k: timings[8][k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scan_ms")},
         "instantiations_on_main_path": main_variants,
-        "member_axis_shapes": [{k: t[k] for k in (
-            "shape", "members", "kernel_ms", "scan_ms", "w_sequential_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")} for t in member_timings],
+        "member_axis_shapes": [{k: t.get(k, "not measured") for k in (
+            "shape", "members", "layout", "group", "kernel_ms", "scan_ms", "launch_ms", "flush_ms",
+            "w_sequential_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} for t in member_timings],
+        "member_axis_check": member_axis_check,
         "shapes": timings,
         "specialised_vs_generic": generic,
         "flush_check": flush_check,

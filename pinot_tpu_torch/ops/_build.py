@@ -117,7 +117,7 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             lib.pinot_fused_scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
             lib.pinot_fused_scan.restype = ctypes.c_int
-            lib.pinot_fused_scan_batch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            lib.pinot_fused_scan_batch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
             lib.pinot_fused_scan_batch.restype = ctypes.c_int
             lib.pinot_fused_scan_max_members.argtypes = []
             lib.pinot_fused_scan_max_members.restype = ctypes.c_int
@@ -125,6 +125,8 @@ def load() -> ctypes.CDLL:
             lib.pinot_device_smem_optin.restype = ctypes.c_int
             lib.pinot_fused_scan_params_size.argtypes = []
             lib.pinot_fused_scan_params_size.restype = ctypes.c_int
+            lib.pinot_fused_scan_batch_size.argtypes = []
+            lib.pinot_fused_scan_batch_size.restype = ctypes.c_int
             vp = ctypes.c_void_p
             ll = ctypes.c_longlong
             lib.pinot_funnel_scan.argtypes = [

@@ -35,20 +35,29 @@ The member axis.  The JAX package runs W same-shape queries as one
 ``jax.vmap`` of the planned function, and Pallas' batching rule turns the
 scan into ONE ``pallas_call`` whose grid gains a member axis.  Here the
 scan is the torch custom op ``pinot_tpu_torch::fused_group_tables`` (the
-entry tuples flattened into its schema) with a vmap rule, so
+key, one list of tensors and a spec string of the ints) with a vmap rule, so
 ``torch.func.vmap`` over a planned closure reaches it with the physical
 tensors and their batch dims: on CUDA the rule issues one launch of the
 kernel's member-axis form (``pinot_fused_scan_batch``: each member its own
 operand pointers, a shared operand the same address in every member, and
 ``[W, E, G]`` tables); on the CPU it runs the plain version once a member.
-``BATCH_LAUNCHES`` counts member-axis launches by instantiation and
-``BATCH_MEMBERS`` the members they carried.
+``batch_layout`` finds the operands every member shares and the members
+``Wg`` one block scans together (with a shared key in a specialised
+instantiation, as many as the shared memory holds tables for; else 1), so
+the kernel reads each shared stream ``ceil(W / Wg)`` times.  The vmap rule
+builds the launch's ``ScanBatch`` with ``vmap_batch``: member 0's
+parameters in full, every other member's a copy with each stacked operand's
+address moved on by its member stride.
+``BATCH_LAUNCHES`` counts member-axis launches by instantiation,
+``BATCH_MEMBERS`` the members they carried and ``BATCH_LAYOUTS`` the
+launches by ``"W/Wg"``.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import functools
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -81,6 +90,8 @@ VARIANT_LAUNCHES: Dict[str, int] = {}
 MASK_WORDS_LAUNCHES = 0
 BATCH_LAUNCHES: Dict[str, int] = {}
 BATCH_MEMBERS = 0
+# member-axis launches by "<members>/<members a block scans together>"
+BATCH_LAYOUTS: Dict[str, int] = {}
 # members one member-axis launch takes (PINOT_MAX_MEMBERS in
 # csrc/fused_scan.cu); a wider vmap launches once per chunk of members
 MAX_MEMBERS = 8
@@ -92,6 +103,7 @@ def reset_counters() -> None:
     LAUNCHES = MASK_WORDS_LAUNCHES = BATCH_MEMBERS = 0
     VARIANT_LAUNCHES.clear()
     BATCH_LAUNCHES.clear()
+    BATCH_LAYOUTS.clear()
 
 _INT_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.uint16, torch.int32, torch.uint32, torch.int64)
 # ElemType codes of csrc/fused_scan.cu
@@ -335,15 +347,28 @@ def build_params(entries, key_t, key_bits, n, num_groups, mask_words, code_pred,
     order, variant): the kernel's table row j is entries[order[j]] (entries
     sorted stably by their mask's index), and variant names the
     instantiation, "<key mode>/<value mode>/<shared|global>"."""
+    p, order, variant, _streams, _mask_idx = _build_params(
+        entries, key_t, key_bits, n, num_groups, mask_words, code_pred, smem_optin)
+    return p, order, variant
+
+
+def _key_words(key_t: torch.Tensor) -> torch.Tensor:
+    words = key_t.view(torch.int32) if key_t.dtype == torch.uint32 else key_t
+    if words.dtype != torch.int32:
+        raise ValueError(f"packed key words must be int32/uint32, got {key_t.dtype}")
+    return words
+
+
+def _build_params(entries, key_t, key_bits, n, num_groups, mask_words, code_pred, smem_optin: int):
+    """build_params, plus the streams the vector loads read and each
+    entry's mask index (what vmap_batch moves the members' copies by)."""
     device = key_t.device
     p = _ScanParams()
     p.n = n
     p.num_groups = num_groups
     streams = []  # what the vector loads read: (address, bits a row, packed)
     if key_bits:
-        words = key_t.view(torch.int32) if key_t.dtype == torch.uint32 else key_t
-        if words.dtype != torch.int32:
-            raise ValueError(f"packed key words must be int32/uint32, got {key_t.dtype}")
+        words = _key_words(key_t)
         p.key = _operand(words, int(words.shape[0]), "codes_packed words", device)
         p.key_bits = int(key_bits)
         streams.append((p.key, int(key_bits), True))
@@ -398,7 +423,65 @@ def build_params(entries, key_t, key_bits, n, num_groups, mask_words, code_pred,
         if kind != "count":
             ent.values = values.data_ptr()
             ent.vtype = _DTYPE_CODES[values.dtype]
-    return p, order, f"{km}/{vm}/{'shared' if shared else 'global'}"
+    return p, order, f"{km}/{vm}/{'shared' if shared else 'global'}", streams, mask_idx
+
+
+class _BatchHeader(ctypes.Structure):
+    _fields_ = [
+        ("members", ctypes.c_int32),
+        ("group", ctypes.c_int32),
+        ("shared", ctypes.c_uint32),
+        ("masks_shared", ctypes.c_uint32),
+        ("values_shared", ctypes.c_uint32),
+        ("unused", ctypes.c_int32),
+    ]
+
+
+class _ScanBatch(ctypes.Structure):
+    _fields_ = [("h", _BatchHeader), ("m", _ScanParams * MAX_MEMBERS)]
+
+
+# BatchHeader.shared bits of csrc/fused_scan.cu (PINOT_SH_*)
+_SH_KEY, _SH_WORDS, _SH_PRED = 1, 2, 4
+
+
+class BatchLayout(NamedTuple):
+    """What one member-axis launch shares and how a block takes it: key,
+    words, pred: that operand is one address for every member; masks[j]:
+    distinct mask j is; values[j]: kernel entry j's values are (False for a
+    count); group: the members Wg one block scans together."""
+    key: bool
+    words: bool
+    pred: bool
+    masks: Tuple[bool, ...]
+    values: Tuple[bool, ...]
+    group: int
+
+
+def batch_layout(params: Sequence[_ScanParams], smem_optin: int) -> BatchLayout:
+    """The operands that the members' ScanParams share (one address in
+    all), and Wg: where the key is shared and the instantiation specialised
+    (the kernel's member path), min(W, smem_optin // one member's table
+    bytes), as many members as a block's shared memory holds tables for;
+    else 1, one member a grid row."""
+    p0 = params[0]
+
+    def same(get) -> bool:
+        v = get(p0)
+        return v is not None and all(get(p) == v for p in params[1:])
+
+    key = same(lambda p: p.key)
+    specialised = (KEY_MODES[p0.key_mode], VALUE_MODES[p0.val_mode]) in SPECIALISED
+    group = min(len(params), smem_optin // (4 * p0.smem_words)) if p0.shared and key and specialised else 1
+    return BatchLayout(
+        key=key,
+        words=same(lambda p: p.mask_words),
+        pred=same(lambda p: p.pred),
+        masks=tuple(same(lambda p, j=j: p.masks[j]) for j in range(p0.num_masks)),
+        values=tuple(p0.e[j].kind != _KIND_CODES["count"] and same(lambda p, j=j: p.e[j].values)
+                     for j in range(p0.num_entries)),
+        group=max(1, group),
+    )
 
 
 # the kernel library once its ScanParams layout was checked, and the
@@ -417,6 +500,8 @@ def _library():
             raise RuntimeError("csrc/fused_scan.cu ScanParams layout differs from the ctypes mirror")
         if lib.pinot_fused_scan_max_members() != MAX_MEMBERS:
             raise RuntimeError("csrc/fused_scan.cu PINOT_MAX_MEMBERS differs from MAX_MEMBERS")
+        if lib.pinot_fused_scan_batch_size() != ctypes.sizeof(_ScanBatch):
+            raise RuntimeError("csrc/fused_scan.cu ScanBatch layout differs from the ctypes mirror")
         _LIB = lib
     return _LIB
 
@@ -448,9 +533,7 @@ def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> L
     lib = _library()
     device = key_t.device
     out = torch.zeros((len(entries), num_groups), dtype=torch.int64, device=device)
-    # the library launches on the current device: make it the key's
-    current = torch.cuda.current_device()
-    with torch.cuda.device(device) if device.index not in (None, current) else contextlib.nullcontext():
+    with _on_device(device):
         p, order, variant = build_params(
             entries, key_t, key_bits, n, num_groups, mask_words, code_pred,
             _smem_optin(lib, torch.cuda.current_device()),
@@ -464,49 +547,59 @@ def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> L
     return _entry_order(out.to(torch.float64), order)
 
 
-def _launch_batch(members, num_groups: int) -> torch.Tensor:
-    """ONE member-axis launch over W <= MAX_MEMBERS members, each given as
-    (entries, key, key_bits, n, mask_words, code_pred) on one device, with
-    one table shape and one instantiation; returns f64 [W, E, G]."""
+def _set_header(b, W: int, layout: BatchLayout) -> None:
+    """A ScanBatch's header: W members in groups of layout.group, and the
+    shared-operand bits."""
+    b.h.members, b.h.group = W, layout.group
+    b.h.shared = _SH_KEY * layout.key | _SH_WORDS * layout.words | _SH_PRED * layout.pred
+    b.h.masks_shared = sum(1 << j for j, sh in enumerate(layout.masks) if sh)
+    b.h.values_shared = sum(1 << j for j, sh in enumerate(layout.values) if sh)
+
+
+def _launch_struct(lib, b, order, variant: str, layout: BatchLayout, num_groups: int, device,
+                   with_words: bool) -> torch.Tensor:
+    """ONE member-axis launch of a built ScanBatch (on the current device,
+    the members' own); returns f64 [W, E, G] in entry order."""
     global LAUNCHES, MASK_WORDS_LAUNCHES, BATCH_MEMBERS
-    lib = _library()
-    W = len(members)
-    E = len(members[0][0])
-    device = members[0][1].device
-    out = torch.zeros((W, E, num_groups), dtype=torch.int64, device=device)
-    arr = (_ScanParams * W)()
-    orders, variants = [], set()
-    current = torch.cuda.current_device()
-    with torch.cuda.device(device) if device.index not in (None, current) else contextlib.nullcontext():
-        smem = _smem_optin(lib, torch.cuda.current_device())
-        for w, (entries, key_t, key_bits, n, mask_words, code_pred) in enumerate(members):
-            p, order, variant = build_params(entries, key_t, key_bits, n, num_groups, mask_words, code_pred, smem)
-            arr[w] = p
-            orders.append(order)
-            variants.add(variant)
-        if len(variants) != 1:
-            raise ValueError(f"members of one launch resolve to different instantiations {sorted(variants)}")
-        err = lib.pinot_fused_scan_batch(arr, W, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    W = b.h.members
+    out = torch.zeros((W, len(order), num_groups), dtype=torch.int64, device=device)
+    err = lib.pinot_fused_scan_batch(ctypes.byref(b), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused scan member-axis launch failed: {lib.pinot_cuda_error_string(err).decode()}")
-    variant = variants.pop()
     LAUNCHES += 1
     VARIANT_LAUNCHES[variant] = VARIANT_LAUNCHES.get(variant, 0) + 1
     BATCH_LAUNCHES[variant] = BATCH_LAUNCHES.get(variant, 0) + 1
+    layout_key = f"{W}/{layout.group}"
+    BATCH_LAYOUTS[layout_key] = BATCH_LAYOUTS.get(layout_key, 0) + 1
     BATCH_MEMBERS += W
-    MASK_WORDS_LAUNCHES += members[0][4] is not None
+    MASK_WORDS_LAUNCHES += with_words
     out = out.to(torch.float64)
-    if all(o == sorted(o) for o in orders):
+    if order == sorted(order):
         return out
-    return torch.stack([torch.stack(_entry_order(out[w], orders[w])) for w in range(W)])
+    rows = [None] * len(order)
+    for j, i in enumerate(order):
+        rows[i] = out[:, j]
+    return torch.stack(rows, dim=1)
+
+
+def _on_device(device):
+    """The library launches on the current device: make it `device`."""
+    current = torch.cuda.current_device()
+    return torch.cuda.device(device) if device.index not in (None, current) else contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
-# the custom op: the entry tuples flattened into a schema torch.library takes
+# the custom op: (key, tensors, spec), few arguments because torch's vmap
+# adapter for a custom op walks every leaf of them on each call
 # ---------------------------------------------------------------------------
-def _flatten(entries):
-    """(kinds, sum values, masks, limb counts, signs): limb count -1 for no
-    plan; values only for the sum entries, in entry order."""
+_KINDS = {c: k for k, c in _KIND_CODES.items()}
+
+
+def _op_args(entries, key_bits: int, num_groups: int, mask_words, pred, lo, hi) -> Tuple[List[torch.Tensor], str]:
+    """The op's tensors (the sum entries' values, every entry's mask, then
+    mask_words and pred, lo, hi where given) and its spec string
+    "key_bits,num_groups,has_words,has_pred;kinds;limb counts;signs"
+    (limb count -1 for no plan)."""
     kinds, values, masks, limbs, signs = [], [], [], [], []
     for kind, v, m, lp in entries:
         kinds.append(_KIND_CODES[kind])
@@ -522,23 +615,50 @@ def _flatten(entries):
         else:
             limbs.append(int(lp))
             signs.append(0)
-    return kinds, values, masks, limbs, signs
+    tensors = values + masks + ([mask_words] if mask_words is not None else []) + (
+        [pred, lo, hi] if pred is not None else [])
+    spec = ";".join(",".join(map(str, x)) for x in (
+        (key_bits, num_groups, int(mask_words is not None), int(pred is not None)), kinds, limbs, signs))
+    return tensors, spec
 
 
-_KINDS = {c: k for k, c in _KIND_CODES.items()}
+@functools.lru_cache(maxsize=4096)
+def _parse_spec(spec: str):
+    head, kinds, limbs, signs = ([int(x) for x in part.split(",")] for part in spec.split(";"))
+    return (*head, kinds, limbs, signs)
 
 
-def _unflatten(kinds, values, masks, limbs, signs) -> List[Entry]:
+class _OpArgs(NamedTuple):
+    """The op's arguments taken apart: entries over its tensors (whatever
+    their member dims), the filter operands, and lo_at, lo's index in the
+    tensor list (hi's is the next: their member dims under vmap)."""
+    key_bits: int
+    num_groups: int
+    entries: List[Entry]
+    mask_words: Optional[torch.Tensor]
+    pred: Optional[torch.Tensor]
+    lo: Optional[torch.Tensor]
+    hi: Optional[torch.Tensor]
+    lo_at: int
+
+
+def _op_parts(tensors: Sequence[torch.Tensor], spec: str) -> _OpArgs:
+    key_bits, num_groups, has_words, has_pred, kinds, limbs, signs = _parse_spec(spec)
+    nv = sum(k != _KIND_CODES["count"] for k in kinds)
+    values, masks, rest = tensors[:nv], tensors[nv:nv + len(kinds)], nv + len(kinds)
     entries, vi = [], 0
     for kc, m, nl, sg in zip(kinds, masks, limbs, signs):
-        kind = _KINDS[int(kc)]
+        kind = _KINDS[kc]
         v = None
         if kind != "count":
             v = values[vi]
             vi += 1
         lp = None if nl < 0 else ((nl, bool(sg)) if kind == "int_sum" else nl)
         entries.append((kind, v, m, lp))
-    return entries
+    mask_words = tensors[rest] if has_words else None
+    at = rest + has_words
+    pred, lo, hi = tensors[at:at + 3] if has_pred else (None, None, None)
+    return _OpArgs(key_bits, num_groups, entries, mask_words, pred, lo, hi, at + 1)
 
 
 def _scan(entries, key, key_bits, n, num_groups, mask_words, code_pred) -> List[torch.Tensor]:
@@ -554,77 +674,161 @@ def _scan(entries, key, key_bits, n, num_groups, mask_words, code_pred) -> List[
     ]
 
 
-def _scan_args(key, key_bits, kinds, values, masks, limbs, signs, mask_words, pred, pred_lo, pred_hi):
-    """(entries, rows, code_pred) of one call, from the op's arguments."""
-    entries = _unflatten(kinds, values, masks, limbs, signs)
-    code_pred = None if pred is None else (pred, int(pred_lo), int(pred_hi))
-    n = int(masks[0].shape[0]) if key_bits else int(key.shape[0])
-    return entries, n, code_pred
+def _scan_args(key: torch.Tensor, tensors: Sequence[torch.Tensor], spec: str):
+    """(entries, key_bits, rows, num_groups, mask_words, code_pred) of one
+    unbatched call, from the op's arguments."""
+    a = _op_parts(tensors, spec)
+    code_pred = None if a.pred is None else (a.pred, int(a.lo), int(a.hi))
+    n = int(a.entries[0][2].shape[0]) if a.key_bits else int(key.shape[0])
+    return a.entries, a.key_bits, n, a.num_groups, a.mask_words, code_pred
 
 
 @torch.library.custom_op("pinot_tpu_torch::fused_group_tables", mutates_args=())
-def _fused_op(
-    key: torch.Tensor, key_bits: int, num_groups: int, kinds: List[int], values: List[torch.Tensor],
-    masks: List[torch.Tensor], limbs: List[int], signs: List[int], mask_words: Optional[torch.Tensor],
-    pred: Optional[torch.Tensor], pred_lo: Optional[torch.Tensor], pred_hi: Optional[torch.Tensor],
-) -> torch.Tensor:
-    entries, n, code_pred = _scan_args(
-        key, key_bits, kinds, values, masks, limbs, signs, mask_words, pred, pred_lo, pred_hi)
+def _fused_op(key: torch.Tensor, tensors: List[torch.Tensor], spec: str) -> torch.Tensor:
+    entries, key_bits, n, num_groups, mask_words, code_pred = _scan_args(key, tensors, spec)
     return torch.stack(_scan(entries, key, key_bits, n, num_groups, mask_words, code_pred))
 
 
 @_fused_op.register_fake
-def _(key, key_bits, num_groups, kinds, values, masks, limbs, signs, mask_words, pred, pred_lo, pred_hi):
+def _(key, tensors, spec):
+    _kb, num_groups, _w, _p, kinds, _l, _s = _parse_spec(spec)
     return key.new_empty((len(kinds), num_groups), dtype=torch.float64)
 
 
 _is_batched = torch._C._functorch.is_batchedtensor
 
 
-def member_args(W: int, in_dims, key, key_bits, num_groups, kinds, values, masks, limbs, signs,
-                mask_words, pred, pred_lo, pred_hi) -> List[tuple]:
+def _stacked(in_dims, key, tensors, spec) -> Dict[int, torch.Tensor]:
+    """Each stacked operand of the op under vmap made member-major and dense
+    once, by id: member w's slice is its [w] (a shared operand, dim None,
+    is not in it)."""
+    kd, td, _ = in_dims
+    dense = {}
+    for t, d in [(key, kd), *zip(tensors, td)]:
+        if d is not None and id(t) not in dense:
+            dense[id(t)] = t.movedim(d, 0).contiguous()
+    return dense
+
+
+def member_args(W: int, in_dims, key, tensors, spec) -> List[tuple]:
     """The op's arguments for each of W members, from the physical tensors
     and their member dims under vmap.  A shared operand (dim None) is the
     same tensor for every member; a stacked one is made member-major and
     dense once, and member w takes its slice (a dense view)."""
-    kd, _kb, _ng, _k, vd, md, _l, _s, wd, pd, lod, hid = in_dims
-    dense = {}
-    for t, d in [(key, kd), (mask_words, wd), (pred, pd), (pred_lo, lod), (pred_hi, hid),
-                 *zip(values, vd), *zip(masks, md)]:
-        if t is not None and d is not None and id(t) not in dense:
-            dense[id(t)] = t.movedim(d, 0).contiguous()
+    dense = _stacked(in_dims, key, tensors, spec)
 
     def mem(t, w):
-        return dense[id(t)][w] if t is not None and id(t) in dense else t
+        return dense[id(t)][w] if id(t) in dense else t
 
-    return [
-        (mem(key, w), key_bits, num_groups, kinds, [mem(v, w) for v in values], [mem(m, w) for m in masks],
-         limbs, signs, mem(mask_words, w), mem(pred, w), mem(pred_lo, w), mem(pred_hi, w))
-        for w in range(W)
-    ]
+    return [(mem(key, w), [mem(t, w) for t in tensors], spec) for w in range(W)]
 
 
-def _fused_vmap(info, in_dims, *args):
+def _member_bounds(t: Optional[torch.Tensor], d: Optional[int], W: int) -> List[int]:
+    """Each member's code-range bound as an int, read home in one copy (a
+    shared bound is one 0-d tensor, a stacked one W values)."""
+    if d is None:
+        return [t.tolist()] * W
+    return t.movedim(d, 0).reshape(W).tolist()
+
+
+def _cat(parts: List[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def vmap_batch(dense, entries, key, key_bits, mask_words, pred, ranges, w0: int, W: int, num_groups: int,
+               smem_optin: int):
+    """The ScanBatch of members [w0, w0 + W) of the op under vmap, without
+    making their slices: member w0's parameters in full (_build_params),
+    every other member's a copy of them with each stacked operand's address
+    moved on by its member stride (a stacked operand is one member-major
+    dense tensor, `dense`) and its code range set.  entries: the op's (kind,
+    values, mask, limb plan) over the physical tensors; ranges: each
+    member's (lo, hi) or None.  Returns (batch, order, variant, layout)."""
+    def at(t):
+        return dense[id(t)][w0] if t is not None and id(t) in dense else t
+
+    def step(t) -> int:  # bytes from one member's slice to the next; 0 when shared
+        d = dense.get(id(t)) if t is not None else None
+        return 0 if d is None else d.stride(0) * d.element_size()
+
+    ents = [(k, at(v), at(m), lp) for k, v, m, lp in entries]
+    key0 = at(key)
+    n = int(ents[0][2].shape[0]) if key_bits else int(key0.shape[0])
+    code_pred = None if pred is None else (at(pred), *ranges[w0])
+    p0, order, variant, streams, mask_idx = _build_params(
+        ents, key0, key_bits, n, num_groups, at(mask_words), code_pred, smem_optin)
+    # (set the address, member w0's address, bytes a member, bits a row of a
+    # stream the vector loads read, packed) of each stacked operand
+    moves = []
+    if step(key):
+        moves.append((lambda p, a: setattr(p, "key", a), p0.key, step(key),
+                      int(key_bits) or 8 * key0.element_size(), bool(key_bits)))
+    if step(mask_words):
+        moves.append((lambda p, a: setattr(p, "mask_words", a), p0.mask_words, step(mask_words), 0, False))
+    if step(pred):
+        moves.append((lambda p, a: setattr(p, "pred", a), p0.pred, step(pred), 0, False))
+    for j in range(p0.num_masks):
+        slot = [entries[i][2] for i in range(len(entries)) if mask_idx[i] == j]
+        if step(slot[0]):
+            if any(m is not slot[0] for m in slot):
+                raise ValueError("a stacked mask shares a slot with another mask at member 0 only")
+            moves.append((lambda p, a, j=j: p.masks.__setitem__(j, a), p0.masks[j], step(slot[0]), 8, False))
+    for j, i in enumerate(order):
+        v = entries[i][1]
+        if step(v):
+            moves.append((lambda p, a, j=j: setattr(p.e[j], "values", a), p0.e[j].values, step(v),
+                          8 * v.element_size(), False))
+    b = _ScanBatch()
+    b.m[0] = p0
+    size = ctypes.sizeof(_ScanParams)
+    for w in range(1, W):
+        q = b.m[w]
+        ctypes.memmove(ctypes.addressof(q), ctypes.addressof(p0), size)
+        for set_addr, base, stride, _bits, _packed in moves:
+            set_addr(q, base + w * stride)
+        if pred is not None:
+            q.pred_lo, q.pred_hi = ranges[w0 + w]
+    # one row tiling for all: the members' own streams where a member
+    # stride moves their alignment
+    extra = [(base + w * stride, bits, packed) for _s, base, stride, bits, packed in moves
+             if bits and stride % 16 for w in range(1, W)]
+    if extra:
+        head = tile_head(streams + extra)
+        head, tiles = (head, (n - head) // WARP_TILE_ROWS) if head is not None and n > head else (0, 0)
+        for w in range(W):
+            b.m[w].head, b.m[w].tiles = head, tiles
+    layout = batch_layout([b.m[w] for w in range(W)], smem_optin)
+    _set_header(b, W, layout)
+    return b, order, variant, layout
+
+
+def _fused_vmap(info, in_dims, key, tensors, spec):
     """The op under torch.func.vmap.  CUDA: one member-axis launch a chunk
-    of MAX_MEMBERS members and MAX_ENTRIES entries; CPU: the plain version
-    once a member."""
-    members = member_args(info.batch_size, in_dims, *args)
-    if args[0].device.type != "cuda":
-        return torch.stack([_fused_op(*a) for a in members]), 0
-    launches = []
-    for a in members:
-        entries, n, code_pred = _scan_args(a[0], a[1], *a[3:])
-        launches.append((entries, a[0], a[1], n, a[8], code_pred))
-    num_groups = args[2]
+    of MAX_MEMBERS members and MAX_ENTRIES entries, its ScanBatch built by
+    vmap_batch; CPU: the plain version once a member."""
+    W = info.batch_size
+    if key.device.type != "cuda":
+        return torch.stack([_fused_op(*a) for a in member_args(W, in_dims, key, tensors, spec)]), 0
+    a = _op_parts(tensors, spec)
+    dense = _stacked(in_dims, key, tensors, spec)
+    ranges = None
+    if a.pred is not None:
+        td = in_dims[1]
+        ranges = list(zip(_member_bounds(a.lo, td[a.lo_at], W), _member_bounds(a.hi, td[a.lo_at + 1], W)))
+    lib = _library()
     chunks = []
-    for e0 in range(0, len(args[3]), MAX_ENTRIES):
-        rows = [
-            _launch_batch([(ent[e0:e0 + MAX_ENTRIES], *rest) for ent, *rest in launches[w0:w0 + MAX_MEMBERS]],
-                          num_groups)
-            for w0 in range(0, len(launches), MAX_MEMBERS)
-        ]
-        chunks.append(torch.cat(rows))
-    return torch.cat(chunks, dim=1), 0
+    with _on_device(key.device):
+        smem = _smem_optin(lib, torch.cuda.current_device())
+        for e0 in range(0, len(a.entries), MAX_ENTRIES):
+            rows = []
+            for w0 in range(0, W, MAX_MEMBERS):
+                b, order, variant, layout = vmap_batch(
+                    dense, a.entries[e0:e0 + MAX_ENTRIES], key, a.key_bits, a.mask_words, a.pred, ranges, w0,
+                    min(MAX_MEMBERS, W - w0), a.num_groups, smem)
+                rows.append(_launch_struct(lib, b, order, variant, layout, a.num_groups, key.device,
+                                           a.mask_words is not None))
+            chunks.append(_cat(rows))
+    return _cat(chunks, dim=1), 0
 
 
 _fused_op.register_vmap(_fused_vmap)
@@ -666,6 +870,5 @@ def fused_group_tables(
     if code_pred is not None:
         pred, lo, hi = code_pred
         lo, hi = (b if isinstance(b, torch.Tensor) else torch.tensor(int(b)) for b in (lo, hi))
-    kinds, values, masks, limbs, signs = _flatten(entries)
-    out = _fused_op(key, key_bits, num_groups, kinds, values, masks, limbs, signs, mask_words, pred, lo, hi)
-    return list(out.unbind(0))
+    tensors, spec = _op_args(entries, key_bits, num_groups, mask_words, pred, lo, hi)
+    return list(_fused_op(key, tensors, spec).unbind(0))

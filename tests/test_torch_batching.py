@@ -5,6 +5,14 @@
   masks, values, bitmap words and per-member code ranges; the members a
   member-axis launch would take all resolve to one instantiation, each a
   dense slice of the stacked operands (build_params runs on CPU tensors).
+- batch_layout finds the operands every member shares and the members a
+  block scans together (with a shared key in a specialised instantiation,
+  as many as the shared memory holds tables for: 4 of 8 at three entries
+  over 2406 groups; else 1: a stacked key, the generic instantiation, the
+  global-table path); the vmap rule's ScanBatch (vmap_batch) holds, for
+  each member, a full build_params of its own slices field by field, for
+  a later chunk of members too, gives every member one row tiling, and
+  refuses a mask slot that members would not share alike.
 - executor.launch_segment_batch / collect_segment_batch equal the JAX
   package's batched results and the port's sequential results member by
   member (partials compared exactly: integer kinds bit for bit), on the
@@ -18,6 +26,8 @@
   lists, with the same dist.batches / dist.batchFallbacks counts.
 - The MicroBatcher unit cases of tests/test_batching.py, on a fake clock.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -139,8 +149,9 @@ def test_member_launch_params(monkeypatch, case):
     (members,) = captured
     variants, keys, masks0, los = set(), set(), [], []
     for a in members:
-        entries, n, code_pred = fused_scan._scan_args(a[0], a[1], *a[3:])
-        p, order, variant = fused_scan.build_params(entries, a[0], a[1], n, a[2], a[8], code_pred, SMEM_OPTIN)
+        entries, key_bits, n, num_groups, mask_words, code_pred = fused_scan._scan_args(*a)
+        p, order, variant = fused_scan.build_params(entries, a[0], key_bits, n, num_groups, mask_words, code_pred,
+                                                    SMEM_OPTIN)
         variants.add(variant)
         keys.add(p.key)
         masks0.append(p.masks[0])
@@ -152,6 +163,222 @@ def test_member_launch_params(monkeypatch, case):
     if case == "per_member_code_range":
         t = args[0]
         assert los == [(int(x) % 8, int(x) % 8 + 3) for x in t.abs()]
+
+
+# ---------------------------------------------------------------------------
+# the member-axis launch's layout and patched parameters
+# ---------------------------------------------------------------------------
+def _layout_case(case, rng):
+    """Four shapes beside VMAP_CASES: three entries over 2406 groups (W = 8,
+    more tables than one block holds for all members), members whose
+    stacked values start 1025 rows apart, members with their own int16
+    predicate codes over a shared int32 key, and the global-table path (4
+    sums over 8192 groups)."""
+    if case == "three_entries_g2406":
+        W, n, G = 8, 2048, 2406
+        codes = rng.integers(0, G, n).astype(np.int32)
+        rev = _t(rng.integers(100, 1_000_000, n).astype(np.int32))
+        qty = _t(rng.integers(1, 51, n).astype(np.int32))
+        ks = torch.arange(18, 18 + W, dtype=torch.int32)
+
+        def f(k):
+            m = qty < k
+            return fused_scan.fused_group_tables(
+                [("count", None, m, None), ("int_sum", rev, m, (3, False)), ("int_sum", qty, m, (1, False))],
+                None, G, codes_packed=(_pack16(codes), 16))
+        return f, (ks,), G
+    if case == "odd_member_stride":  # members' int8 values 1025 rows apart: no common aligned head
+        W, n, G = 3, 1025, 50
+        key = _t(rng.integers(0, G, n).astype(np.int32))
+        mask = _t(rng.random(n) < 0.5)
+
+        def f(v):
+            return fused_scan.fused_group_tables([("count", None, mask, None), ("int_sum", v, mask, (1, True))],
+                                                 key, G)
+        return f, (_t(rng.integers(-100, 100, (W, n)).astype(np.int8)),), G
+    if case == "stacked_code_ranges":  # each member's own int16 codes, an i32 key shared (the group path)
+        W, n, G = 5, 1031, 100
+        key = _t(rng.integers(0, G, n).astype(np.int32))
+        vals = _t(rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32))
+        ones = torch.ones(n, dtype=torch.bool)
+
+        def f(pc, lo):
+            return fused_scan.fused_group_tables([("count", None, ones, None), ("int_sum", vals, ones, None)], key,
+                                                 G, code_pred=(pc, lo, lo + 6))
+        return f, (_t(rng.integers(-5, 20, (W, n)).astype(np.int16)), _t(rng.integers(-5, 10, W).astype(np.int64))), G
+    W, n, G = 3, 1024, 8192
+    codes = _t(rng.integers(0, G, n).astype(np.int32))
+    vals = _t(rng.integers(-(1 << 20), 1 << 20, n).astype(np.int32))
+    thr = _t(rng.integers(-(1 << 19), 1 << 19, W).astype(np.int32))
+
+    def f(t):
+        m = vals < t
+        return fused_scan.fused_group_tables([("int_sum", vals + i, m, None) for i in range(4)], codes, G)
+    return f, (thr,), G
+
+
+LAYOUT_CASES = VMAP_CASES + ["three_entries_g2406", "odd_member_stride", "stacked_code_ranges", "global_table"]
+# (key, words, pred, masks, values, group) of each case's first launch
+LAYOUTS = {
+    "stacked_masks": (True, False, False, (False, True), (False, True, False), 5),
+    "shared_mask_stacked_words": (True, False, False, (True,), (False, True), 5),
+    "per_member_code_range": (True, False, True, (True,), (False, True), 1),
+    "stacked_key_and_values": (False, False, False, (True,), (False, False), 1),
+    "many_entries": (True, False, False, (False,) * fused_scan.MAX_ENTRIES, (True,) * fused_scan.MAX_ENTRIES, 5),
+    "three_entries_g2406": (True, False, False, (False,), (False, True, True), 4),
+    "odd_member_stride": (True, False, False, (True,), (False, False), 1),
+    "stacked_code_ranges": (True, False, False, (True,), (False, True), 5),
+    "global_table": (True, False, False, (False,), (True,) * 4, 1),
+}
+
+
+def _case(case):
+    rng = np.random.default_rng(LAYOUT_CASES.index(case))
+    if case in VMAP_CASES:
+        f, args = _vmap_case(case, rng)
+        return f, args, 37
+    return _layout_case(case, rng)
+
+
+def _capture(case):
+    """The op's arguments under vmap for the case: (W, in_dims, op_args, G)."""
+    f, args, G = _case(case)
+    captured = []
+
+    def capture(info, in_dims, *op_args):
+        captured.append((info.batch_size, in_dims, op_args))
+        return torch.stack([fused_scan._fused_op(*a) for a in fused_scan.member_args(info.batch_size, in_dims,
+                                                                                      *op_args)]), 0
+
+    fused_scan._fused_op.register_vmap(capture)
+    try:
+        torch.func.vmap(f)(*args)
+    finally:
+        fused_scan._fused_op.register_vmap(fused_scan._fused_vmap)
+    return (*captured[0], G)
+
+
+def _members_of(W, in_dims, op_args):
+    """Each member's own call of the first chunk of entries, from its
+    slices: (entries, key, key_bits, n, mask_words, code_pred)."""
+    members = []
+    for a in fused_scan.member_args(W, in_dims, *op_args):
+        entries, key_bits, n, _g, mask_words, code_pred = fused_scan._scan_args(*a)
+        members.append((entries[:fused_scan.MAX_ENTRIES], a[0], key_bits, n, mask_words, code_pred))
+    return members
+
+
+def _vmap_batch(W, in_dims, op_args, G, w0=0, members=None):
+    """The vmap rule's ScanBatch for members [w0, w0 + members) of the first
+    chunk of entries: (batch, order, variant, layout)."""
+    key, tensors, spec = op_args
+    a = fused_scan._op_parts(tensors, spec)
+    ranges = None
+    if a.pred is not None:
+        td = in_dims[1]
+        ranges = list(zip(fused_scan._member_bounds(a.lo, td[a.lo_at], W),
+                          fused_scan._member_bounds(a.hi, td[a.lo_at + 1], W)))
+    return fused_scan.vmap_batch(fused_scan._stacked(in_dims, *op_args), a.entries[:fused_scan.MAX_ENTRIES], key,
+                                 a.key_bits, a.mask_words, a.pred, ranges, w0, W - w0 if members is None else members,
+                                 G, SMEM_OPTIN)
+
+
+def _fields(x, prefix=""):
+    """Every scalar field of a ctypes structure, by its dotted path."""
+    if isinstance(x, ctypes.Structure):
+        for name, _t in x._fields_:
+            yield from _fields(getattr(x, name), f"{prefix}{name}.")
+    elif isinstance(x, ctypes.Array):
+        for i, v in enumerate(x):
+            yield from _fields(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], x
+
+
+def _differ(got, want, skip=()):
+    g, w = dict(_fields(got)), dict(_fields(want))
+    return [k for k in w if g[k] != w[k] and k not in skip]
+
+
+@pytest.mark.parametrize("case", ["three_entries_g2406", "odd_member_stride", "stacked_code_ranges", "global_table"])
+def test_vmap_rule_layout_cases(case):
+    f, args, _G = _case(case)
+    got = torch.func.vmap(f)(*args)
+    for w in range(args[0].shape[0]):
+        for g, x in zip(got, f(*(a[w] for a in args))):
+            assert torch.equal(g[w], x), case
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_batch_layout(case):
+    W, in_dims, op_args, G = _capture(case)
+    b, _order, variant, layout = _vmap_batch(W, in_dims, op_args, G)
+    params = [b.m[w] for w in range(W)]
+    assert layout == fused_scan.batch_layout(params, SMEM_OPTIN)
+    assert tuple(layout) == LAYOUTS[case]
+    assert (b.h.members, b.h.group) == (W, layout.group)
+    if layout.group > 1:  # the kernel's member path: a shared key, a specialised instantiation
+        assert layout.key and variant in ("p16/i32/shared", "i32/i32/shared")
+        assert layout.group * 4 * params[0].smem_words <= SMEM_OPTIN
+        assert layout.group == W or (layout.group + 1) * 4 * params[0].smem_words > SMEM_OPTIN
+    if case == "three_entries_g2406":  # two groups of 4
+        assert -(-W // layout.group) == 2
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_vmap_batch_equal_full_build(case):
+    """Each member's parameters in the vmap rule's ScanBatch (member 0
+    built, the others moved on by their member strides) equal a full
+    build_params of that member's own slices, field by field."""
+    W, in_dims, op_args, G = _capture(case)
+    b, order, variant, _layout = _vmap_batch(W, in_dims, op_args, G)
+    # members whose own streams align at different rows share one tiling
+    # (test_vmap_batch_one_row_tiling); every other field is the full build's
+    tiling = {"head", "tiles"} if case == "odd_member_stride" else set()
+    for w, (entries, key, bits, n, words, code_pred) in enumerate(_members_of(W, in_dims, op_args)):
+        full, full_order, full_variant = fused_scan.build_params(entries, key, bits, n, G, words, code_pred,
+                                                                 SMEM_OPTIN)
+        assert (order, variant) == (full_order, full_variant)
+        assert _differ(b.m[w], full, tiling) == [], (case, w)
+    assert len({(b.m[w].head, b.m[w].tiles) for w in range(W)}) == 1
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_vmap_batch_member_chunk(case):
+    """A later chunk of members (w0 = 1, as the rule takes members past
+    MAX_MEMBERS) gets the same parameters as those members have in the
+    whole batch, and the same shared operands."""
+    W, in_dims, op_args, G = _capture(case)
+    whole = _vmap_batch(W, in_dims, op_args, G)
+    part = _vmap_batch(W, in_dims, op_args, G, w0=1)
+    assert part[1:3] == whole[1:3]
+    tiling = {"head", "tiles"} if case == "odd_member_stride" else set()
+    for w in range(W - 1):
+        assert _differ(part[0].m[w], whole[0].m[w + 1], tiling) == [], (case, w)
+    assert tuple(part[3])[:-1] == tuple(whole[3])[:-1]
+    assert part[0].h.members == W - 1
+
+
+def test_vmap_batch_one_row_tiling():
+    """Members whose own streams align at different rows share the first
+    row that suits all (here none: every member reads scalar tiles)."""
+    W, in_dims, op_args, G = _capture("odd_member_stride")
+    own = [fused_scan.build_params(*m[:4], G, None, None, SMEM_OPTIN)[0] for m in _members_of(W, in_dims, op_args)]
+    assert own[0].tiles > 0 and own[1].tiles == 0
+    b, _order, _variant, _layout = _vmap_batch(W, in_dims, op_args, G)
+    assert {(b.m[w].head, b.m[w].tiles) for w in range(W)} == {(0, 0)}
+
+
+def test_vmap_batch_refuses_mask_shared_at_member_0_only():
+    """A stacked mask whose member-0 slice is also another entry's mask
+    would share a slot at member 0 only: refused."""
+    rng = np.random.default_rng(6)
+    W, n, G = 3, 256, 11
+    key = _t(rng.integers(0, G, n).astype(np.int32))
+    stacked = _t(rng.random((W, n)) < 0.5)
+    entries = [("count", None, stacked, None), ("count", None, stacked[0], None)]
+    with pytest.raises(ValueError, match="shares a slot"):
+        fused_scan.vmap_batch({id(stacked): stacked}, entries, key, 0, None, None, None, 0, W, G, SMEM_OPTIN)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The port stands alone: no file of pinot_tpu_torch/, and none of
-chip_smoke.py, funnel_ab.py, funnel_phases.py and gate_ab.py, imports JAX or anything of
+chip_smoke.py, funnel_ab.py, funnel_phases.py, gate_ab.py and member_phases.py, imports JAX or anything of
 the JAX package pinot_tpu (an AST scan of every import statement)."""
 import ast
 from pathlib import Path
@@ -7,7 +7,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-SCRIPTS = ("chip_smoke.py", "funnel_ab.py", "funnel_phases.py", "gate_ab.py")
+SCRIPTS = ("chip_smoke.py", "funnel_ab.py", "funnel_phases.py", "gate_ab.py", "member_phases.py")
 FILES = sorted((ROOT / "pinot_tpu_torch").rglob("*.py")) + [ROOT / n for n in SCRIPTS]
 
 
