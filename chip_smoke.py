@@ -225,6 +225,32 @@ Phases, in order; any failure raises and the process exits non-zero:
                 launches; (q6) the named plan caches' entries, hits and
                 misses.  Warm medians of the batches against their
                 members one by one; one profile session each.
+ 4k. cluster_path (after 4j) - the cluster's control plane and router
+                (pinot_tpu_torch/cluster/) on the tables of phase 4 (no new
+                table): (k1) Coordinator(replication=2) with three
+                ServerInstances on CUDA over phase 4's 8 segments and
+                Broker(coord).query(config 2), exact, 8 fused-scan launches
+                (p16/i32/shared) and no other, its warm median of 9 beside
+                ServerInstance.execute's over the same segments in turns
+                (one server with the same budget and residency; the
+                difference is the broker's host ms) and (q1)'s, a traced
+                call's plan / prune / server_execute spans; (k2) the replica the
+                next query routes to first crashes on that call (FaultPlan):
+                the query fails over, exact in 8 launches, the breaker
+                records the failure, and restart_server heals it; (k3)
+                query_many of (q2)'s 8 members: each exact, 8 member-axis
+                launches of one group of 8; (k4) at reduced depth (phase 4's
+                first 2 segments, 2^24 rows) a durable Coordinator
+                (meta_dir, deep store under build/) on a simulated clock
+                behind a CoordinatorHandle: add_segment uploads, a crashed
+                server restarts from the deep store (CRC-verified), the
+                lease expires and a hot standby promotes while the broker
+                keeps serving, a fourth server joins and rebalance moves
+                segments while a second thread queries; config 2 exact at
+                every step; (k5) through the broker UNION ALL, IN (SELECT
+                ...), EXPLAIN and EXPLAIN ANALYZE of phase 4g, each exact
+                against its numpy golden and equal to the segment engine's
+                answer.  Launches counted an item; hedge_drain() at the end.
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
@@ -238,7 +264,8 @@ Phases, in order; any failure raises and the process exits non-zero:
                 member_phases.py's); and the code-range shape asserted
                 under half of 8 x the distributed main path's launch.
   6. summary  - one {"kernels": [...]} JSON line (fused_scan, funnel_scan; launches_by_path
-                includes front_door, join_path, realtime_path and batch_path; the
+                includes front_door, join_path, realtime_path, batch_path and
+                cluster_path; the
                 member-axis launches by instantiation and by layout, and each
                 member-axis shape with its Wg; flush_ms names
                 member_phases.py, which measures it), the card's
@@ -3496,7 +3523,7 @@ def phase_front_door(seg, dist):
             profiles.append(("front_door_profile", {"engine": label, "query": name}, runner,
                              FRONT_DOOR_QUERIES[name]))
     return {"launches": launches, "variants": variants, "records": records, "profiles": profiles,
-            "front_door_s": time.perf_counter() - t0}
+            "front_door_s": time.perf_counter() - t0, "seg_golden": seg_golden}
 
 
 # ---------------------------------------------------------------------------
@@ -4780,6 +4807,339 @@ def phase_batch_path(seg, dist):
             "profiles": profiles, "engine": engine, "batch_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 4k: cluster_path — the coordinator, the broker, the durable and
+# highly available control plane over phase 4's segments
+# ---------------------------------------------------------------------------
+CLUSTER_SERVERS = 3
+CLUSTER_REPLICATION = 2
+# phase 4's segments the durable cluster of (k4) holds (its reduced depth)
+CLUSTER_DURABLE_SEGMENTS = 2
+CLUSTER_LEASE_TTL_S = 2.0
+# warm runs of (k1) a side, in turns
+CLUSTER_WALL_RUNS = 9
+CLUSTER_ROUTES = ("y3_union_all", "y2_in_subquery", "y4_explain", "y4_explain_analyze")
+
+
+class _SimClock:
+    """The lease's injected clock: (k4)'s lease expires by advancing it."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, s: float) -> None:
+        self.t += s
+
+
+def _span_tree(node, out=None):
+    """Span name -> [ms, ...] over a trace tree."""
+    out = {} if out is None else out
+    out.setdefault(node["name"].split(":")[0], []).append(node.get("ms"))
+    for c in node.get("children", ()):
+        if isinstance(c, dict):
+            _span_tree(c, out)
+    return out
+
+
+def _first_routed(broker, table: str, seg_name: str) -> str:
+    """The replica the broker's next query routes `seg_name` to (its
+    balanced selector: the next round-robin slot among the healthy,
+    non-browned replicas), so a fault can be scripted onto that call."""
+    view = broker.coordinator.external_view(table)
+    cands = sorted(s for s in view[seg_name] if broker.health.available(s))
+    bright = [c for c in cands if not broker.health.brownout_deprioritized(c)] or cands
+    return bright[(broker._rr + 1) % len(bright)]
+
+
+def _cluster_counted(label, run, want, launches, counted, instantiations=None):
+    """One counted run: counts read around it, the answer against `want`
+    (sorted rows), the launches against `launches`."""
+    before = _scan_counts()
+    out = run()
+    torch.cuda.synchronize()
+    d = _scan_delta(before)
+    counted.append(d)
+    if want is not None and sorted(out.rows) != want:
+        raise AssertionError(f"({label}) is not exact: {sorted(out.rows)[:3]} vs {want[:3]}")
+    if d["launches"] != launches or (instantiations is not None and d["instantiations"] != instantiations):
+        raise AssertionError(f"({label}) launches: {d}, want {launches} {instantiations or ''}")
+    return out, d
+
+
+def _durable_cluster(seg, root, counted):
+    """(k4): the durable, highly available control plane at reduced depth;
+    the servers' staging threads stop at the end."""
+    from pinot_tpu_torch.cluster import ServerInstance
+
+    servers = [ServerInstance(f"d{i}", data_dir=os.path.join(root, f"d{i}")) for i in range(CLUSTER_SERVERS + 1)]
+    try:
+        return _durable_steps(seg, root, counted, servers)
+    finally:
+        for srv in servers:
+            if srv.residency is not None:
+                srv.residency.shutdown()
+
+
+def _durable_steps(seg, root, counted, servers):
+    """(k4)'s steps: the last of `servers` joins before the rebalance."""
+    from pinot_tpu_torch.cluster import Broker, Coordinator, CoordinatorHandle, FaultPlan
+
+    t0 = time.perf_counter()
+    table = seg["engine"].table("lineorder")
+    segments = table.query_segments()[:CLUSTER_DURABLE_SEGMENTS]
+    cnt, rev = _od_tables(seg["datas"][:CLUSTER_DURABLE_SEGMENTS], "lo_quantity", 51)
+    want = _od_rows(cnt, rev, 1, 25)
+    n = len(segments)
+    clock = _SimClock()
+    meta, deep = os.path.join(root, "meta"), os.path.join(root, "deep")
+    leader = Coordinator(replication=CLUSTER_REPLICATION, meta_dir=meta, deep_store=deep, node_id="coord-a",
+                         lease_ttl_s=CLUSTER_LEASE_TTL_S, clock=clock)
+    handle = CoordinatorHandle([leader], sleep=clock.advance, clock=clock)
+    for srv in servers[:-1]:
+        handle.register_server(srv)
+    handle.add_table(table.schema, table.config)
+    t_up = time.perf_counter()
+    for s in segments:
+        handle.add_segment("lineorder", s)
+    upload_s = time.perf_counter() - t_up
+    stored = leader.deep_store.list_segments("lineorder")
+    if stored != sorted(s.name for s in segments):
+        raise AssertionError(f"(k4) the deep store holds {stored}")
+    broker = Broker(handle)
+    steps = {}
+    _cluster_counted("k4 loaded", lambda: broker.query(CONFIG2), want, n, counted)
+
+    # a crashed server restarts from the deep store, CRC-verified
+    victim = next(s for s in sorted(leader.servers) if leader.servers[s].segment_names("lineorder"))
+    owned = sorted(leader.servers[victim].segment_names("lineorder"))
+    handle.crash_server(victim)
+    _cluster_counted("k4 crashed", lambda: broker.query(CONFIG2), want, n, counted)
+    t_re = time.perf_counter()
+    restored = handle.restart_server(victim)
+    restart_s = time.perf_counter() - t_re
+    srv = leader.servers[victim]
+    local = [os.path.realpath(srv.get_segment("lineorder", name).source_dir) for name in owned]
+    if restored != {"restored": len(owned), "dropped": 0, "missing": 0} or not all(
+            p.startswith(os.path.realpath(os.path.join(root, victim))) for p in local):
+        raise AssertionError(f"(k4) the restart did not restore from the deep store: {restored}, {local}")
+    _cluster_counted("k4 restarted", lambda: broker.query(CONFIG2), want, n, counted)
+    steps["restart"] = {"server": victim, "segments": owned, "restart_s": restart_s}
+
+    # the lease expires; the hot standby promotes while the broker serves
+    standby = Coordinator(replication=CLUSTER_REPLICATION, meta_dir=meta, deep_store=deep, node_id="coord-b",
+                          standby=True, lease_ttl_s=CLUSTER_LEASE_TTL_S, clock=clock)
+    handle.add_candidate(standby)
+    plan = FaultPlan(seed=7).attach_coordinator(leader)
+    plan.attach_coordinator(standby)
+    plan.pause_leader("coord-a")
+    t_clock = clock.t
+    _cluster_counted("k4 leaderless", lambda: broker.query(CONFIG2), want, n, counted)
+    if clock.t != t_clock:
+        raise AssertionError("(k4) a data-plane query parked behind the election")
+    handle.heartbeat(victim)  # a control-plane call: parks until the standby promotes
+    if standby.role != "leader" or standby.election.epoch != 2:
+        raise AssertionError(f"(k4) no failover: standby {standby.role} epoch {standby.election.epoch}")
+    _cluster_counted("k4 promoted", lambda: broker.query(CONFIG2), want, n, counted)
+    steps["failover"] = {"epoch": standby.election.epoch, "parked_s_simulated": clock.t - t_clock,
+                         "leader": handle.election_snapshot()["leader"]}
+
+    # a fourth server joins; rebalance moves segments while a thread queries
+    joined = servers[-1]
+    handle.register_server(joined)
+    stop, answers, errors = threading.Event(), [], []
+
+    def query_loop():
+        while not stop.is_set():
+            try:
+                answers.append(sorted(broker.query(CONFIG2).rows) == want)
+            except Exception as exc:  # the phase fails on it below
+                errors.append(repr(exc))
+                return
+
+    before = _scan_counts()
+    worker = threading.Thread(target=query_loop, name="k4-queries")
+    worker.start()
+    try:
+        while not answers and not errors:
+            time.sleep(0.001)  # at least one answer lands before the moves start
+        report = handle.rebalance("lineorder")
+        mid = len(answers)
+        while len(answers) < mid + 1 and not errors:
+            time.sleep(0.001)  # and one after the last move
+    finally:
+        stop.set()
+        worker.join()
+    torch.cuda.synchronize()
+    d = _scan_delta(before)
+    counted.append(d)
+    if errors or not all(answers) or report["segmentsMoved"] < 1 or not joined.segment_names("lineorder"):
+        raise AssertionError(f"(k4) rebalance under queries: {report}, {errors}, exact {answers}")
+    if d["launches"] < n * len(answers):
+        raise AssertionError(f"(k4) {d['launches']} launches for {len(answers)} queries of {n} segments")
+    _cluster_counted("k4 rebalanced", lambda: broker.query(CONFIG2), want, n, counted)
+    steps["rebalance"] = {**report, "queries_during": len(answers), "launches_during": d["launches"],
+                          "joined_holds": sorted(joined.segment_names("lineorder")),
+                          "ideal": {k: sorted(v) for k, v in standby.tables["lineorder"].ideal.items()}}
+    if broker.hedge_drain() != 0:
+        raise AssertionError("(k4) hedge threads outlived the item")
+    return {"segments": n, "rows": sum(s.num_docs for s in segments), "upload_s": upload_s,
+            "deep_store_bytes": sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(deep) for f in fs),
+            "steps": steps, "exact": True, "k4_s": time.perf_counter() - t0}
+
+
+def phase_cluster_path(seg, front, batch=None):
+    """Phase 4k: (k1)-(k5), each counted run exact against numpy; returns the
+    counted runs' launches, the records and the profile to run.  `batch`
+    (phase 4j's result) puts (q1)'s ServerInstance.execute wall beside
+    (k1)'s."""
+    from pinot_tpu_torch.cluster import Broker, Coordinator, FaultPlan, ServerInstance
+    from pinot_tpu_torch.ops import fused_scan
+    from pinot_tpu_torch.query.reduce import reduce_results
+    from pinot_tpu_torch.sql.parser import parse_query
+
+    t0 = time.perf_counter()
+    fused_scan.reset_counters()
+    counted, records = [], {}
+    engine = seg["engine"]
+    table = engine.table("lineorder")
+    segments = table.query_segments()
+    n = len(segments)
+    want2 = seg["golden"]["a_config2"]
+    p16 = {"p16/i32/shared": n}
+
+    # (k1) config 2 through the broker, full width and depth
+    coord = Coordinator(replication=CLUSTER_REPLICATION)
+    for i in range(CLUSTER_SERVERS):
+        coord.register_server(ServerInstance(f"k{i}"))
+    coord.add_table(table.schema, table.config)
+    for s in segments:
+        coord.add_segment("lineorder", s)
+    broker = Broker(coord)
+    _out, d = _cluster_counted("k1", lambda: broker.query(CONFIG2), want2, n, counted, p16)
+    if d["member_axis_launches"]:
+        raise AssertionError(f"(k1) member-axis launches in a single query: {d}")
+    # the same segments on one server without the broker, registered with a
+    # coordinator of its own so it carries the same budget and residency
+    direct = ServerInstance("k_direct")
+    Coordinator().register_server(direct)
+    for s in segments:
+        direct.add_segment("lineorder", s)
+    names = direct.segment_names("lineorder")
+
+    def server_execute():
+        ctx = parse_query(CONFIG2)
+        res, st = direct.execute(ctx, names)
+        return reduce_results(ctx, res, st)
+
+    if sorted(server_execute().rows) != want2:
+        raise AssertionError("(k1) ServerInstance.execute over the 8 segments is not exact")
+    broker_runs, server_runs = [], []
+    for _ in range(CLUSTER_WALL_RUNS):  # in turns: the broker, then the server alone
+        broker_runs += _wall_ms(broker, CONFIG2, runs=1)["runs_ms"]
+        server_runs += _wall_ms(_Call(server_execute), "", runs=1)["runs_ms"]
+    traced, _d = _cluster_counted("k1 traced", lambda: broker.query("SET trace = true; " + CONFIG2), want2, n,
+                                  counted, p16)
+    spans = _span_tree(traced.stats.trace)
+    for name in ("plan", "prune", "server_execute"):
+        if name not in spans:
+            raise AssertionError(f"(k1) the broker's trace has no {name} span: {sorted(spans)}")
+    records["k1_broker_config2"] = {
+        **d, "exact": True, "servers": CLUSTER_SERVERS, "replication": CLUSTER_REPLICATION, "rows": int(
+            sum(s.num_docs for s in segments)), "broker_wall_ms": statistics.median(broker_runs),
+        "broker_runs_ms": broker_runs, "server_execute_wall_ms": statistics.median(server_runs),
+        "server_execute_runs_ms": server_runs,
+        "broker_host_ms": statistics.median(broker_runs) - statistics.median(server_runs),
+        "q1_server_execute_wall_ms": batch["records"]["q1_server_execute"]["wall_ms"] if batch else "not run",
+        "traced_spans_ms": {k: spans[k] for k in ("plan", "prune", "scatter", "server_execute", "reduce")
+                            if k in spans},
+        "routing": {s: sorted(v) for s, v in coord.external_view("lineorder").items()}}
+    log("cluster_check", item="k1_broker_config2", **records["k1_broker_config2"])
+
+    # (k2) the first-routed replica crashes on its call: failover, then heal
+    victim = _first_routed(broker, "lineorder", next(iter(coord.tables["lineorder"].ideal)))
+    plan = FaultPlan(seed=11).crash_server(victim, on_call=1).attach(coord)
+    out, d = _cluster_counted("k2 failover", lambda: broker.query(CONFIG2), want2, n, counted, p16)
+    failures, state = broker.health.consecutive_failures(victim), broker.health.state(victim)
+    if [k for (_, _, k, _) in plan.log] != ["crash"] or failures != 1 or victim in coord.live or (
+            out.stats.partial_result or not any(e.get("server") == victim for e in out.stats.exceptions)):
+        raise AssertionError(f"(k2) {victim}: log {plan.log}, failures {failures}, exceptions {out.stats.exceptions}")
+    restored = coord.restart_server(victim)
+    if broker.health.state(victim) != "closed" or broker.health.consecutive_failures(victim) != 0:
+        raise AssertionError(f"(k2) restart did not heal {victim}'s breaker: {broker.health.state(victim)}")
+    _cluster_counted("k2 healed", lambda: broker.query(CONFIG2), want2, n, counted, p16)
+    records["k2_failover"] = {**d, "exact": True, "victim": victim, "breaker_after_crash": state,
+                              "failures_recorded": failures, "restart": restored,
+                              "exceptions": [e["errorCode"] for e in out.stats.exceptions],
+                              "servers_queried": out.stats.num_servers_queried,
+                              "servers_responded": out.stats.num_servers_responded}
+    log("cluster_check", item="k2_failover", **records["k2_failover"])
+
+    # (k3) (q2)'s 8 members through query_many: the member-axis launch
+    ks = list(range(18, 18 + BATCH_W))
+    q_cnt, q_rev = _od_tables(seg["datas"], "lo_quantity", 51)
+    broker.batch_clock = lambda: 0.0  # one group: flushed by query_many's drain, not a timer
+    before = _scan_counts()
+    outs = broker.query_many([_batch_q(k) for k in ks])
+    torch.cuda.synchronize()
+    d = _scan_delta(before)
+    counted.append(d)
+    for k, o in zip(ks, outs):
+        if sorted(o.rows) != _od_rows(q_cnt, q_rev, 1, k):
+            raise AssertionError(f"(k3) member lo_quantity < {k} is not exact")
+    if (d["launches"], sum(d["member_axis_launches"].values()), d["members"], d["layouts"]) != (
+            n, n, BATCH_W * n, {f"{BATCH_W}/{BATCH_W}": n}):
+        raise AssertionError(f"(k3) query_many did not take the member axis once a segment: {d}")
+    many_ms = _wall_ms(_Call(lambda: broker.query_many([_batch_q(k) for k in ks])), "", runs=3)
+    records["k3_query_many"] = {**d, "exact": True, "member_axis_layouts": d["layouts"],
+                                "wall_ms": many_ms["median_ms"], "runs_ms": many_ms["runs_ms"]}
+    log("cluster_check", item="k3_query_many", **records["k3_query_many"])
+
+    # (k4) the durable, highly available control plane at reduced depth
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cluster_", dir=os.path.join(REPO, "build"))
+    try:
+        records["k4_durable"] = _durable_cluster(seg, root, counted)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("cluster_check", item="k4_durable", **records["k4_durable"])
+
+    # (k5) the routes only the broker has, against phase 4g's goldens and
+    # the segment engine's answers
+    golden = front["seg_golden"]
+    for name in CLUSTER_ROUTES:
+        sql = FRONT_DOOR_QUERIES[name]
+        out, d = _cluster_counted(f"k5 {name}", lambda: broker.query(sql), None,
+                                  FRONT_DOOR_SEG_SCANS[name] * n, counted)
+        mine = engine.query(sql)
+        if name.startswith("y4_"):
+            ops, theirs = [r[0] for r in out.rows], [r[0] for r in mine.rows]
+            if ops[:5] != theirs[:5] or (name == "y4_explain" and out.rows != mine.rows):
+                raise AssertionError(f"(k5) {name}: {ops[:5]} vs the segment engine's {theirs[:5]}")
+        elif not _front_door_exact(name, out, golden[name]) or sorted(map(tuple, out.rows)) != sorted(
+                map(tuple, mine.rows)):
+            raise AssertionError(f"(k5) {name} is not exact")
+        records[f"k5_{name}"] = {**d, "exact": True, "rows": len(out.rows)}
+        log("cluster_check", item=f"k5_{name}", **records[f"k5_{name}"])
+
+    alive = broker.hedge_drain()
+    if alive:
+        raise AssertionError(f"{alive} hedge threads outlived phase 4k")
+    launches = sum(c["launches"] for c in counted)
+    variants, member_axis, layouts = {}, {}, {}
+    for c in counted:
+        for src, dst in ((c["instantiations"], variants), (c["member_axis_launches"], member_axis),
+                         (c["layouts"], layouts)):
+            for k, v in src.items():
+                dst[k] = dst.get(k, 0) + v
+    profiles = [("cluster_profile", {"engine": "broker", "query": "k1_config2"}, broker, CONFIG2)]
+    return {"launches": launches, "variants": variants, "member_axis_launches": member_axis,
+            "member_axis_layouts": layouts, "records": records, "profiles": profiles,
+            "servers": list(coord.servers.values()) + [direct], "cluster_s": time.perf_counter() - t0}
+
+
 def phase_storage(seg, dist, transform, dev) -> dict:
     t0 = time.perf_counter()
     log("storage_copy_rates", unit="GB/s", torch_threads=torch.get_num_threads(), **_copy_rates(dev))
@@ -4865,20 +5225,27 @@ def main() -> int:
     join = phase_join_path(seg, dist)
     realtime = phase_realtime_path(seg, args.seed + 4)
     batch = phase_batch_path(seg, dist)
+    cluster = phase_cluster_path(seg, front, batch)
     main_variants = dict(seg["variants"])
-    for part in (dist, transform, sketch, storage, index, front, join, realtime, batch):
+    for part in (dist, transform, sketch, storage, index, front, join, realtime, batch, cluster):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
     storage_launches, sketch_launches, index_launches = storage["launches"], sketch["launches"], index["launches"]
     front_launches, join_launches, realtime_launches = front["launches"], join["launches"], realtime["launches"]
-    batch_launches, member_axis_launches = batch["launches"], batch["member_axis_launches"]
-    member_axis_layouts = batch["member_axis_layouts"]
+    batch_launches, cluster_launches = batch["launches"], cluster["launches"]
+    member_axis_launches, member_axis_layouts = {}, {}
+    for part in (batch, cluster):
+        for src, dst in ((part["member_axis_launches"], member_axis_launches),
+                         (part["member_axis_layouts"], member_axis_layouts)):
+            for k, v in src.items():
+                dst[k] = dst.get(k, 0) + v
     main_launches = (sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
-                     + index_launches + front_launches + join_launches + realtime_launches + batch_launches)
+                     + index_launches + front_launches + join_launches + realtime_launches + batch_launches
+                     + cluster_launches)
     profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"]
                             + index["profiles"] + front["profiles"] + join["profiles"] + realtime["profiles"]
-                            + batch["profiles"])
+                            + batch["profiles"] + cluster["profiles"])
     for key, rec in transform["records"].items():
         engine, _, query = key.partition("/")
         prof = profiles.get(("transform_profile", engine, query), {})
@@ -4935,6 +5302,18 @@ def main() -> int:
             profiled_wall_ms=prof.get("profiled_wall_ms", "not run"),
             top_device_ops=prof.get("top_device_ops", "not run"))
     log("batch_seconds", phase_4j_s=batch["batch_s"])
+    for item, rec in cluster["records"].items():
+        log("cluster_path", item=item, **rec)
+    prof = profiles.get(("cluster_profile", "broker", "k1_config2"), {})
+    log("cluster_profile_summary", engine="broker", query="k1_config2",
+        device_busy_ms=prof.get("device_busy_ms", "not run"),
+        device_idle_share=prof.get("device_idle_share", "not run"),
+        profiled_wall_ms=prof.get("profiled_wall_ms", "not run"),
+        top_device_ops=prof.get("top_device_ops", "not run"))
+    log("cluster_seconds", phase_4k_s=cluster["cluster_s"])
+    for srv in cluster["servers"]:  # the residency managers' staging threads
+        if srv.residency is not None:
+            srv.residency.shutdown()
     batch["engine"].residency.shutdown()
     realtime["dist_engine"].residency.shutdown()
     shutil.rmtree(realtime["root"], ignore_errors=True)
@@ -4943,7 +5322,7 @@ def main() -> int:
     for e in list(dist["engines"].values()) + [index["mv_dist"]] + list(join["engines"].values()):
         e.residency.shutdown()
     vector_timing = index["vector"]
-    del seg, dist, transform, sketch, storage, index, front, join, realtime, batch
+    del seg, dist, transform, sketch, storage, index, front, join, realtime, batch, cluster
     torch.cuda.empty_cache()
 
     # 5. profile
@@ -4966,7 +5345,8 @@ def main() -> int:
                              "transform_path": transform_launches, "sketch_path": sketch_launches,
                              "storage": storage_launches, "index_path": index_launches,
                              "front_door": front_launches, "join_path": join_launches,
-                             "realtime_path": realtime_launches, "batch_path": batch_launches},
+                             "realtime_path": realtime_launches, "batch_path": batch_launches,
+                             "cluster_path": cluster_launches},
         "member_axis_launches_on_main_path": member_axis_launches,
         "member_axis_layouts_on_main_path": member_axis_layouts,
         "max_abs_err": worst,

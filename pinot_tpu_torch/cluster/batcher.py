@@ -7,8 +7,9 @@ In-flight queries that share a batch key (the broker keys on
 whole group executes as ONE batched plan launch (query/executor.py
 ``launch_segment_batch``: torch.func.vmap of the shared closure, the fused
 scan's member-axis launch).  Copy of pinot_tpu/cluster/batcher.py
-(host-only); the broker that submits to it is a later slice of the port.  A group also flushes immediately when it
-reaches ``PINOT_TPU_BATCH_MAX`` members, so saturated load never waits.
+(host-only); the broker (cluster/broker.py ``submit`` / ``query_many``)
+submits to it.  A group also flushes immediately when it reaches
+``PINOT_TPU_BATCH_MAX`` members, so saturated load never waits.
 
 Time is injectable: tests construct the batcher with a fake ``clock`` and
 drive flushes deterministically through ``pump(now)`` — no real sleeps in

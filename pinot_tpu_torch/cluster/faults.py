@@ -1,8 +1,8 @@
 """Deterministic fault injection for the cluster layer.
 
 Copy of pinot_tpu/cluster/faults.py (host-only).  In the port the server
-(cluster/server.py) consults it; the coordinator, the journal and the
-election hooks below attach once those modules are ported (ROADMAP.md).
+(cluster/server.py), the coordinator (cluster/coordinator.py), the journal
+and the lease manager (cluster/journal.py, cluster/election.py) consult it.
 
 Reference parity: Pinot exercises its failover paths with integration tests
 that kill servers mid-query (e.g. OfflineGRPCServerIntegrationTest /

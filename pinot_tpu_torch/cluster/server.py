@@ -27,8 +27,9 @@ recorded on the server's device after the last launch (the JAX package's
 block_until_ready over every pending output); `stats.device_ms` is that
 wait, and the span's `deviceMs` the device time from the first launch to
 that event.  On the CPU the launches ran eagerly and nothing is waited for.
-The deep store of `restore_segment` is duck-typed (`fetch_segment(table,
-name, local_dir)`); the cluster's own deep store is a later slice.
+`restore_segment` fetches from the cluster's deep store
+(cluster/deepstore.py: download, CRC check, load) when the coordinator
+restarts or rebalances this server.
 """
 from __future__ import annotations
 

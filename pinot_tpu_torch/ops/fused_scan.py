@@ -29,7 +29,8 @@ signature (an int64 ``index_add_`` per entry).  ``fused_group_tables`` takes
 it only for tensors on the CPU; on a CUDA tensor it launches the kernel or
 raises.  ``LAUNCHES`` counts kernel launches and nothing else;
 ``VARIANT_LAUNCHES`` splits them by instantiation and
-``MASK_WORDS_LAUNCHES`` counts those that read packed filter words.
+``MASK_WORDS_LAUNCHES`` counts those that read packed filter words
+(``count_launch``, under a lock: a broker launches from several threads).
 
 The member axis.  The JAX package runs W same-shape queries as one
 ``jax.vmap`` of the planned function, and Pallas' batching rule turns the
@@ -57,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -84,7 +86,10 @@ INSTANTIATIONS = tuple(f"{k}/{v}/shared" for k, v in SPECIALISED) + ("any/any/sh
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it),
 # in all, by instantiation ("<key mode>/<value mode>/<shared|global>") and
-# those that read the filter as packed bitmap words (mask_words)
+# those that read the filter as packed bitmap words (mask_words); the
+# increments hold _COUNT_LOCK (a broker's hedge and batcher threads and
+# concurrent scatters launch from several threads)
+_COUNT_LOCK = threading.Lock()
 LAUNCHES = 0
 VARIANT_LAUNCHES: Dict[str, int] = {}
 MASK_WORDS_LAUNCHES = 0
@@ -97,13 +102,29 @@ BATCH_LAYOUTS: Dict[str, int] = {}
 MAX_MEMBERS = 8
 
 
+def count_launch(variant: str, with_words: bool, members: int = 0, group: int = 0) -> None:
+    """Count one kernel launch (a member-axis one when `members` > 0: W
+    members in groups of `group`)."""
+    global LAUNCHES, MASK_WORDS_LAUNCHES, BATCH_MEMBERS
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        VARIANT_LAUNCHES[variant] = VARIANT_LAUNCHES.get(variant, 0) + 1
+        MASK_WORDS_LAUNCHES += with_words
+        if members:
+            BATCH_LAUNCHES[variant] = BATCH_LAUNCHES.get(variant, 0) + 1
+            layout = f"{members}/{group}"
+            BATCH_LAYOUTS[layout] = BATCH_LAYOUTS.get(layout, 0) + 1
+            BATCH_MEMBERS += members
+
+
 def reset_counters() -> None:
     """Zero every launch counter of this module."""
     global LAUNCHES, MASK_WORDS_LAUNCHES, BATCH_MEMBERS
-    LAUNCHES = MASK_WORDS_LAUNCHES = BATCH_MEMBERS = 0
-    VARIANT_LAUNCHES.clear()
-    BATCH_LAUNCHES.clear()
-    BATCH_LAYOUTS.clear()
+    with _COUNT_LOCK:
+        LAUNCHES = MASK_WORDS_LAUNCHES = BATCH_MEMBERS = 0
+        VARIANT_LAUNCHES.clear()
+        BATCH_LAUNCHES.clear()
+        BATCH_LAYOUTS.clear()
 
 _INT_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.uint16, torch.int32, torch.uint32, torch.int64)
 # ElemType codes of csrc/fused_scan.cu
@@ -529,7 +550,6 @@ def _entry_order(rows: torch.Tensor, order: List[int]) -> List[torch.Tensor]:
 
 
 def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> List[torch.Tensor]:
-    global LAUNCHES, MASK_WORDS_LAUNCHES
     lib = _library()
     device = key_t.device
     out = torch.zeros((len(entries), num_groups), dtype=torch.int64, device=device)
@@ -541,9 +561,7 @@ def _launch(entries, key_t, key_bits, n, num_groups, mask_words, code_pred) -> L
         err = lib.pinot_fused_scan(ctypes.byref(p), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused scan launch failed: {lib.pinot_cuda_error_string(err).decode()}")
-    LAUNCHES += 1
-    VARIANT_LAUNCHES[variant] = VARIANT_LAUNCHES.get(variant, 0) + 1
-    MASK_WORDS_LAUNCHES += mask_words is not None
+    count_launch(variant, mask_words is not None)
     return _entry_order(out.to(torch.float64), order)
 
 
@@ -560,19 +578,12 @@ def _launch_struct(lib, b, order, variant: str, layout: BatchLayout, num_groups:
                    with_words: bool) -> torch.Tensor:
     """ONE member-axis launch of a built ScanBatch (on the current device,
     the members' own); returns f64 [W, E, G] in entry order."""
-    global LAUNCHES, MASK_WORDS_LAUNCHES, BATCH_MEMBERS
     W = b.h.members
     out = torch.zeros((W, len(order), num_groups), dtype=torch.int64, device=device)
     err = lib.pinot_fused_scan_batch(ctypes.byref(b), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused scan member-axis launch failed: {lib.pinot_cuda_error_string(err).decode()}")
-    LAUNCHES += 1
-    VARIANT_LAUNCHES[variant] = VARIANT_LAUNCHES.get(variant, 0) + 1
-    BATCH_LAUNCHES[variant] = BATCH_LAUNCHES.get(variant, 0) + 1
-    layout_key = f"{W}/{layout.group}"
-    BATCH_LAYOUTS[layout_key] = BATCH_LAYOUTS.get(layout_key, 0) + 1
-    BATCH_MEMBERS += W
-    MASK_WORDS_LAUNCHES += with_words
+    count_launch(variant, with_words, members=W, group=layout.group)
     out = out.to(torch.float64)
     if order == sorted(order):
         return out

@@ -72,8 +72,8 @@ in the named LRU "compile.dist" and the batched closures in
 Refused with NotImplementedError, each a reference fault (ROADMAP Queue 3):
 set operations and EXPLAIN / EXPLAIN ANALYZE, which the JAX engine ignores
 (it answers the first component, or runs the query), and IN (SELECT ...),
-on which it faults with a TypeError; the broker routes them in the JAX
-package (the cluster tier, item 6).
+on which it faults with a TypeError; the broker (cluster/broker.py) routes
+them over ServerInstances in both packages.
 """
 from __future__ import annotations
 

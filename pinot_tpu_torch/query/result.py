@@ -4,8 +4,10 @@ Trimmed copy of pinot_tpu/query/result.py: the aggregation, group-by and
 selection results of single-table SQL, and ExecutionStats with the analytic
 cost model's kernel bytes and flops (utils/perf.py, source "analytic") in
 place of the TPU cost model (the device-time metrics of the port come from
-chip runs), and the trace span tree of a query run with trace=true.  Results
-are columnar numpy end to end.
+chip runs), the trace span tree of a query run with trace=true, and the
+broker's scatter-gather surface (servers queried and responded, partial
+results and their exceptions, hedging and brownout events).  Results are
+columnar numpy end to end.
 """
 from __future__ import annotations
 
@@ -45,6 +47,23 @@ class ExecutionStats:
     query_id: Optional[str] = None
     # span tree dict when the query ran with trace=true (utils/metrics.Trace)
     trace: Optional[dict] = None
+    # scatter-gather fault surface (BrokerResponse partialResult /
+    # processingExceptions / numServersQueried|Responded analog): a query
+    # that lost segments but was allowed to degrade carries
+    # partial_result=True plus one exception entry per absorbed failure
+    num_servers_queried: int = 0
+    num_servers_responded: int = 0
+    partial_result: bool = False
+    exceptions: List[Dict[str, Any]] = field(default_factory=list)
+    # tail-tolerance surface (hedged scatter + brownout router): how many
+    # scatter calls hedged a backup, which server won the last hedged call,
+    # how long the cancelled loser ran (best-effort: the loser thread stamps
+    # it when its cooperative kill lands), and any brownout transitions
+    # ("enter:server" / "exit:server") observed this query
+    hedged: int = 0
+    hedge_winner: Optional[str] = None
+    hedge_cancelled_ms: float = 0.0
+    brownout_events: List[str] = field(default_factory=list)
 
     def add_kernel_cost(self, other: "ExecutionStats") -> None:
         """Accumulate the kernel-cost slice of `other` (one launch's stats)."""

@@ -3,9 +3,10 @@
 Copy of pinot_tpu/realtime/manager.py (host-only).  The data directory
 (sealed segments in the shared on-disk format, checkpoint.json and its
 .bak, with the same keys) is the JAX package's, so a directory either
-package wrote recovers under the other.  The deep store is duck-typed
-(put_segment / has_segment / fetch_segment): the port's comes with the
-cluster slice.  After a seal the consuming segment's last snapshot frees
+package wrote recovers under the other.  A seal uploads its segment to the
+deep store (cluster/deepstore.py SegmentDeepStore, which the coordinator's
+add_realtime_table passes in; any object with put_segment / has_segment /
+fetch_segment does) before the checkpoint commits.  After a seal the consuming segment's last snapshot frees
 its device columns (realtime/mutable.py).
 
 Reference parity: RealtimeSegmentDataManager (pinot-core/.../data/manager/

@@ -5,8 +5,9 @@ dictionaries, bit-packed forward indexes, column stats, the inverted,
 range, bloom, JSON and text indexes, multi-value columns (a padded
 [num_docs, max_len] code matrix with per-row lengths), embedding columns
 with their vector index, the star-tree levels, the time range of the
-table's time column, and `output_dir=` (the segment is saved there as it
-is built).  Partition metadata comes with the cluster slice.
+table's time column, the partition of a segment whose rows all hash to one
+partition of the table's partition column (the broker's partition pruner
+reads it), and `output_dir=` (the segment is saved there as it is built).
 
 A multi-value column's input is a sequence of per-row sequences (None is
 an empty row), as in the JAX package, or a ``RaggedColumn`` of flat values
@@ -41,6 +42,7 @@ from pinot_tpu_torch.segment.segment import ColumnData, ImmutableSegment
 from pinot_tpu_torch.segment.stats import collect_stats
 from pinot_tpu_torch.spi.config import IndexingConfig, TableConfig
 from pinot_tpu_torch.spi.schema import FieldRole, Schema
+from pinot_tpu_torch.utils.hashing import partition_of
 
 # Above this cardinality, dense bitmap indexes give way to posting lists.
 MAX_BITMAP_INDEX_CARDINALITY = 1 << 16
@@ -234,6 +236,16 @@ def build_segment(
     trees = build_star_trees(columns, num_docs, idx_cfg.star_tree_index_configs)
     if trees:
         indexes["startree"] = trees
+
+    # partition metadata for the broker's partition pruner: a segment whose
+    # rows all hash to one partition of the table's partition column records
+    # it in that column's stats (and the coordinator journals it)
+    if cfg.partition_column and cfg.partition_column in columns and cfg.num_partitions:
+        col = columns[cfg.partition_column]
+        pids = np.unique([partition_of(v, cfg.num_partitions) for v in col.decoded().tolist()])
+        if len(pids) == 1:
+            col.stats.partition_id = int(pids[0])
+            col.stats.num_partitions = cfg.num_partitions
 
     time_range = None
     tc = cfg.segments.time_column

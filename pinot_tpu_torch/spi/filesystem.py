@@ -1,18 +1,23 @@
-"""The durable-write discipline of segment persistence, and the line tailer.
+"""PinotFS: deep-store filesystem abstraction + durable-write discipline.
 
-Copy of the durable-write part of pinot_tpu/spi/filesystem.py: the one idiom
-(tmp write -> flush -> fsync -> os.replace -> directory fsync) that segment
-metadata commits through, so a crash at ANY point leaves either the old
-committed file or the new one, never a torn file; and of its TailFollower,
-the incremental reader of an append-only line file that the realtime file
-stream (realtime/stream.py) consumes through.  The deep-store filesystems
-(PinotFS) come with the cluster slice of the port.
+Copy of pinot_tpu/spi/filesystem.py.  The one durable-write idiom (tmp
+write -> flush -> fsync -> os.replace -> directory fsync) that segment
+metadata, realtime checkpoints and the coordinator journal commit through,
+so a crash at ANY point leaves either the old committed file or the new
+one, never a torn file; TailFollower, the incremental reader of an
+append-only line file that the realtime file stream (realtime/stream.py)
+and the standby coordinator's journal follower (cluster/election.py)
+consume through; and the deep store's filesystem contract, `PinotFS`, with
+`LocalPinotFS` first-party and other schemes registered by `register_fs`
+(an s3:// URI with nothing registered fails with a pointed message).
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Callable, List, Optional, Tuple
+import shutil
+from typing import Any, Callable, Dict, List, Optional, Tuple
+from urllib.parse import urlparse
 
 from pinot_tpu_torch.utils.crashpoints import crash_point
 
@@ -189,3 +194,104 @@ class TailFollower:
                     return pos
                 pos = f.tell()
         return None
+
+
+class PinotFS:
+    """Filesystem contract (mkdir/delete/move/copy/exists/length/listFiles/
+    copyToLocal/copyFromLocal), operating on scheme-less paths."""
+
+    def mkdir(self, path: str) -> None:
+        raise NotImplementedError
+
+    def delete(self, path: str, force: bool = False) -> bool:
+        raise NotImplementedError
+
+    def move(self, src: str, dst: str) -> bool:
+        raise NotImplementedError
+
+    def copy(self, src: str, dst: str) -> bool:
+        raise NotImplementedError
+
+    def exists(self, path: str) -> bool:
+        raise NotImplementedError
+
+    def length(self, path: str) -> int:
+        raise NotImplementedError
+
+    def list_files(self, path: str, recursive: bool = False) -> List[str]:
+        raise NotImplementedError
+
+    def copy_to_local(self, src: str, dst: str) -> None:
+        self.copy(src, dst)
+
+    def copy_from_local(self, src: str, dst: str) -> None:
+        self.copy(src, dst)
+
+
+class LocalPinotFS(PinotFS):
+    def mkdir(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+
+    def delete(self, path: str, force: bool = False) -> bool:
+        if os.path.isdir(path):
+            if os.listdir(path) and not force:
+                return False
+            shutil.rmtree(path)
+            return True
+        if os.path.exists(path):
+            os.remove(path)
+            return True
+        return False
+
+    def move(self, src: str, dst: str) -> bool:
+        os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
+        shutil.move(src, dst)
+        return True
+
+    def copy(self, src: str, dst: str) -> bool:
+        os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
+        if os.path.isdir(src):
+            shutil.copytree(src, dst, dirs_exist_ok=True)
+        else:
+            shutil.copy2(src, dst)
+        return True
+
+    def exists(self, path: str) -> bool:
+        return os.path.exists(path)
+
+    def length(self, path: str) -> int:
+        return os.path.getsize(path)
+
+    def list_files(self, path: str, recursive: bool = False) -> List[str]:
+        if not recursive:
+            return sorted(os.path.join(path, f) for f in os.listdir(path))
+        out = []
+        for root, _, files in os.walk(path):
+            out.extend(os.path.join(root, f) for f in files)
+        return sorted(out)
+
+
+_FS_REGISTRY: Dict[str, Callable[[], PinotFS]] = {
+    "": lambda: LocalPinotFS(),
+    "file": lambda: LocalPinotFS(),
+}
+
+
+def register_fs(scheme: str, factory: Callable[[], PinotFS]) -> None:
+    _FS_REGISTRY[scheme] = factory
+
+
+def fs_for_uri(uri: str) -> PinotFS:
+    scheme = urlparse(uri).scheme
+    factory = _FS_REGISTRY.get(scheme)
+    if factory is None:
+        raise ValueError(
+            f"no PinotFS registered for scheme {scheme!r} (register via "
+            "pinot_tpu_torch.spi.filesystem.register_fs; cloud plugins are not bundled)"
+        )
+    return factory()
+
+
+def strip_scheme(uri: str) -> str:
+    p = urlparse(uri)
+    return p.path if p.scheme else uri

@@ -1,7 +1,9 @@
 """Named kill-points: deterministic crash injection between commit steps.
 
 Copy of pinot_tpu/utils/crashpoints.py.  Every multi-step commit path of the
-port (segment write, residency staging) calls `crash_point("<path>.<step>")`
+port (segment write, realtime seal and checkpoint, deep-store upload and
+download, journal append and snapshot compaction, lease acquire and renew,
+the coordinator's add_segment, rebalance moves, residency staging) calls `crash_point("<path>.<step>")`
 between its write/rename/swap steps.  Production cost is one dict lookup
 against an empty registry; a test arms a point with `arm` and the Nth hit
 raises InjectedCrash, the process-death stand-in.  The test then rebuilds

@@ -1,23 +1,31 @@
 """Process-wide metrics registry (ServerMetrics/BrokerMetrics analog):
 counters, gauges, timers and histograms keyed by name.
 
-Copy of pinot_tpu/utils/metrics.py without the Prometheus exposition and
-the cross-server federation (they come with the cluster tier): `Counter`,
-`Gauge`, `Timer`, `Histogram`, `MetricsRegistry` (`snapshot`, `reset`), the
-process registry `METRICS`, and the trace spans `Span` / `Trace` (off by
+Copy of pinot_tpu/utils/metrics.py: `Counter`, `Gauge`, `Timer`,
+`Histogram`, `MetricsRegistry` (`snapshot`, `reset`, `to_prometheus`), the
+process registry `METRICS`, the cross-server merge and Prometheus
+federation the broker exposes (`merge_registry_snapshots`,
+`federate_prometheus`), and the trace spans `Span` / `Trace` (off by
 default; a disabled Trace costs one attribute check a span).
 Emitters call METRICS.counter("dist.queries").inc() on the hot path (dict
 lookups only).
 
-Thread-safety contract: concurrent queries and the residency staging thread
-mutate the same metric objects, so every read-modify-write holds that
-metric's own lock (a bare `+=` on an attribute is NOT atomic in CPython),
-and snapshot() copies the name->metric maps under the registry lock before
-reading each metric under its own.
+Thread-safety contract: concurrent queries, scatter and hedge threads and
+the residency staging thread mutate the same metric objects, so every
+read-modify-write holds that metric's own lock (a bare `+=` on an attribute
+is NOT atomic in CPython), and snapshot() copies the name->metric maps under
+the registry lock before reading each metric under its own — a snapshot
+taken mid-traffic is internally consistent per metric and never races a
+concurrent register.
+
+Exposure formats: snapshot() is the JSON surface; to_prometheus() renders
+the same registry as Prometheus text exposition 0.0.4 (histograms as
+cumulative `_bucket{le=...}` series the way promhttp would).
 """
 from __future__ import annotations
 
 import bisect
+import re
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -149,6 +157,18 @@ class Histogram:
                 "p99Ms": self._quantile_locked(0.99),
             }
 
+    def buckets(self) -> List[Tuple[float, int]]:
+        """Cumulative (upper_bound_ms, count<=bound) pairs, +Inf last —
+        exactly the Prometheus histogram series shape."""
+        with self._lock:
+            out: List[Tuple[float, int]] = []
+            cum = 0
+            for b, c in zip(self.bounds, self.counts):
+                cum += c
+                out.append((b, cum))
+            out.append((float("inf"), self.count))
+            return out
+
 
 class MetricsRegistry:
     def __init__(self) -> None:
@@ -206,12 +226,172 @@ class MetricsRegistry:
             "histograms": {k: h._snap() for k, h in hists.items()},
         }
 
+    def to_prometheus(self, prefix: str = "pinot") -> str:
+        """Prometheus text exposition 0.0.4 of the whole registry."""
+        counters, gauges, timers, hists = self._copies()
+        lines: List[str] = []
+        for name, c in sorted(counters.items()):
+            full = f"{prefix}_{_prom_name(name)}_total"
+            lines.append(f"# TYPE {full} counter")
+            lines.append(f"{full} {c.value}")
+        for name, g in sorted(gauges.items()):
+            full = f"{prefix}_{_prom_name(name)}"
+            lines.append(f"# TYPE {full} gauge")
+            lines.append(f"{full} {_prom_num(g.value)}")
+        for name, t in sorted(timers.items()):
+            full = f"{prefix}_{_prom_name(name)}_ms"
+            s = t._snap()
+            lines.append(f"# TYPE {full} summary")
+            lines.append(f"{full}_sum {_prom_num(s['count'] * s['meanMs'])}")
+            lines.append(f"{full}_count {s['count']}")
+        for name, h in sorted(hists.items()):
+            full = f"{prefix}_{_prom_name(name)}_ms"
+            lines.append(f"# TYPE {full} histogram")
+            for bound, cum in h.buckets():
+                le = "+Inf" if bound == float("inf") else f"{bound:g}"
+                lines.append(f'{full}_bucket{{le="{le}"}} {cum}')
+            with h._lock:
+                total, count = h.sum_ms, h.count
+            lines.append(f"{full}_sum {_prom_num(total)}")
+            lines.append(f"{full}_count {count}")
+        return "\n".join(lines) + "\n"
+
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
             self._timers.clear()
             self._histograms.clear()
+
+
+def _prom_name(name: str) -> str:
+    s = re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+    return s if re.match(r"[a-zA-Z_:]", s) else "_" + s
+
+
+def _prom_num(v: float) -> str:
+    return f"{v:g}"
+
+
+def merge_registry_snapshots(registries: Dict[str, "MetricsRegistry"]) -> Dict[str, Any]:
+    """Cluster-level merge of per-source registries, with per-TYPE semantics:
+
+    - counters: SUM (monotone totals add across processes)
+    - gauges: LAST (point-in-time levels; the lexicographically last source
+      wins, deterministic for tests — a real scrape would use scrape time)
+    - timers: count/total SUM, max MAX (the slowest anywhere is the
+      cluster's max)
+    - histograms: bucket-wise SUM (cumulative bucket counts add exactly)
+
+    Source iteration is sorted by name so the merge is deterministic."""
+    counters: Dict[str, int] = {}
+    gauges: Dict[str, float] = {}
+    timers: Dict[str, Dict[str, float]] = {}
+    hist_counts: Dict[str, List[int]] = {}
+    hist_meta: Dict[str, Dict[str, float]] = {}
+    hist_bounds: Dict[str, Tuple[float, ...]] = {}
+    for src in sorted(registries):
+        cs, gs, ts, hs = registries[src]._copies()
+        for name, c in cs.items():
+            counters[name] = counters.get(name, 0) + c.value
+        for name, g in gs.items():
+            gauges[name] = g.value  # last-wins
+        for name, t in ts.items():
+            with t._lock:
+                count, total, mx = t.count, t.total_ms, t.max_ms
+            agg = timers.setdefault(name, {"count": 0, "totalMs": 0.0, "maxMs": 0.0})
+            agg["count"] += count
+            agg["totalMs"] += total
+            agg["maxMs"] = max(agg["maxMs"], mx)
+        for name, h in hs.items():
+            with h._lock:
+                counts, total, count, mx = list(h.counts), h.sum_ms, h.count, h.max_ms
+            if name not in hist_counts:
+                hist_counts[name] = [0] * len(counts)
+                hist_bounds[name] = h.bounds
+                hist_meta[name] = {"count": 0, "sumMs": 0.0, "maxMs": 0.0}
+            if len(hist_counts[name]) == len(counts):
+                hist_counts[name] = [a + b for a, b in zip(hist_counts[name], counts)]
+            meta = hist_meta[name]
+            meta["count"] += count
+            meta["sumMs"] += total
+            meta["maxMs"] = max(meta["maxMs"], mx)
+    return {
+        "counters": counters,
+        "gauges": gauges,
+        "timers": {
+            k: {
+                "count": v["count"],
+                "meanMs": v["totalMs"] / v["count"] if v["count"] else 0.0,
+                "maxMs": v["maxMs"],
+            }
+            for k, v in timers.items()
+        },
+        "histograms": {
+            k: {"bounds": list(hist_bounds[k]), "counts": hist_counts[k], **hist_meta[k]}
+            for k in hist_counts
+        },
+    }
+
+
+def federate_prometheus(
+    registries: Dict[str, "MetricsRegistry"],
+    prefix: str = "pinot",
+    label: str = "server",
+) -> str:
+    """Prometheus text exposition of a fleet of registries: every series
+    appears once per source with a `{server="..."}` label, plus a merged
+    `{prefix}_cluster_*` aggregate per series using the
+    merge_registry_snapshots semantics (counters sum, gauges last, timers
+    sum+max, histogram buckets sum).  Per-source histogram buckets are
+    elided (series-count discipline) — the labeled `_sum`/`_count` pair plus
+    the merged cluster buckets carry the distribution."""
+    lines: List[str] = []
+    for src in sorted(registries):
+        counters, gauges, timers, hists = registries[src]._copies()
+        tag = f'{{{label}="{src}"}}'
+        for name, c in sorted(counters.items()):
+            lines.append(f"{prefix}_{_prom_name(name)}_total{tag} {c.value}")
+        for name, g in sorted(gauges.items()):
+            lines.append(f"{prefix}_{_prom_name(name)}{tag} {_prom_num(g.value)}")
+        for name, t in sorted(timers.items()):
+            s = t._snap()
+            full = f"{prefix}_{_prom_name(name)}_ms"
+            lines.append(f"{full}_sum{tag} {_prom_num(s['count'] * s['meanMs'])}")
+            lines.append(f"{full}_count{tag} {s['count']}")
+            lines.append(f"{full}_max{tag} {_prom_num(s['maxMs'])}")
+        for name, h in sorted(hists.items()):
+            s = h._snap()
+            full = f"{prefix}_{_prom_name(name)}_ms"
+            lines.append(f"{full}_sum{tag} {_prom_num(s['count'] * s['meanMs'])}")
+            lines.append(f"{full}_count{tag} {s['count']}")
+    merged = merge_registry_snapshots(registries)
+    cp = f"{prefix}_cluster"
+    for name, v in sorted(merged["counters"].items()):
+        full = f"{cp}_{_prom_name(name)}_total"
+        lines.append(f"# TYPE {full} counter")
+        lines.append(f"{full} {v}")
+    for name, v in sorted(merged["gauges"].items()):
+        full = f"{cp}_{_prom_name(name)}"
+        lines.append(f"# TYPE {full} gauge")
+        lines.append(f"{full} {_prom_num(v)}")
+    for name, t in sorted(merged["timers"].items()):
+        full = f"{cp}_{_prom_name(name)}_ms"
+        lines.append(f"# TYPE {full} summary")
+        lines.append(f"{full}_sum {_prom_num(t['count'] * t['meanMs'])}")
+        lines.append(f"{full}_count {t['count']}")
+        lines.append(f"{full}_max {_prom_num(t['maxMs'])}")
+    for name, h in sorted(merged["histograms"].items()):
+        full = f"{cp}_{_prom_name(name)}_ms"
+        lines.append(f"# TYPE {full} histogram")
+        cum = 0
+        for bound, c in zip(h["bounds"], h["counts"]):
+            cum += c
+            lines.append(f'{full}_bucket{{le="{bound:g}"}} {cum}')
+        lines.append(f'{full}_bucket{{le="+Inf"}} {h["count"]}')
+        lines.append(f"{full}_sum {_prom_num(h['sumMs'])}")
+        lines.append(f"{full}_count {h['count']}")
+    return "\n".join(lines) + "\n"
 
 
 METRICS = MetricsRegistry()

@@ -3,20 +3,20 @@
 Reference parity: Pinot's broker query log (BaseSingleStageBrokerRequestHandler
 logs requestId/SQL/timing per request, rate-limited) + the druid-style
 /debug surface.  Re-design: an in-memory deque (`QueryEngine.slow_queries`,
-`snapshot()` newest first; the REST and CLI views come with the cluster
-tier); queries over `slow_ms` additionally keep their full span tree, so
-the tail that matters arrives with its own flame graph attached.
+`Broker.slow_queries`; `snapshot()` newest first; the REST and CLI views
+come with a later slice); queries over `slow_ms` additionally keep their
+full span tree, so the tail that matters arrives with its own flame graph
+attached.
 
 Entries are plain dicts (JSON-ready); SQL text is stored verbatim but
 NEVER used as a metric/span name, and the plan fingerprint is stored as a
 short digest — full fingerprints embed literal values.
 
-Copy of pinot_tpu/utils/slowlog.py (host-only) with the same entry keys;
+Copy of pinot_tpu/utils/slowlog.py (host-only) with the same entry keys:
 the broker's result cache, partial results, kill records, hedging and
-brownout come with the cluster tier, so those keys read None / False / 0
-and the kill, hedge and brownout entries never appear.  The cost keys carry
-the analytic model (costSource "analytic"); there is no compile step, so
-compileMs is the plan-cache miss's host ms where an engine reports one.
+brownout entries included.  The cost keys carry the analytic model
+(costSource "analytic"); there is no compile step, so compileMs is the
+plan-cache miss's host ms where an engine reports one.
 """
 from __future__ import annotations
 
@@ -74,18 +74,18 @@ class SlowQueryLog:
             if shape_fingerprint is not None
             else None,
             # "hit" | "miss" when the broker result cache was consulted
-            "resultCache": None,
+            "resultCache": getattr(stats, "result_cache", None) if stats else None,
             "timeMs": round(time_ms, 3),
             "rows": len(result.rows) if result is not None else 0,
             "numDocsScanned": stats.num_docs_scanned if stats else 0,
             "numSegmentsProcessed": stats.num_segments_processed if stats else 0,
-            "partialResult": False,
-            "numExceptions": 0,
+            "partialResult": bool(stats.partial_result) if stats else False,
+            "numExceptions": len(stats.exceptions) if stats else 0,
         }
         # kernel cost accounting (utils/perf.py): the analytic bytes/flops
         # the scans streamed and the achieved roofline % — slow queries
         # annotated with whether the device or the host made them slow
-        if stats is not None and stats.kernel_bytes:
+        if stats is not None and getattr(stats, "kernel_bytes", 0):
             from pinot_tpu_torch.utils.perf import roofline_pct
 
             entry["kernelBytes"] = round(stats.kernel_bytes, 1)
@@ -100,7 +100,26 @@ class SlowQueryLog:
                 entry["rowsPerSec"] = round(stats.num_docs_scanned / (time_ms / 1000.0), 1)
         if error is not None:
             entry["error"] = error
-        if time_ms >= self.slow_ms or error is not None:
+        # watchdog kill record: a killed-but-partial query carries its
+        # QUERY_KILLED exception entry (query id, reason, server) — surface
+        # it top-level so /debug/queries and the CLI show kills at a glance
+        if stats is not None:
+            for exc in stats.exceptions:
+                if isinstance(exc, dict) and exc.get("errorCode") == "QUERY_KILLED":
+                    entry["kill"] = exc
+                    break
+        # tail-tolerance decisions: hedged scatter calls and brownout
+        # transitions surface top-level, so /debug/queries and EXPLAIN
+        # ANALYZE show WHY a tail query came back fast (or didn't)
+        if stats is not None and getattr(stats, "hedged", 0):
+            entry["hedge"] = {
+                "hedged": stats.hedged,
+                "winner": stats.hedge_winner,
+                "cancelledMs": round(stats.hedge_cancelled_ms, 3),
+            }
+        if stats is not None and getattr(stats, "brownout_events", None):
+            entry["brownout"] = list(stats.brownout_events)
+        if time_ms >= self.slow_ms or error is not None or "kill" in entry:
             METRICS.counter("broker.slowQueries").inc()
             if stats is not None and stats.trace is not None:
                 entry["trace"] = stats.trace

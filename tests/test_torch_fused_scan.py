@@ -455,3 +455,43 @@ def test_build_params_rejects_like_the_kernel_wrapper():
                                 None, None, SMEM_OPTIN)
     with pytest.raises(ValueError, match="shape"):
         fused_scan.build_params([("count", None, mask, None)], key[:-1], 0, n, 4, None, None, SMEM_OPTIN)
+
+
+def test_launch_counters_lose_no_increment_across_threads():
+    """Launches come from several threads (a broker's hedge and batcher
+    threads, concurrent scatters): count_launch's read-modify-writes hold a
+    lock, so 8 threads x 2,000 launches count exactly, with the interpreter
+    switching threads as often as it can."""
+    import sys
+    import threading
+
+    saved = (fused_scan.LAUNCHES, dict(fused_scan.VARIANT_LAUNCHES), fused_scan.MASK_WORDS_LAUNCHES,
+             dict(fused_scan.BATCH_LAUNCHES), fused_scan.BATCH_MEMBERS, dict(fused_scan.BATCH_LAYOUTS))
+    fused_scan.reset_counters()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(i):
+            for _ in range(2000):
+                if i % 2:
+                    fused_scan.count_launch("p16/i32/shared", True, members=8, group=8)
+                else:
+                    fused_scan.count_launch("i32/i32/shared", False)
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        assert fused_scan.LAUNCHES == 16000 and fused_scan.MASK_WORDS_LAUNCHES == 8000
+        assert fused_scan.VARIANT_LAUNCHES == {"p16/i32/shared": 8000, "i32/i32/shared": 8000}
+        assert fused_scan.BATCH_LAUNCHES == {"p16/i32/shared": 8000} and fused_scan.BATCH_MEMBERS == 64000
+        assert fused_scan.BATCH_LAYOUTS == {"8/8": 8000}
+    finally:
+        sys.setswitchinterval(interval)
+        fused_scan.reset_counters()
+        fused_scan.LAUNCHES, fused_scan.MASK_WORDS_LAUNCHES, fused_scan.BATCH_MEMBERS = saved[0], saved[2], saved[4]
+        fused_scan.VARIANT_LAUNCHES.update(saved[1])
+        fused_scan.BATCH_LAUNCHES.update(saved[3])
+        fused_scan.BATCH_LAYOUTS.update(saved[5])
