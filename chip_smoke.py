@@ -69,9 +69,10 @@ Phases, in order; any failure raises and the process exits non-zero:
                 the device merge.  Every result EXACTLY equal to a numpy
                 golden at both batchings, the route of each query checked
                 from the counters around one counted run per engine; the
-                20-literal sweep plans once; warm medians of 5 ((d): of 2),
-                the host ms of the words and their copy, then a profile of
-                each query.
+                20-literal sweep plans once; warm medians of 5 ((d): one
+                run, cut from two for the script's limit), the host ms of
+                the words and their copy, then a profile of each query
+                ((d) at one launch only, cut from both batchings).
  4c. transform_path - on the tables of phases 4 and 4b (no second build):
                 (e) a FILTER (WHERE ...) group-by, (f) SSB Q1.1's
                 SUM(lo_revenue * lo_discount), (g) a GROUP BY MOD(...) key
@@ -98,7 +99,8 @@ Phases, in order; any failure raises and the process exits non-zero:
                 the sparse (d) group-by with DISTINCTCOUNTHLL(lo_revenue, 5)
                 on the distributed engine; each counted once and held
                 against a numpy golden (sketch fields equal, float
-                statistics to rtol 1e-9), then warm medians and a profile;
+                statistics to rtol 1e-9), then warm medians (of 5; (m) of
+                3 and (o) one run, cut for the script's limit) and a profile;
                 then the funnel kernel at four shapes (the 2^20-row check's,
                 one segment's rows: the segment engine's launch, (n)'s on
                 the stacked table, and skewed keys at the kernel's tile
@@ -140,10 +142,10 @@ Phases, in order; any failure raises and the process exits non-zero:
                 result against a numpy golden, then warm medians.
                 Profiles (phases 4-4j) run last: in each session the query
                 runs once unmeasured, then once inside a record_function
-                range whose device events are summed; the main paths'
-                queries (phases 4 and 4b) take up to two sessions (one
-                complete session past 1 s of wall, (d), stops them), every
-                other phase's one session each (the script's time limit).
+                range whose device events are summed; the segment main
+                path's queries (phase 4) take up to two sessions, every
+                other phase's one session each (the script's time limit;
+                phase 4b's cut from two).
  4g. front_door (after 4f) - on the tables of phases 4 and 4b: (y1)
                 GAPFILL with FILL_PREVIOUS_VALUE and with the null fill
                 over the 2406 days (a tenth of them filtered out), (y2)
@@ -251,6 +253,39 @@ Phases, in order; any failure raises and the process exits non-zero:
                 ...), EXPLAIN and EXPLAIN ANALYZE of phase 4g, each exact
                 against its numpy golden and equal to the segment engine's
                 answer.  Launches counted an item; hedge_drain() at the end.
+ 4l. serving_path (after 4k) - the serving surface over phase 4k's
+                coordinator and broker (phase 4's 8 segments at full width):
+                (l1) QueryServer(broker) on 127.0.0.1 queried through
+                PinotClient: config 2 over HTTP exact in 8 launches, its
+                warm median of 9 in turns with Broker.query; a top-100
+                selection paged through a cursor, equal to the segment
+                engine's rows; /metrics (Prometheus text federating the three
+                servers, and JSON) and the five /debug views; a malformed
+                query (400, no launch), an expired timeoutMs (408), a table
+                quota (429) and both replicas of a segment failing (503
+                NO_REPLICA_AVAILABLE); eight concurrent clients, each exact;
+                (l2) the CLI: create-segment from a lineorder CSV of 2^22
+                rows (cut from a segment's 2^23 for the script's limit; the
+                parse timed inside the command), its columns equal to
+                build_segment's over the same arrays; query on the card (no
+                --device), exact in 1 launch; serve as a child process over
+                that segment, queried over HTTP and stopped with SIGINT (exit
+                0, the kernel library not rebuilt); slow-queries, admission,
+                election, autopilot and perf against (l1)'s server; perf
+                --check passing and failing over records under build/;
+                quickstart; (l3) a coordinator-owned realtime table of 2^21 +
+                2^19 rows at 2^20 rows a segment, RealtimeToOffline of its
+                two sealed segments, MergeRollupTask and PurgeTask
+                (lo_quantity = 50) on the offline table, config 2 and the
+                counts exact after each; (l4) a materialized view of (day,
+                quantity) with COUNT and SUM(lo_revenue) over phase 4's table:
+                config 2 rewritten onto it exact, its wall in turns with the
+                source's; a ninth segment (2^20 rows) stales it, the query
+                falls back exact, a refresh repairs it (the ninth segment is
+                then taken out again); (l5) config 2 through
+                ServerInstance.execute on (q1)'s bare server and on phase 4k's
+                coordinator-registered one, 9 runs each in turns.  One
+                serving_path line an item; launches counted an item.
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
@@ -264,8 +299,8 @@ Phases, in order; any failure raises and the process exits non-zero:
                 member_phases.py's); and the code-range shape asserted
                 under half of 8 x the distributed main path's launch.
   6. summary  - one {"kernels": [...]} JSON line (fused_scan, funnel_scan; launches_by_path
-                includes front_door, join_path, realtime_path, batch_path and
-                cluster_path; the
+                includes front_door, join_path, realtime_path, batch_path,
+                cluster_path and serving_path; the
                 member-axis launches by instantiation and by layout, and each
                 member-axis shape with its Wg; flush_ms names
                 member_phases.py, which measures it), the card's
@@ -277,6 +312,7 @@ import argparse
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1767,7 +1803,7 @@ def phase_dist_main_path(args, dev):
     for label, e in engines.items():
         for name, sql in DIST_QUERIES.items():
             ms = []
-            for _ in range(2 if name == "d_sparse_groupby" else 5):  # (d) takes ~6 s a run
+            for _ in range(1 if name == "d_sparse_groupby" else 5):  # (d) takes ~6 s a run
                 s = time.perf_counter()
                 e.query(sql)
                 torch.cuda.synchronize()
@@ -1776,8 +1812,10 @@ def phase_dist_main_path(args, dev):
             timings[f"{label}/{name}"] = {"median_ms": med, "rows_per_s": n / (med / 1e3), "runs_ms": ms}
     log("dist_timing", rows=n, max_memory_allocated=torch.cuda.max_memory_allocated(), **timings)
     log("dist_host_costs", **_dist_host_costs(engines["one_batch"], stacked, dev))
+    # (d) is profiled at one launch only: a session runs it twice, ~14 s
     profiles = [("dist_profile", {"engine": label, "query": name}, e, sql)
-                for label, e in engines.items() for name, sql in DIST_QUERIES.items()]
+                for label, e in engines.items() for name, sql in DIST_QUERIES.items()
+                if not (label == "three_batches" and name == "d_sparse_groupby")]
     return {"launches": launches, "variants": variants, "engines": engines, "stacked": stacked, "data": data,
             "golden": want,
             "profiles": profiles}
@@ -2073,6 +2111,9 @@ FUNNEL_CHECK_ROWS = 1 << 20
 # one key's rows for the huge-key walk (checked against a scalar loop)
 FUNNEL_HUGE_ROWS = 1 << 20
 SKETCH_RTOL = 1e-9
+# warm runs of the slow sketch queries ((o) ~9 s a run, (m) ~1 s), cut for
+# the script's limit; the others take 5
+SKETCH_WALL_RUNS = {"o_sparse_hll": 1, "m_stats_groupby": 3}
 
 
 def _np_hash32(x):
@@ -2622,7 +2663,7 @@ def phase_sketch_path(seg, dist, dev, seed):
             records[f"{label}/{name}"] = r
     for label, e, names, _g, _n in runs:
         for name in names:
-            records[f"{label}/{name}"].update(_wall_ms(e, SKETCH_QUERIES[name], runs=2 if name == "o_sparse_hll" else 5))
+            records[f"{label}/{name}"].update(_wall_ms(e, SKETCH_QUERIES[name], runs=SKETCH_WALL_RUNS.get(name, 5)))
             profiles.append(("sketch_profile", {"engine": label, "query": name}, e, SKETCH_QUERIES[name]))
     timing = _funnel_timing(datas[0], d, dev, small, seed + 1)
     timing["max_abs_err"] = max(worst, timing["max_abs_err"])
@@ -4804,7 +4845,7 @@ def phase_batch_path(seg, dist):
                  _Call(lambda: engine.execute_many([parse_query(_batch_disc_q(k)) for k in dks])), "")]
     return {"launches": launches, "variants": variants, "member_axis_launches": member_axis,
             "member_axis_layouts": layouts, "records": records,
-            "profiles": profiles, "engine": engine, "batch_s": time.perf_counter() - t0}
+            "profiles": profiles, "engine": engine, "server": server, "batch_s": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -5137,7 +5178,596 @@ def phase_cluster_path(seg, front, batch=None):
     profiles = [("cluster_profile", {"engine": "broker", "query": "k1_config2"}, broker, CONFIG2)]
     return {"launches": launches, "variants": variants, "member_axis_launches": member_axis,
             "member_axis_layouts": layouts, "records": records, "profiles": profiles,
-            "servers": list(coord.servers.values()) + [direct], "cluster_s": time.perf_counter() - t0}
+            "servers": list(coord.servers.values()) + [direct], "coord": coord, "broker": broker, "direct": direct,
+            "segments": segments, "cluster_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# phase 4l: serving_path — the REST query server, the command-line tool,
+# minion tasks and a materialized view over phase 4k's cluster
+# ---------------------------------------------------------------------------
+# warm runs a side of (l1)'s and (l4)'s in-turn walls and of (l5)
+SERVING_WALL_RUNS = 9
+SERVING_CLIENTS = 8
+SERVING_CURSOR_PAGE = 30
+# (l2)'s CSV: cut from a segment's 2^23 rows for the script's limit
+SERVING_CSV_ROWS = 1 << 22
+# (l3): two sealed segments of RT_SEGMENT_ROWS and a consuming tail
+SERVING_RT_MESSAGES = 2 * RT_SEGMENT_ROWS + (RT_SEGMENT_ROWS >> 1)
+SERVING_T0 = 1_700_000_000_000
+# (l4)'s ninth segment, which makes the view stale
+SERVING_NINTH_ROWS = 1 << 20
+SERVING_BAD_SQL = "SELECT SUM(MAX(lo_revenue)) FROM lineorder"
+# the top-level keys of each /debug view (the JAX payloads' keys)
+SERVING_DEBUG_KEYS = {"/debug/queries": {"queries"},
+                      "/debug/admission": {"pressureLevel", "admission", "hostBudget", "watchdog"},
+                      "/debug/perf": {"window", "tables", "caches"},
+                      "/debug/autopilot": {"enabled", "knobs"},
+                      "/debug/election": {"leader", "candidates"}}
+
+
+def _json_rows(payload):
+    """A REST payload's rows as sorted tuples (JSON lists of numbers)."""
+    return sorted(tuple(r) for r in payload["resultTable"]["rows"])
+
+
+def _http(url: str, body=None):
+    """(status, parsed JSON or text) of one GET (body None) or POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, ctype, text = r.status, r.headers.get("Content-Type", ""), r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, ctype, text = e.code, e.headers.get("Content-Type", ""), e.read().decode()
+    return status, json.loads(text) if ctype.startswith("application/json") else text
+
+
+def _counted(counted, fn):
+    """fn() with the scan counts read around it; the delta is kept."""
+    before = _scan_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    d = _scan_delta(before)
+    counted.append(d)
+    return out, d
+
+
+def _cli(argv):
+    """(exit code, stdout, stderr) of one in-process `cli.main(argv)`."""
+    import contextlib
+    import io
+
+    from pinot_tpu_torch.tools import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _serving_rest(seg, cluster, counted):
+    """(l1): config 2, a cursor, the metrics and debug views and the error
+    mapping over HTTP; returns the record and the running server."""
+    from pinot_tpu_torch.cluster import FaultPlan
+    from pinot_tpu_torch.cluster.rest import PinotClient, QueryServer, _jsonable
+
+    broker, coord = cluster["broker"], cluster["coord"]
+    want2, n = seg["golden"]["a_config2"], len(cluster["segments"])
+    srv = QueryServer(broker).start()  # 127.0.0.1, a free port
+    base = f"http://127.0.0.1:{srv.port}"
+    client = PinotClient(base)
+    rec = {"url": base}
+    try:
+        resp, d = _counted(counted, lambda: client.execute(CONFIG2))
+        if _json_rows(resp) != want2 or d["instantiations"] != {"p16/i32/shared": n} or d["launches"] != n:
+            raise AssertionError(f"(l1) config 2 over HTTP: exact {_json_rows(resp) == want2}, {d}")
+        http_runs, broker_runs = [], []
+        for _ in range(SERVING_WALL_RUNS):  # in turns: over HTTP, then Broker.query
+            http_runs += _wall_ms(_Call(lambda: client.execute(CONFIG2)), "", runs=1)["runs_ms"]
+            broker_runs += _wall_ms(broker, CONFIG2, runs=1)["runs_ms"]
+        rec["config2"] = {**d, "exact": True, "numDocsScanned": resp["numDocsScanned"],
+                          "http_wall_ms": statistics.median(http_runs), "http_runs_ms": http_runs,
+                          "broker_wall_ms": statistics.median(broker_runs), "broker_runs_ms": broker_runs,
+                          "http_json_ms": statistics.median(http_runs) - statistics.median(broker_runs)}
+
+        # a top-100 selection paged through a cursor to its end
+        sql = TRANSFORM_QUERIES["h_selection_top"]
+        first, d = _counted(counted, lambda: client.execute(sql, useCursor=True, pageSize=SERVING_CURSOR_PAGE))
+        cid, rows = first["cursorId"], []
+        page = client.fetch_cursor(cid, 0)
+        for p in range(page["numPages"]):
+            rows += client.fetch_cursor(cid, p)["rows"]
+        mine = [[_jsonable(v) for v in r] for r in seg["engine"].query(sql).rows]
+        if rows != mine or first["resultTable"]["rows"] != rows[:SERVING_CURSOR_PAGE] or not rows:
+            raise AssertionError(f"(l1) the cursor's {len(rows)} rows differ from the segment engine's")
+        rec["cursor"] = {**d, "exact": True, "rows": len(rows), "pages": page["numPages"]}
+
+        # metrics, federated over the three servers, and the debug views
+        code, text = _http(base + "/metrics?format=prometheus")
+        servers = sorted(coord.servers)
+        if code != 200 or not all(f'server="{s}"' in text for s in servers) or "pinot_cluster_" not in text:
+            raise AssertionError(f"(l1) /metrics?format=prometheus does not federate {servers}")
+        code, snap = _http(base + "/metrics")
+        if code != 200 or sorted(snap["servers"]["perServer"]) != servers:
+            raise AssertionError(f"(l1) /metrics: {code}, {sorted(snap.get('servers', {}))}")
+        rec["metrics"] = {"prometheus_lines": len(text.splitlines()), "servers": servers,
+                          "cluster_server_queries": snap["servers"]["cluster"]["counters"].get("server.queries")}
+        rec["debug"] = {}
+        for path, keys in SERVING_DEBUG_KEYS.items():
+            code, payload = _http(base + path)
+            if code != 200 or not keys <= set(payload):
+                raise AssertionError(f"(l1) {path}: {code}, keys {sorted(payload)}")
+            rec["debug"][path] = sorted(payload)
+
+        # the error mapping: plan check, deadline, quota, every replica down
+        errors = {}
+        (code, payload), d = _counted(counted, lambda: _http(base + "/query/sql", {"sql": SERVING_BAD_SQL}))
+        if code != 400 or payload.get("errorCode") != "NESTED_AGGREGATION" or d["launches"]:
+            raise AssertionError(f"(l1) malformed query: {code} {payload}, {d['launches']} launches")
+        errors["plan_check"] = {"status": code, "errorCode": payload["errorCode"], "launches": d["launches"]}
+        (code, payload), d = _counted(counted, lambda: _http(base + "/query/sql",
+                                                            {"sql": "SET timeoutMs = 0; " + CONFIG2}))
+        if code != 408 or payload.get("errorCode") != "EXECUTION_TIMEOUT_ERROR":
+            raise AssertionError(f"(l1) expired deadline: {code} {payload}")
+        errors["timeout"] = {"status": code, "errorCode": payload["errorCode"], "launches": d["launches"]}
+        cfg, clock = coord.tables["lineorder"].config, broker.quota.clock
+        cfg.max_queries_per_second, broker.quota.clock = 1.0, lambda: 1e9  # one token, never refilled
+        try:
+            (answers, d) = _counted(counted, lambda: [_http(base + "/query/sql", {"sql": CONFIG2}) for _ in range(2)])
+        finally:
+            cfg.max_queries_per_second, broker.quota.clock = 0.0, clock
+        (c1, p1), (c2, p2) = answers
+        if c1 != 200 or _json_rows(p1) != want2 or c2 != 429 or p2.get("errorCode") != "QUERY_QUOTA_EXCEEDED":
+            raise AssertionError(f"(l1) table quota: {c1}, then {c2} {p2}")
+        errors["quota"] = {"status": [c1, c2], "errorCode": p2["errorCode"], "launches": d["launches"]}
+        victims = sorted(coord.tables["lineorder"].ideal[cluster["segments"][0].name])
+        plan = FaultPlan(seed=13)
+        for v in victims:
+            plan.always_fail(v)
+        plan.attach(coord)
+        try:
+            (code, payload), d = _counted(counted, lambda: _http(base + "/query/sql", {"sql": CONFIG2}))
+        finally:
+            for s in coord.servers.values():
+                s.fault_plan = None
+            coord.fault_plan = None
+            for v in victims:
+                broker.health.reset(v)
+        if (code, payload.get("errorCode")) not in ((503, "NO_REPLICA_AVAILABLE"), (500, "SERVER_SCATTER_ERROR")):
+            raise AssertionError(f"(l1) every replica of a segment failing: {code} {payload}")
+        errors["replicas_down"] = {"victims": victims, "status": code, "errorCode": payload["errorCode"],
+                                   "launches": d["launches"]}
+        healed, d = _counted(counted, lambda: client.execute(CONFIG2))
+        if _json_rows(healed) != want2 or d["launches"] != n:
+            raise AssertionError(f"(l1) config 2 after the faults were lifted: {d}")
+        rec["errors"] = errors
+
+        # eight clients at once
+        got, failures = [None] * SERVING_CLIENTS, []
+
+        def one(i):
+            try:
+                got[i] = _json_rows(client.execute(CONFIG2))
+            except Exception as exc:  # the phase fails on it below
+                failures.append(repr(exc))
+
+        def clients():
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(SERVING_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            return [t.is_alive() for t in threads]
+
+        t0 = time.perf_counter()
+        alive, d = _counted(counted, clients)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if any(alive) or failures or any(g != want2 for g in got) or d["launches"] != SERVING_CLIENTS * n:
+            raise AssertionError(f"(l1) concurrent clients: {failures}, exact {[g == want2 for g in got]}, {d}")
+        rec["concurrent"] = {**d, "clients": SERVING_CLIENTS, "exact": True, "wall_ms": wall_ms}
+    except BaseException:
+        srv.stop()
+        raise
+    return rec, srv
+
+
+def _write_csv(path: str, d) -> None:
+    """Column arrays -> one CSV file with a header row."""
+    names = list(d)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(",".join(names) + "\n")
+        f.write("\n".join(",".join(map(str, r)) for r in zip(*(d[k].tolist() for k in names))))
+        f.write("\n")
+
+
+def _columns_equal(a, b) -> bool:
+    """Two segments' columns hold the same stored bytes: dictionary values,
+    codes or raw values, the packed lanes and their width, the decoded
+    values."""
+    for f in a.schema.fields:
+        x, y = a.column(f.name), b.column(f.name)
+        if (x.dictionary is None) != (y.dictionary is None) or x.code_bits != y.code_bits:
+            return False
+        if x.dictionary is not None and not np.array_equal(x.dictionary.values, y.dictionary.values):
+            return False
+        for u, v in ((x.codes, y.codes), (x.values, y.values), (x.packed, y.packed)):
+            if (u is None) != (v is None) or (u is not None and not np.array_equal(u, v)):
+                return False
+        if not np.array_equal(x.decoded(), y.decoded()):
+            return False
+    return True
+
+
+def _cli_rows(out: str):
+    """`cli query`'s tab-separated config-2 rows, sorted."""
+    return sorted((int(a), float(b), int(c)) for a, b, c in (line.split("\t") for line in out.splitlines()[1:]))
+
+
+def _bench_record(scale: float):
+    """A synthetic bench-history record (utils/perf.bench_record's form)."""
+    return {"schema": 1, "bench": "ssb_groupby", "backend": "cuda", "rows": 1 << 27,
+            "metrics": {"kernel_rows_per_sec": 3.2e11 * scale, "e2e_rows_per_sec": 9.0e9 * scale},
+            "noise": {"run_variance": 0.02}}
+
+
+def _serving_cli(seg, rest_url, root, rng, counted):
+    """(l2): create-segment from a CSV, query on the card, serve in a child
+    process, the endpoint commands against (l1)'s server, perf --check,
+    quickstart."""
+    import pinot_tpu_torch.ingest as ingest
+    from pinot_tpu_torch.ops import _build
+    from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.segment.segment import ImmutableSegment
+    from pinot_tpu_torch.utils import perf
+
+    rec = {}
+    table = seg["engine"].table("lineorder")
+    d = lineorder_segment(rng, SERVING_CSV_ROWS)
+    sums, cnts = _config2_tables(d)
+    want = _config2_rows(sums, cnts)
+    paths = {k: os.path.join(root, k) for k in ("schema.json", "table.json", "lineorder.csv", "seg", "serve.err")}
+    with open(paths["schema.json"], "w", encoding="utf-8") as f:
+        json.dump(table.schema.to_dict(), f)
+    with open(paths["table.json"], "w", encoding="utf-8") as f:
+        json.dump(table.config.to_dict(), f)
+    t0 = time.perf_counter()
+    _write_csv(paths["lineorder.csv"], d)
+    write_s = time.perf_counter() - t0
+
+    # create-segment, with the parse timed inside the command
+    parse, orig = {}, ingest.read_csv_columns
+
+    def timed_parse(*a, **kw):
+        t = time.perf_counter()
+        out = orig(*a, **kw)
+        parse["s"] = time.perf_counter() - t
+        return out
+
+    ingest.read_csv_columns = timed_parse
+    try:
+        t0 = time.perf_counter()
+        rc, out, err = _cli(["create-segment", "--schema", paths["schema.json"], "--csv", paths["lineorder.csv"],
+                             "--out", paths["seg"], "--table-config", paths["table.json"], "--name", "csv_0"])
+        create_s = time.perf_counter() - t0
+    finally:
+        ingest.read_csv_columns = orig
+    built = ImmutableSegment.load(paths["seg"])
+    direct = build_segment(table.schema, dict(d), "csv_0", table_config=table.config)
+    if rc != 0 or built.num_docs != SERVING_CSV_ROWS or not _columns_equal(built, direct):
+        raise AssertionError(f"(l2) create-segment: rc {rc}, {built.num_docs} docs, {err[-500:]}")
+    rec["create_segment"] = {"rows": SERVING_CSV_ROWS, "csv_bytes": os.path.getsize(paths["lineorder.csv"]),
+                             "csv_write_s": write_s, "parse_s": parse["s"], "create_s": create_s,
+                             "build_and_save_s": create_s - parse["s"],
+                             "parse_rows_per_s": SERVING_CSV_ROWS / parse["s"],
+                             "create_rows_per_s": SERVING_CSV_ROWS / create_s, "columns_equal_build_segment": True,
+                             "output": out.strip()}
+
+    # serve in a process of its own, started now: it boots while the
+    # commands below run
+    lib = os.path.join(str(_build.BUILD_DIR), _build.LIB_NAME)
+    lib_stat = os.stat(lib).st_mtime_ns
+    err_f = open(paths["serve.err"], "w", encoding="utf-8")
+    t_serve = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-m", "pinot_tpu_torch.tools.cli", "serve", "--segments",
+                              paths["seg"], "--port", "0"], cwd=REPO, stdout=subprocess.PIPE, stderr=err_f, text=True)
+    try:
+        first_line = []
+        reader = threading.Thread(target=lambda: first_line.append(child.stdout.readline()), daemon=True)
+        reader.start()
+
+        # query on the card (no --device: the default)
+        (rc, out, err), dq = _counted(counted, lambda: _cli(["query", "--segments", paths["seg"], "--sql", CONFIG2]))
+        if rc != 0 or _cli_rows(out) != want or dq["launches"] != 1:
+            raise AssertionError(f"(l2) cli query: rc {rc}, exact {rc == 0 and _cli_rows(out) == want}, {dq}")
+        rec["query"] = {**dq, "exact": True, "rows": len(want), "summary": err.strip()}
+
+        # the endpoint commands against (l1)'s server
+        rec["endpoints"] = {}
+        for cmd in (["slow-queries", "--limit", "5"], ["admission"], ["election"], ["autopilot"], ["perf"]):
+            rc, out, err = _cli(cmd + ["--url", rest_url])
+            if rc != 0 or not out.strip():
+                raise AssertionError(f"(l2) cli {cmd[0]}: rc {rc}, {err[-300:]}")
+            rec["endpoints"][cmd[0]] = {"rc": rc, "lines": len(out.splitlines()), "first": out.splitlines()[0]}
+
+        # perf --check over a synthetic history and baseline under build/
+        base = os.path.join(root, "baseline.json")
+        with open(base, "w", encoding="utf-8") as f:
+            json.dump(_bench_record(1.0), f)
+        rec["perf_check"] = {}
+        for name, scale, expect in (("healthy", 1.02, 0), ("regression", 0.75, 1)):
+            hist = os.path.join(root, f"history_{name}.jsonl")
+            perf.append_bench_history(hist, _bench_record(scale))
+            rc, out, err = _cli(["perf", "--check", "--history", hist, "--baseline", base])
+            if rc != expect or ("FAIL" in out) != bool(expect):
+                raise AssertionError(f"(l2) perf --check {name}: rc {rc}, {out}")
+            rec["perf_check"][name] = {"rc": rc, "verdict": err.strip()}
+
+        # quickstart on the card
+        (rc, out, err), d = _counted(counted, lambda: _cli(["quickstart"]))
+        lines = out.splitlines()
+        if rc != 0 or lines[lines.index("> SELECT COUNT(*) FROM demo") + 2] != "100000":
+            raise AssertionError(f"(l2) quickstart: rc {rc}, {d}, {out[:300]}")
+        rec["quickstart"] = {**d, "rc": rc, "lines": len(lines)}
+
+        # the served process answers over HTTP, then stops on SIGINT
+        reader.join(timeout=300)
+        line = first_line[0] if first_line else ""
+        if not line.startswith("query server listening on http://127.0.0.1:"):
+            raise AssertionError(f"(l2) serve did not start: {line!r}, exit {child.poll()}")
+        boot_s = time.perf_counter() - t_serve
+        url = line.split()[-1]
+        t0 = time.perf_counter()
+        code, payload = _http(url, {"sql": CONFIG2})
+        first_ms = (time.perf_counter() - t0) * 1e3
+        if code != 200 or _json_rows(payload) != want:
+            raise AssertionError(f"(l2) serve's answer: {code}, exact {code == 200 and _json_rows(payload) == want}")
+        runs = [_wall_ms(_Call(lambda: _http(url, {"sql": CONFIG2})), "", runs=1)["runs_ms"][0] for _ in range(5)]
+        child.send_signal(signal.SIGINT)
+        rc = child.wait(timeout=120)
+        if rc != 0 or os.stat(lib).st_mtime_ns != lib_stat:
+            raise AssertionError(f"(l2) serve exited {rc}; the kernel library rebuilt: {os.stat(lib).st_mtime_ns != lib_stat}")
+        rec["serve"] = {"exact": True, "url": url, "boot_s": boot_s, "first_query_ms": first_ms,
+                        "warm_median_ms": statistics.median(runs), "runs_ms": runs, "exit_code": rc,
+                        "launches": "in the child process (its own counters)", "rebuilt_library": False}
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        child.stdout.close()
+        err_f.close()
+    return rec
+
+
+def _drop_segment(coord, table: str, name: str) -> None:
+    """Take one segment out of a table as the minion's swap does: its
+    assignment, its holders' copies, its metadata."""
+    meta = coord.tables[table]
+    for s in meta.ideal.pop(name, set()):
+        coord.servers[s].drop_segment(table, name)
+    meta.segment_meta.pop(name, None)
+    coord._bump_version()
+
+
+def _serving_minion(cluster, root, rng, counted):
+    """(l3): a coordinator-owned realtime lineorder table drained into an
+    offline table by RealtimeToOfflineSegmentsTask, then MergeRollupTask and
+    PurgeTask on the offline table; exact after every step."""
+    from pinot_tpu_torch.cluster.minion import MinionTaskManager
+    from pinot_tpu_torch.realtime import InMemoryStream
+    from pinot_tpu_torch.spi.config import IndexingConfig, SegmentsConfig, StreamConfig, TableConfig
+    from pinot_tpu_torch.spi.schema import DataType, FieldRole, FieldSpec, Schema
+
+    coord, broker = cluster["coord"], cluster["broker"]
+    rt, n = "lineorder_rt", SERVING_RT_MESSAGES
+    schema = Schema(rt, list(_rt_schema(False).fields) + [FieldSpec("ts", DataType.TIMESTAMP, role=FieldRole.DATE_TIME)])
+    cfg = TableConfig(rt, indexing=IndexingConfig(range_index_columns=["lo_quantity"]),
+                      segments=SegmentsConfig(time_column="ts"),
+                      stream=StreamConfig(stream_type="memory", topic=rt, max_rows_per_segment=RT_SEGMENT_ROWS))
+    stream = InMemoryStream(1)
+    mgr = coord.add_realtime_table(schema, cfg, os.path.join(root, "rt"), stream=stream)
+    d = lineorder_segment(rng, n)
+    d["ts"] = SERVING_T0 + np.arange(n, dtype=np.int64)
+    t0 = time.perf_counter()
+    stream.publish_many(_messages(d), partition=0)
+    publish_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    consumed = coord.run_realtime_consumption()
+    consume_s = time.perf_counter() - t0
+    sealed = len(mgr.sealed[0])
+    if consumed != n or sealed != n // RT_SEGMENT_ROWS:
+        raise AssertionError(f"(l3) consumed {consumed} of {n}, {sealed} sealed")
+
+    def config2(table, lo, hi, launches, label):
+        part = {k: v[lo:hi] for k, v in d.items()}
+        out, dd = _counted(counted, lambda: broker.query(CONFIG2.replace("FROM lineorder", f"FROM {table}")))
+        if sorted(out.rows) != _config2_rows(*_config2_tables(part)) or dd["launches"] != launches:
+            raise AssertionError(f"(l3) {label}: config 2 over {table} rows [{lo}, {hi}): {dd}")
+        return dd
+
+    def count(table):
+        return int(broker.query(f"SELECT COUNT(*) FROM {table}").rows[0][0])
+
+    rec = {"published": n, "publish_s": publish_s, "consume_s": consume_s, "ingest_rows_per_s": n / consume_s,
+           "sealed": sealed, "consuming": n - sealed * RT_SEGMENT_ROWS}
+    rec["before"] = config2(rt, 0, n, sealed + 1, "published")
+    minion = MinionTaskManager(coord)
+    t0 = time.perf_counter()
+    moved = minion.run("RealtimeToOfflineSegmentsTask", rt, realtime_manager=mgr,
+                       window_end_ms=SERVING_T0 + sealed * RT_SEGMENT_ROWS)
+    rto_s = time.perf_counter() - t0
+    off, cut = moved["offlineTable"], sealed * RT_SEGMENT_ROWS
+    counts = {"realtime": count(rt), "offline": count(off)}
+    if len(moved["moved"]) != sealed or counts != {"realtime": n - cut, "offline": cut}:
+        raise AssertionError(f"(l3) RealtimeToOffline moved {moved['moved']}, counts {counts}")
+    rec["realtime_to_offline"] = {"moved": moved["moved"], "s": rto_s, "counts": counts,
+                                  "realtime": config2(rt, cut, n, 1, "realtime tail"),
+                                  "offline": config2(off, 0, cut, sealed, "offline")}
+    t0 = time.perf_counter()
+    merged = minion.run("MergeRollupTask", off, max_rows_per_segment=cut)
+    merge_s = time.perf_counter() - t0
+    if merged["merged"] != 1 or merged["outputRows"] != cut or len(coord.tables[off].ideal) != 1:
+        raise AssertionError(f"(l3) MergeRollupTask: {merged}")
+    rec["merge"] = {"inputs": merged["inputs"], "output_rows": merged["outputRows"], "s": merge_s,
+                    "config2": config2(off, 0, cut, 1, "merged")}
+    t0 = time.perf_counter()
+    purged = minion.run("PurgeTask", off, purge_fn=lambda row: row["lo_quantity"] == 50)
+    purge_s = time.perf_counter() - t0
+    q = d["lo_quantity"][:cut]
+    rows = broker.query(f"SELECT COUNT(*), SUM(lo_revenue) FROM {off} WHERE lo_quantity >= 25").rows
+    keep = (q >= 25) & (q != 50)
+    if (purged["purgedRows"] != int((q == 50).sum()) or count(off) != cut - int((q == 50).sum())
+            or [tuple(r) for r in rows] != [(int(keep.sum()), float(d["lo_revenue"][:cut][keep].sum()))]):
+        raise AssertionError(f"(l3) PurgeTask: {purged}, {rows}")
+    rec["purge"] = {"purged_rows": purged["purgedRows"], "s": purge_s, "config2": config2(off, 0, cut, 1, "purged")}
+    for table in (off, rt):  # their segments leave the servers
+        coord.drop_table(table)
+    return rec
+
+
+def _serving_mview(seg, cluster, rng, counted):
+    """(l4): a materialized view of config 2's dimensions over phase 4's
+    table; the rewrite exact, its fallback when stale, and its repair."""
+    from pinot_tpu_torch.cluster.mview import MaterializedView, MaterializedViewManager
+    from pinot_tpu_torch.segment.builder import build_segment
+
+    coord, broker = cluster["coord"], cluster["broker"]
+    table = seg["engine"].table("lineorder")
+    want = [(day, int(s), c) for day, s, c in seg["golden"]["a_config2"]]
+    n = len(cluster["segments"])
+    mgr = MaterializedViewManager(coord, broker)
+    mgr.create_view(MaterializedView("lineorder_dq", source_table="lineorder",
+                                     dimensions=["lo_orderdate", "lo_quantity"],
+                                     metrics=[("count", "*"), ("sum", "lo_revenue")]))
+    cells = len(np.unique(np.concatenate([(x["lo_orderdate"] - 19920101) * 51 + x["lo_quantity"]
+                                          for x in seg["datas"]])))
+
+    def rewritten(expect, label, launches):
+        out, d = _counted(counted, lambda: mgr.query(CONFIG2))
+        got = sorted((int(a), int(b), int(c)) for a, b, c in out.rows)  # the view's sums are DOUBLE, below 2^53
+        if out.stats.mv_rewrite is not expect or got != want or d["launches"] != launches:
+            raise AssertionError(f"(l4) {label}: mv_rewrite {out.stats.mv_rewrite}, exact {got == want}, {d}")
+        return {**d, "mv_rewrite": out.stats.mv_rewrite, "docs_scanned": out.stats.num_docs_scanned}
+
+    t0 = time.perf_counter()
+    report, d = _counted(counted, lambda: mgr.refresh("lineorder_dq"))
+    refresh_s = time.perf_counter() - t0
+    docs = coord.tables["lineorder_dq"].segment_meta["lineorder_dq__b0"]["numDocs"]
+    if report["refreshedBuckets"] != [0] or docs != cells:
+        raise AssertionError(f"(l4) refresh: {report}, {docs} view rows against {cells} cells")
+    # the view's metrics are DOUBLE (the JAX package's view schema): its
+    # group-by takes the torch path, the kernel adding integers only
+    rec = {"refresh": {**d, "s": refresh_s, "view_rows": docs}, "rewrite": rewritten(True, "fresh", 0)}
+    mv_runs, src_runs = [], []
+    for _ in range(SERVING_WALL_RUNS):  # in turns: the view, then the source table
+        mv_runs += _wall_ms(mgr, CONFIG2, runs=1)["runs_ms"]
+        src_runs += _wall_ms(broker, CONFIG2, runs=1)["runs_ms"]
+    rec["walls"] = {"view_wall_ms": statistics.median(mv_runs), "view_runs_ms": mv_runs,
+                    "source_wall_ms": statistics.median(src_runs), "source_runs_ms": src_runs}
+
+    # a ninth segment: the bucket goes stale, the query falls back
+    d9 = lineorder_segment(rng, SERVING_NINTH_ROWS)
+    coord.add_segment("lineorder", build_segment(table.schema, dict(d9), "lineorder_ninth",
+                                                 table_config=table.config))
+    try:
+        sums, cnts = _config2_tables(d9)
+        extra = {day: (int(s), c) for day, s, c in _config2_rows(sums, cnts)}
+        base = {day: (s, c) for day, s, c in want}
+        want = sorted((day, base.get(day, (0, 0))[0] + extra.get(day, (0, 0))[0],
+                       base.get(day, (0, 0))[1] + extra.get(day, (0, 0))[1]) for day in set(base) | set(extra))
+        stale = mgr.stale_buckets("lineorder_dq")
+        if stale != [0]:
+            raise AssertionError(f"(l4) the view is not stale after a ninth segment: {stale}")
+        rec["stale"] = rewritten(False, "stale", n + 1)
+        t0 = time.perf_counter()
+        mgr.refresh("lineorder_dq")
+        rec["repaired"] = {**rewritten(True, "refreshed", 0), "refresh_s": time.perf_counter() - t0}
+    finally:
+        _drop_segment(coord, "lineorder", "lineorder_ninth")
+        coord.drop_table("lineorder_dq")
+    return rec
+
+
+def _serving_turns(seg, cluster, batch, counted):
+    """(l5): config 2 through ServerInstance.execute on (q1)'s bare server
+    and on the server phase 4k registered with a coordinator (a device
+    budget and a residency manager), over the same segments, in turns."""
+    from pinot_tpu_torch.query.reduce import reduce_results
+    from pinot_tpu_torch.sql.parser import parse_query
+
+    want = seg["golden"]["a_config2"]
+    sides = {"bare": batch["server"], "registered": cluster["direct"]}
+
+    def run(server):
+        names = server.segment_names("lineorder")
+        ctx = parse_query(CONFIG2)
+        res, st = server.execute(ctx, names)
+        return reduce_results(ctx, res, st)
+
+    rec = {}
+    for name, server in sides.items():
+        out, d = _counted(counted, lambda: run(server))
+        if sorted(out.rows) != want or d["launches"] != len(cluster["segments"]):
+            raise AssertionError(f"(l5) {name} server: exact {sorted(out.rows) == want}, {d}")
+        rec[name] = {**d, "exact": True, "budget": server.budget is not None,
+                     "residency": server.residency is not None}
+    runs = {name: [] for name in sides}
+    for i in range(SERVING_WALL_RUNS):  # in turns, the first side alternating: bare, registered, registered, bare
+        for name in (("bare", "registered") if i % 2 == 0 else ("registered", "bare")):
+            runs[name] += _wall_ms(_Call(lambda: run(sides[name])), "", runs=1)["runs_ms"]
+    for name in sides:
+        rec[name].update(median_ms=statistics.median(runs[name]), min_ms=min(runs[name]), max_ms=max(runs[name]),
+                         runs_ms=runs[name])
+    rec["registered_minus_bare_ms"] = rec["registered"]["median_ms"] - rec["bare"]["median_ms"]
+    return rec
+
+
+def phase_serving_path(seg, cluster, batch, seed):
+    """Phase 4l: (l1)-(l5) over phase 4k's coordinator and broker, each
+    counted run exact against numpy; one serving_path line an item."""
+    from pinot_tpu_torch.ops import fused_scan
+
+    t0 = time.perf_counter()
+    fused_scan.reset_counters()
+    counted, records, seconds = [], {}, {}
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="serving_", dir=os.path.join(REPO, "build"))
+    try:
+        t = time.perf_counter()
+        records["l1_rest"], srv = _serving_rest(seg, cluster, counted)
+        seconds["l1_rest"] = time.perf_counter() - t
+        try:
+            t = time.perf_counter()
+            records["l2_cli"] = _serving_cli(seg, records["l1_rest"]["url"], root, rng, counted)
+            seconds["l2_cli"] = time.perf_counter() - t
+        finally:
+            srv.stop()
+        for item, fn in (("l3_minion", lambda: _serving_minion(cluster, root, rng, counted)),
+                         ("l4_mview", lambda: _serving_mview(seg, cluster, rng, counted)),
+                         ("l5_server_turns", lambda: _serving_turns(seg, cluster, batch, counted))):
+            t = time.perf_counter()
+            records[item] = fn()
+            seconds[item] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    alive = cluster["broker"].hedge_drain()
+    if alive:
+        raise AssertionError(f"{alive} hedge threads outlived phase 4l")
+    for item, rec in records.items():
+        log("serving_path", item=item, seconds=seconds[item], **rec)
+    launches = sum(c["launches"] for c in counted)
+    variants, member_axis, layouts = {}, {}, {}
+    for c in counted:
+        for src, dst in ((c["instantiations"], variants), (c["member_axis_launches"], member_axis),
+                         (c["layouts"], layouts)):
+            for k, v in src.items():
+                dst[k] = dst.get(k, 0) + v
+    return {"launches": launches, "variants": variants, "member_axis_launches": member_axis,
+            "member_axis_layouts": layouts, "records": records, "serving_s": time.perf_counter() - t0}
 
 
 def phase_storage(seg, dist, transform, dev) -> dict:
@@ -5164,10 +5794,10 @@ def run_profiles(tasks) -> dict:
     one log line each, and the results by (phase, engine, query)."""
     out = {}
     for phase, labels, engine, sql in tasks:
-        # two sessions for the two main paths, one for the other phases:
+        # two sessions for the segment main path, one for the other phases:
         # a session costs ~1 s of profiler set-up on the card's host (the
         # script's time limit)
-        prof = profile_query(engine, sql, sessions=2 if phase in ("main_path_profile", "dist_profile") else 1)
+        prof = profile_query(engine, sql, sessions=2 if phase == "main_path_profile" else 1)
         log(phase, **labels, **prof)
         out[(phase, labels.get("engine"), labels["query"])] = prof
     return out
@@ -5226,23 +5856,24 @@ def main() -> int:
     realtime = phase_realtime_path(seg, args.seed + 4)
     batch = phase_batch_path(seg, dist)
     cluster = phase_cluster_path(seg, front, batch)
+    serving = phase_serving_path(seg, cluster, batch, args.seed + 7)
     main_variants = dict(seg["variants"])
-    for part in (dist, transform, sketch, storage, index, front, join, realtime, batch, cluster):
+    for part in (dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
     storage_launches, sketch_launches, index_launches = storage["launches"], sketch["launches"], index["launches"]
     front_launches, join_launches, realtime_launches = front["launches"], join["launches"], realtime["launches"]
-    batch_launches, cluster_launches = batch["launches"], cluster["launches"]
+    batch_launches, cluster_launches, serving_launches = batch["launches"], cluster["launches"], serving["launches"]
     member_axis_launches, member_axis_layouts = {}, {}
-    for part in (batch, cluster):
+    for part in (batch, cluster, serving):
         for src, dst in ((part["member_axis_launches"], member_axis_launches),
                          (part["member_axis_layouts"], member_axis_layouts)):
             for k, v in src.items():
                 dst[k] = dst.get(k, 0) + v
     main_launches = (sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
                      + index_launches + front_launches + join_launches + realtime_launches + batch_launches
-                     + cluster_launches)
+                     + cluster_launches + serving_launches)
     profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"]
                             + index["profiles"] + front["profiles"] + join["profiles"] + realtime["profiles"]
                             + batch["profiles"] + cluster["profiles"])
@@ -5311,6 +5942,7 @@ def main() -> int:
         profiled_wall_ms=prof.get("profiled_wall_ms", "not run"),
         top_device_ops=prof.get("top_device_ops", "not run"))
     log("cluster_seconds", phase_4k_s=cluster["cluster_s"])
+    log("serving_seconds", phase_4l_s=serving["serving_s"])
     for srv in cluster["servers"]:  # the residency managers' staging threads
         if srv.residency is not None:
             srv.residency.shutdown()
@@ -5322,7 +5954,7 @@ def main() -> int:
     for e in list(dist["engines"].values()) + [index["mv_dist"]] + list(join["engines"].values()):
         e.residency.shutdown()
     vector_timing = index["vector"]
-    del seg, dist, transform, sketch, storage, index, front, join, realtime, batch, cluster
+    del seg, dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving
     torch.cuda.empty_cache()
 
     # 5. profile
@@ -5346,7 +5978,7 @@ def main() -> int:
                              "storage": storage_launches, "index_path": index_launches,
                              "front_door": front_launches, "join_path": join_launches,
                              "realtime_path": realtime_launches, "batch_path": batch_launches,
-                             "cluster_path": cluster_launches},
+                             "cluster_path": cluster_launches, "serving_path": serving_launches},
         "member_axis_launches_on_main_path": member_axis_launches,
         "member_axis_layouts_on_main_path": member_axis_layouts,
         "max_abs_err": worst,
