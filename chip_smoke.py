@@ -286,6 +286,28 @@ Phases, in order; any failure raises and the process exits non-zero:
                 ServerInstance.execute on (q1)'s bare server and on phase 4k's
                 coordinator-registered one, 9 runs each in turns.  One
                 serving_path line an item; launches counted an item.
+ 4m. mesh_path (after 4l) - the engines over a mesh of device positions
+                (pinot_tpu_torch/parallel/mesh.py): four positions of
+                cuda:0 on one card (the cards in turn where there are
+                several; the mesh_setup line says which), phase 4b's
+                2^27-row table cut into 4 shards (StackedTable.resharded,
+                views of the same arrays: no new table).  (m1) config 2 on a
+                1-D DistributedEngine(mesh=) at one macro-batch and at three,
+                4 fused-scan launches a macro-batch; (m2) query (c) (MIN /
+                MAX) exact, and a float AVG within MESH_AVG_RTOL of numpy and
+                of the one-position engine; (m3) config 2 on the 2x2 mesh
+                (capacity mode); (m4) a ReplicatedEngine of 2 rows of 2
+                positions over the table cut into 2 shards: 8 config-2
+                queries round-robin, each exact, 2 launches each, the rows'
+                residency managers distinct; (m5) (z1) broadcast and (z2)
+                shuffle through the multi-stage engine on the 1-D mesh
+                (dates built with 4 shards), exact against phase 4h's
+                one-position engine, the shuffle's overflow retries and plans
+                counted.  Config 2 against numpy and the one-position engine
+                of phase 4b.  One mesh_path line an item: its launches, its
+                warm median in turns with the one-position engine (5 runs
+                each) and its device busy and idle share (one profile
+                session an item, run with the other phases' profiles).
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
@@ -300,7 +322,7 @@ Phases, in order; any failure raises and the process exits non-zero:
                 under half of 8 x the distributed main path's launch.
   6. summary  - one {"kernels": [...]} JSON line (fused_scan, funnel_scan; launches_by_path
                 includes front_door, join_path, realtime_path, batch_path,
-                cluster_path and serving_path; the
+                cluster_path, serving_path and mesh_path; the
                 member-axis launches by instantiation and by layout, and each
                 member-axis shape with its Wg; flush_ms names
                 member_phases.py, which measures it), the card's
@@ -5770,6 +5792,187 @@ def phase_serving_path(seg, cluster, batch, seed):
             "member_axis_layouts": layouts, "records": records, "serving_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: mesh_path — the engines over a mesh of four positions of the
+# card (parallel/mesh.py) on phase 4b's 2^27-row lineorder
+# ---------------------------------------------------------------------------
+MESH_POSITIONS = 4
+MESH_TURNS = 5  # warm runs an engine, in turns with the one-position engine
+MESH_REPLICATED_QUERIES = 8
+MESH_AVG_SQL = ("SELECT lo_discount, AVG(lo_revenue * 0.01), COUNT(*) FROM lineorder WHERE lo_quantity < 25 "
+                "GROUP BY lo_discount ORDER BY lo_discount LIMIT 20")
+# float partials add in another order than one position's (and numpy's);
+# the sketch phase's tolerance
+MESH_AVG_RTOL = 1e-9
+
+
+def mesh_positions(n: int):
+    """`n` mesh positions: the cards in turn where there are several, else
+    `n` positions of cuda:0; and whether the positions are distinct cards."""
+    count = torch.cuda.device_count()
+    return [f"cuda:{i % count}" for i in range(n)], count > 1
+
+
+def _config2_golden(d):
+    od = d["lo_orderdate"].astype(np.int64) - 19920101
+    m = d["lo_quantity"] < 25
+    s = np.bincount(od[m], weights=d["lo_revenue"][m], minlength=2406)
+    c = np.bincount(od[m], minlength=2406)
+    return sorted((19920101 + int(i), float(s[i]), int(c[i])) for i in np.nonzero(c)[0])
+
+
+def _avg_golden(d):
+    m = d["lo_quantity"] < 25
+    disc = d["lo_discount"][m]
+    s = np.bincount(disc, weights=d["lo_revenue"][m].astype(np.float64) * 0.01, minlength=11)
+    c = np.bincount(disc, minlength=11)
+    return [(int(k), float(s[k] / c[k]), int(c[k])) for k in range(11) if c[k]]
+
+
+def _rel_err(got, want) -> float:
+    return max(abs(g[1] - w[1]) / abs(w[1]) for g, w in zip(got, want))
+
+
+def _avg_close(got, want) -> bool:
+    return (len(got) == len(want) and all(g[0] == w[0] and g[2] == w[2] for g, w in zip(got, want))
+            and _rel_err(got, want) <= MESH_AVG_RTOL)
+
+
+def _mesh_turns(one, mesh, sql: str) -> dict:
+    """Warm wall medians of the one-position engine and the mesh engine,
+    in turns (one, mesh, mesh, one, ...)."""
+    runs = {"one_position": [], "mesh": []}
+    for i in range(MESH_TURNS):
+        for name in (("one_position", "mesh") if i % 2 == 0 else ("mesh", "one_position")):
+            runs[name] += _wall_ms(one if name == "one_position" else mesh, sql, runs=1)["runs_ms"]
+    return {"one_position_median_ms": statistics.median(runs["one_position"]),
+            "mesh_median_ms": statistics.median(runs["mesh"]), "runs_ms": runs}
+
+
+def _mesh_item(counted, label, engine, sql, check, want_launches, one):
+    """One counted run of `sql` (the scan counters read around it), held
+    by `check(rows)` and to `want_launches` fused-scan launches; then the
+    warm medians in turns with the one-position engine `one`."""
+    res, d = _counted(counted, lambda: engine.query(sql))
+    if not check(res.rows):
+        raise AssertionError(f"mesh_path {label}: wrong rows {list(res.rows)[:4]}")
+    if d["launches"] != want_launches:
+        raise AssertionError(f"mesh_path {label}: {d['launches']} fused-scan launches, want {want_launches}")
+    rec = {"exact": True, "launches": d["launches"], "instantiations": d["instantiations"], "rows": len(res.rows)}
+    rec.update(_mesh_turns(one, engine, sql))
+    return res, rec
+
+
+def phase_mesh_path(dist, join):
+    """Phase 4m: the engines over a mesh of MESH_POSITIONS positions (cuda:0
+    repeated on one card) on phase 4b's 2^27-row table cut into 4 shards
+    (StackedTable.resharded: views, no new table).  (m1) config 2 on a 1-D
+    mesh at one macro-batch and at three; (m2) query (c) and a float AVG;
+    (m3) config 2 on the 2x2 mesh; (m4) a ReplicatedEngine of 2 rows of 2
+    positions, 8 queries round-robin; (m5) (z1) broadcast and (z2) shuffle
+    through the multi-stage engine.  Each exact (the AVG within
+    MESH_AVG_RTOL) against numpy and the one-position engine, its launches
+    counted; warm medians in turns with the one-position engine.  Returns
+    the launches, records and profiles."""
+    from pinot_tpu_torch.parallel import mesh as mesh_mod
+    from pinot_tpu_torch.parallel.engine import DistributedEngine, ReplicatedEngine
+    from pinot_tpu_torch.parallel.stacked import StackedTable
+    from pinot_tpu_torch.sql.parser import parse_query
+    from pinot_tpu_torch.utils.metrics import METRICS
+
+    t0 = time.perf_counter()
+    d, one = dist["data"], dist["engines"]["one_batch"]
+    positions, distinct = mesh_positions(MESH_POSITIONS)
+    table4 = dist["stacked"].resharded(MESH_POSITIONS)
+    want_c2, want_avg = _config2_golden(d), _avg_golden(d)
+    want_c = dist["golden"]["c_min_max_groupby"]
+    mesh1d = mesh_mod.Mesh(positions, (mesh_mod.SEG_AXIS,))
+    mesh2d = mesh_mod.Mesh(np.asarray(positions, dtype=object).reshape(2, 2), mesh_mod.DATA_AXES)
+    engines = {"1d": DistributedEngine(mesh=mesh1d),
+               "1d_three": DistributedEngine(mesh=mesh1d, launch_bytes=DIST_THREE_BATCH_BYTES // MESH_POSITIONS),
+               "2x2": DistributedEngine(mesh=mesh2d)}
+    for e in engines.values():
+        e.register_table("lineorder", table4)
+    log("mesh_setup", positions=positions, distinct_cards=distinct, shards=table4.num_shards,
+        docs_per_shard=table4.docs_per_shard, setup_and_golden_s=time.perf_counter() - t0)
+
+    counted, records, profiles = [], {}, []
+    one_c2 = sorted(one.query(CONFIG2).rows)
+    if one_c2 != want_c2:
+        raise AssertionError("the one-position engine's config 2 differs from the numpy golden")
+
+    def c2_check(rows):
+        return sorted(rows) == want_c2
+
+    # (m1) config 2 on the 1-D mesh: one macro-batch, then three
+    for label, key in (("m1_config2", "1d"), ("m1_config2_three_batches", "1d_three")):
+        e = engines[key]
+        nb = len(e._plan(parse_query(CONFIG2), table4).batch_offsets)
+        _, rec = _mesh_item(counted, label, e, CONFIG2, c2_check, MESH_POSITIONS * nb, one)
+        records[label] = {**rec, "macro_batches": nb, "launches_per_macro_batch": rec["launches"] // nb}
+        profiles.append(("mesh_profile", {"engine": key, "query": label}, e, CONFIG2))
+    # (m2) query (c) (MIN / MAX) and a float AVG (psum_ordered's path)
+    sql_c = DIST_QUERIES["c_min_max_groupby"]
+    one_c = one.query(sql_c).rows
+    _, records["m2_c_min_max"] = _mesh_item(counted, "m2_c_min_max", engines["1d"], sql_c,
+                                            lambda rows: list(rows) == want_c == one_c, MESH_POSITIONS, one)
+    profiles.append(("mesh_profile", {"engine": "1d", "query": "m2_c_min_max"}, engines["1d"], sql_c))
+    one_avg = one.query(MESH_AVG_SQL).rows
+    res, rec = _mesh_item(counted, "m2_float_avg", engines["1d"], MESH_AVG_SQL,
+                          lambda rows: _avg_close(list(rows), want_avg) and _avg_close(list(rows), one_avg),
+                          0, one)
+    records["m2_float_avg"] = {**rec, "exact": False, "within_rtol": MESH_AVG_RTOL,
+                               "max_rel_err_vs_numpy": _rel_err(res.rows, want_avg),
+                               "max_rel_err_vs_one_position": _rel_err(res.rows, one_avg)}
+    profiles.append(("mesh_profile", {"engine": "1d", "query": "m2_float_avg"}, engines["1d"], MESH_AVG_SQL))
+    # (m3) config 2 on the 2x2 mesh (capacity mode: rows shard over both axes)
+    _, records["m3_config2_2x2"] = _mesh_item(counted, "m3_config2_2x2", engines["2x2"], CONFIG2, c2_check,
+                                              MESH_POSITIONS, one)
+    profiles.append(("mesh_profile", {"engine": "2x2", "query": "m3_config2_2x2"}, engines["2x2"], CONFIG2))
+    # (m4) a ReplicatedEngine: 2 rows of 2 positions, queries round-robin
+    rep = ReplicatedEngine(mesh2d)
+    table2 = dist["stacked"].resharded(2)
+    rep.register_table("lineorder", table2)
+    got, dm = _counted(counted, lambda: [sorted(rep.query(CONFIG2).rows) for _ in range(MESH_REPLICATED_QUERIES)])
+    managers = [e.residency for e in rep.engines]
+    if not (all(r == want_c2 for r in got) and dm["launches"] == 2 * MESH_REPLICATED_QUERIES
+            and len({id(m) for m in managers}) == 2 and all(m.snapshot()["groups"] > 0 for m in managers)):
+        raise AssertionError(f"mesh_path m4: exact {[r == want_c2 for r in got]}, {dm}")
+    records["m4_replicated"] = {"exact": True, "queries": MESH_REPLICATED_QUERIES, "launches": dm["launches"],
+                                "instantiations": dm["instantiations"],
+                                "row_positions": [e.mesh.position_ids for e in rep.engines],
+                                "residency_managers": [m.name for m in managers],
+                                "resident_groups": [m.snapshot()["groups"] for m in managers],
+                                **_mesh_turns(one, rep, CONFIG2)}
+    profiles.append(("mesh_profile", {"engine": "replicated_2x2", "query": "m4_replicated"}, rep, CONFIG2))
+    # (m5) the star join through the multi-stage engine on the 1-D mesh
+    jmesh = DistributedEngine(mesh=mesh1d)
+    jmesh.register_table("lineorder", table4)
+    jmesh.register_table("dates", StackedTable.build(_join_schemas()["dates"], join_dimensions()[0],
+                                                     num_shards=MESH_POSITIONS))
+    engines["join"] = jmesh
+    big = join["engines"]["big"]
+    for label, name in (("m5_z1_broadcast", "z1_config5"), ("m5_z2_shuffle", "z2_shuffle")):
+        sql = JOIN_QUERIES[name][0]
+        want = sorted(big.query(sql).rows)
+        retries = METRICS.counter("mse.exchangeOverflowRetries").value
+        misses = jmesh._mse().plan_misses
+        _, rec = _mesh_item(counted, label, jmesh, sql, lambda rows: sorted(rows) == want, MESH_POSITIONS, big)
+        records[label] = {**rec, "overflow_retries": METRICS.counter("mse.exchangeOverflowRetries").value - retries,
+                          "plans_built": jmesh._mse().plan_misses - misses}
+        profiles.append(("mesh_profile", {"engine": "join", "query": label}, jmesh, sql))
+    launches = sum(c["launches"] for c in counted)
+    variants = {}
+    for c in counted:
+        for k, v in c["instantiations"].items():
+            variants[k] = variants.get(k, 0) + v
+    log("mesh_check", exact=True, launches=launches, instantiations=variants, positions=positions,
+        distinct_cards=distinct, mesh_s=time.perf_counter() - t0)
+    return {"launches": launches, "variants": variants, "records": records, "profiles": profiles,
+            "engines": list(engines.values()), "replicated": rep, "tables": [table4, table2],
+            "mesh_s": time.perf_counter() - t0}
+
+
 def phase_storage(seg, dist, transform, dev) -> dict:
     t0 = time.perf_counter()
     log("storage_copy_rates", unit="GB/s", torch_threads=torch.get_num_threads(), **_copy_rates(dev))
@@ -5857,14 +6060,16 @@ def main() -> int:
     batch = phase_batch_path(seg, dist)
     cluster = phase_cluster_path(seg, front, batch)
     serving = phase_serving_path(seg, cluster, batch, args.seed + 7)
+    mesh = phase_mesh_path(dist, join)
     main_variants = dict(seg["variants"])
-    for part in (dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving):
+    for part in (dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving, mesh):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
     storage_launches, sketch_launches, index_launches = storage["launches"], sketch["launches"], index["launches"]
     front_launches, join_launches, realtime_launches = front["launches"], join["launches"], realtime["launches"]
     batch_launches, cluster_launches, serving_launches = batch["launches"], cluster["launches"], serving["launches"]
+    mesh_launches = mesh["launches"]
     member_axis_launches, member_axis_layouts = {}, {}
     for part in (batch, cluster, serving):
         for src, dst in ((part["member_axis_launches"], member_axis_launches),
@@ -5873,10 +6078,10 @@ def main() -> int:
                 dst[k] = dst.get(k, 0) + v
     main_launches = (sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
                      + index_launches + front_launches + join_launches + realtime_launches + batch_launches
-                     + cluster_launches + serving_launches)
+                     + cluster_launches + serving_launches + mesh_launches)
     profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"]
                             + index["profiles"] + front["profiles"] + join["profiles"] + realtime["profiles"]
-                            + batch["profiles"] + cluster["profiles"])
+                            + batch["profiles"] + cluster["profiles"] + mesh["profiles"])
     for key, rec in transform["records"].items():
         engine, _, query = key.partition("/")
         prof = profiles.get(("transform_profile", engine, query), {})
@@ -5943,6 +6148,15 @@ def main() -> int:
         top_device_ops=prof.get("top_device_ops", "not run"))
     log("cluster_seconds", phase_4k_s=cluster["cluster_s"])
     log("serving_seconds", phase_4l_s=serving["serving_s"])
+    for item, rec in mesh["records"].items():
+        engine = next(p[1]["engine"] for p in mesh["profiles"] if p[1]["query"] == item)
+        prof = profiles.get(("mesh_profile", engine, item), {})
+        log("mesh_path", item=item, engine=engine, **rec,
+            device_busy_ms=prof.get("device_busy_ms", "not run"),
+            device_idle_share=prof.get("device_idle_share", "not run"),
+            profiled_wall_ms=prof.get("profiled_wall_ms", "not run"),
+            top_device_ops=prof.get("top_device_ops", "not run"))
+    log("mesh_seconds", phase_4m_s=mesh["mesh_s"])
     for srv in cluster["servers"]:  # the residency managers' staging threads
         if srv.residency is not None:
             srv.residency.shutdown()
@@ -5951,10 +6165,13 @@ def main() -> int:
     shutil.rmtree(realtime["root"], ignore_errors=True)
     funnel, funnel_launches = sketch["funnel"], sketch["funnel_launches"]
     dist["stacked"].release_device()
-    for e in list(dist["engines"].values()) + [index["mv_dist"]] + list(join["engines"].values()):
+    for t in mesh["tables"]:
+        t.release_device()
+    for e in list(dist["engines"].values()) + [index["mv_dist"]] + list(join["engines"].values()) + mesh["engines"]:
         e.residency.shutdown()
+    mesh["replicated"].shutdown()
     vector_timing = index["vector"]
-    del seg, dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving
+    del seg, dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving, mesh
     torch.cuda.empty_cache()
 
     # 5. profile
@@ -5978,7 +6195,8 @@ def main() -> int:
                              "storage": storage_launches, "index_path": index_launches,
                              "front_door": front_launches, "join_path": join_launches,
                              "realtime_path": realtime_launches, "batch_path": batch_launches,
-                             "cluster_path": cluster_launches, "serving_path": serving_launches},
+                             "cluster_path": cluster_launches, "serving_path": serving_launches,
+                             "mesh_path": mesh_launches},
         "member_axis_launches_on_main_path": member_axis_launches,
         "member_axis_layouts_on_main_path": member_axis_layouts,
         "max_abs_err": worst,

@@ -1,4 +1,5 @@
-"""Multi-stage engine: star and snowflake joins over StackedTables on one device.
+"""Multi-stage engine: star and snowflake joins over StackedTables on a
+mesh of device positions.
 
 Port of pinot_tpu/mse/engine.py.  Reference parity: the MSE runtime path
 (QueryDispatcher shipping plan fragments to workers, leaf scans,
@@ -7,17 +8,25 @@ AggregateOperator and the broker's final reduce).
 
 In the JAX package the whole multi-stage plan traces into one shard_map
 program over the device mesh whose stage boundaries are collectives.  Here
-it is one planned closure over the flat [S * D] tensors of each whole table
-on one device, its stages in the same order:
+it is one planned closure run once a mesh position (parallel/mesh.py) over
+the flat rows of the position's shards of every table (position p holds
+shards [p * L, (p + 1) * L) of each), its stages in the same order:
 
   leaf:      filter masks on the fact table and on every dimension
-  exchange:  BROADCAST (the identity at one device) or HASH (stable
-             bucketing by key hash into fixed-capacity buckets,
-             mse/exchange.py)
+  exchange:  BROADCAST (every position's build rows gathered onto every
+             position) or HASH (stable bucketing by key hash into
+             fixed-capacity buckets, each position receiving its bucket of
+             every source; mse/exchange.py)
   join:      sorted build side + searchsorted probe (mse/join.py)
   aggregate: the dense group-by through planner.grouped_partials, which on
              CUDA sends the computed int32 group key to the fused-scan
-             kernel (ops/fused_scan.py); the psum combine is the identity
+             kernel (ops/fused_scan.py), then the positions' partials fold
+             as the distributed engine folds them (mesh.fold_partials)
+
+The closure is a generator that yields at each exchange;
+exchange.run_lockstep drives every position's generator through the
+collectives in position order.  A mesh of one position is the JAX
+package's one-device mesh: its collectives are the identity.
 
 Scope, as in the JAX package: FROM fact JOIN dim ON fact.fk = dim.pk,
 INNER or LEFT, aggregation or group-by on fact and dimension attributes;
@@ -51,6 +60,7 @@ from pinot_tpu_torch.device import DeviceLike, resolve_device
 from pinot_tpu_torch.mse import exchange as ex
 from pinot_tpu_torch.mse.join import KEY_SENTINEL, lookup_join, range_join
 from pinot_tpu_torch.mse.plan import JoinPlanError, ResolvedQuery, resolve
+from pinot_tpu_torch.parallel import mesh as mesh_mod
 from pinot_tpu_torch.parallel.engine import _ShardView, flatten_cols
 from pinot_tpu_torch.query import executor, planner
 from pinot_tpu_torch.query import reduce as reduce_mod
@@ -158,8 +168,10 @@ class _JoinPlan:
 @dataclass
 class _MsePlan:
     kind: str  # "aggregation" | "groupby_dense" | "selection"
-    # fn(fact_cols, dim_cols_list, params, dev) -> (out, overflow): overflow
-    # is the shuffle's count of dropped rows (out None when > 0), else None
+    # fn(fact_cols, dim_cols_list, params, dev): one position's generator
+    # (exchange.run_lockstep) returning (out, overflow); overflow is the
+    # shuffle's count of rows dropped over every position (out None when
+    # > 0), else None
     fn: Callable
     params: Dict[str, Any]
     fact_needed: List[str]
@@ -181,6 +193,11 @@ class _MsePlan:
     # shuffle bucket slack the plan was built with (part of the plan-cache
     # key; the overflow back-pressure loop doubles it and re-plans)
     slack: float = 2.0
+    # per params namespace ("fact", "dimf{i}"): the flat docs a position
+    # holds (its "__boff__" is position * that) and the bitmap words laid
+    # out [ndev, L, D // 32], of which a position takes its row
+    position_docs: Optional[Dict[str, int]] = None
+    row_sharded: Optional[Dict[str, frozenset]] = None
 
 
 class ExchangeOverflowError(RuntimeError):
@@ -198,14 +215,22 @@ class ExchangeOverflowError(RuntimeError):
 
 
 class MultiStageEngine:
-    """Join-capable engine over StackedTables on one device.
+    """Join-capable engine over StackedTables on a mesh of device positions.
 
-    device: None means CUDA and raises without it.  tables: a registry to
-    share (the DistributedEngine passes its own).  residency: the device
-    cache the tables' slices stage through (None: the table's plain cache)."""
+    mesh: a parallel.mesh.Mesh; None is one position on `device`, where None
+    means CUDA and raises without it.  tables: a registry to share (the
+    DistributedEngine passes its own).  residency: the device cache the
+    tables' slices stage through (None: the table's plain cache)."""
 
-    def __init__(self, device: DeviceLike = None, tables: Optional[Dict[str, Any]] = None, residency=None):
-        self.device = resolve_device(device)
+    def __init__(self, device: DeviceLike = None, tables: Optional[Dict[str, Any]] = None, residency=None,
+                 mesh: Optional[mesh_mod.Mesh] = None):
+        if mesh is None:
+            mesh = mesh_mod.Mesh([resolve_device(device)], (mesh_mod.SEG_AXIS,))
+        elif device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        self.mesh = mesh
+        self.positions: List[torch.device] = mesh.positions
+        self.device = self.positions[0]
         self.tables: Dict[str, Any] = tables if tables is not None else {}
         self.residency = residency
         # plan-cache bytes charge the process host ledger the admission
@@ -223,9 +248,11 @@ class MultiStageEngine:
 
     @property
     def num_devices(self) -> int:
-        return 1
+        return self.mesh.size
 
     def register_table(self, name: str, stacked) -> None:
+        if stacked.num_shards % self.num_devices:
+            raise ValueError(f"num_shards={stacked.num_shards} not divisible by mesh size {self.num_devices}")
         self.tables[name] = stacked
         # drop stale self-join facades of a re-registered table
         for k in [k for k in self.tables if k.startswith(name + "@")]:
@@ -262,11 +289,7 @@ class MultiStageEngine:
             fact_cols = self._stage(fact_st, plan.fact_needed)
             dim_cols = [self._stage(self.tables[j.table], plan.dim_needed[j.table]) for j in rq.joins]
             stats.add_index_uses(plan.index_uses)
-            params = {
-                k: ({k2: executor._param_tensor(v2, self.device) for k2, v2 in v.items()} if isinstance(v, dict)
-                    else executor._param_tensor(v, self.device))
-                for k, v in plan.params.items()
-            }
+            params = self._position_params(plan)
             try:
                 result = self._run(rq.ctx, plan, fact_cols, dim_cols, params, stats)
                 break
@@ -286,12 +309,46 @@ class MultiStageEngine:
         )
         return out
 
-    def _stage(self, stacked, names: List[str]):
-        """One whole-table slice of `names` on the device, flattened to
-        [S * D] row tensors (unpacked codes, the dictionary tensor, values,
-        nulls): the join reads every row of every table in one pass."""
-        cols, _ = stacked.to_device(self.device, names, with_valid=False, residency=self.residency)
-        return flatten_cols(cols)
+    def _stage(self, stacked, names: List[str]) -> List[Dict[str, Any]]:
+        """Each mesh position's shards of `names` on its device, flattened
+        to [L * D] row tensors (unpacked codes, the dictionary tensor,
+        values, nulls): the join reads every row of every table in one
+        pass.  A list in position order."""
+        L = stacked.num_shards // self.num_devices
+        out = []
+        for p, (dev, pid) in enumerate(zip(self.positions, self.mesh.position_ids)):
+            cols, _ = stacked.to_device(dev, names, with_valid=False, residency=self.residency,
+                                        shards=(p * L, (p + 1) * L), position=pid)
+            out.append(flatten_cols(cols))
+        return out
+
+    def _position_params(self, plan: _MsePlan) -> List[Dict[str, Any]]:
+        """Each position's params on its device: a namespace's "__boff__" is
+        the position's first global flat doc (a host int), its bitmap words
+        the position's row; the rest shared by the positions of a device."""
+        shared: Dict[str, Dict[str, Any]] = {}
+        out = []
+        for p, dev in enumerate(self.positions):
+            on_dev = shared.get(str(dev))
+            if on_dev is None:
+                on_dev = shared[str(dev)] = {
+                    k: ({k2: executor._param_tensor(v2, dev) for k2, v2 in v.items()
+                         if k2 != "__boff__" and k2 not in plan.row_sharded[k]} if isinstance(v, dict)
+                        else executor._param_tensor(v, dev))
+                    for k, v in plan.params.items()
+                }
+            params = {}
+            for k, v in plan.params.items():
+                if not isinstance(v, dict):
+                    params[k] = on_dev[k]
+                    continue
+                ns = dict(on_dev[k])
+                ns["__boff__"] = p * plan.position_docs[k]
+                for k2 in plan.row_sharded[k]:
+                    ns[k2] = executor._param_tensor(v[k2][p], dev)
+                params[k] = ns
+            out.append(params)
+        return out
 
     # ------------------------------------------------------------------
     def _backoff_slack(self, ctx: QueryContext, err: ExchangeOverflowError) -> float:
@@ -518,8 +575,8 @@ class MultiStageEngine:
         ctx = rq.ctx
         ndev = self.num_devices
         fact_st = self.tables[rq.fact]
-        local_rows = fact_st.num_shards * fact_st.docs_per_shard
-        fact_view = _ShardView(fact_st, local_rows)
+        fact_view = self._position_view(fact_st)
+        local_rows = fact_view.num_docs
         null_handling = ctx.null_handling
         backend = planner.backend_tag(self.device)
 
@@ -528,6 +585,8 @@ class MultiStageEngine:
         fc_fact = FilterCompiler(fact_view, null_handling)
         fact_filter_fn = fc_fact.compile(rq.fact_filter)
         params["fact"] = fc_fact.params
+        position_docs: Dict[str, int] = {"fact": local_rows}
+        row_sharded: Dict[str, frozenset] = {}
 
         join_plans: List[_JoinPlan] = []
         dim_filter_fns: List[Callable] = []
@@ -536,9 +595,13 @@ class MultiStageEngine:
         for i, rj in enumerate(rq.joins):
             dim_st = self.tables[rj.table]
             dim_docs.append(dim_st.num_docs)
-            fc = FilterCompiler(_ShardView(dim_st, dim_st.num_shards * dim_st.docs_per_shard), null_handling)
+            dview = self._position_view(dim_st)
+            fc = FilterCompiler(dview, null_handling)
             dim_filter_fns.append(fc.compile(rq.dim_filters[rj.table]))
+            fc.params["__boff__"] = np.int32(0)
             params[f"dimf{i}"] = fc.params
+            position_docs[f"dimf{i}"] = dview.num_docs
+            row_sharded[f"dimf{i}"] = frozenset(fc.row_sharded_params)
             index_uses.extend(fc.index_uses)
             dim_used_columns.append(set(fc.used_columns))
             join_plans.append(self._key_plan(i, rq, params))
@@ -572,6 +635,9 @@ class MultiStageEngine:
         agg_filter_fns = [fc_fact.compile(s.filter) if s.filter is not None else None for s in agg_specs]
         agg_inputs_fn = planner.make_agg_inputs(agg_specs, aggs, agg_filter_fns, fact_view, null_handling)
         index_uses.extend(fc_fact.index_uses)
+        # a position's first global flat doc (exchange-time param, a host int)
+        fc_fact.params["__boff__"] = np.int32(0)
+        row_sharded["fact"] = frozenset(fc_fact.row_sharded_params)
 
         # -- group dimensions --------------------------------------------
         group_dims: List[GroupDim] = []
@@ -702,22 +768,23 @@ class MultiStageEngine:
             raise NotImplementedError("many-to-many joins require the broadcast strategy")
         fact_docs = fact_st.num_docs
 
-        def valid_rows(mask, real_rows: int, dev):
-            """Padding rows (the tail of the flat doc order) masked off."""
-            if real_rows < mask.shape[0]:
-                return mask & (torch.arange(mask.shape[0], dtype=torch.int32, device=dev) < real_rows)
+        def valid_rows(mask, real_rows: int, base: int, dev):
+            """Padding rows (the tail of the global flat doc order) of the
+            position whose first doc is `base` masked off."""
+            if base + mask.shape[0] > real_rows:
+                return mask & (torch.arange(mask.shape[0], dtype=torch.int32, device=dev) < real_rows - base)
             return mask
 
         # ------------------------------------------------------------------
         def kernel(fcols, dim_cols_list, params, dev):
             fmask, _ = fact_filter_fn(fcols, params["fact"], dev)
-            fmask = valid_rows(fmask, fact_docs, dev)
+            fmask = valid_rows(fmask, fact_docs, params["fact"]["__boff__"], dev)
             overflow = None
 
             def dim_leaf(i):
                 dcols = dim_cols_list[i]
                 dmask, _ = dim_filter_fns[i](dcols, params[f"dimf{i}"], dev)
-                return dcols, valid_rows(dmask, dim_docs[i], dev)
+                return dcols, valid_rows(dmask, dim_docs[i], params[f"dimf{i}"]["__boff__"], dev)
 
             # leaf + exchange + probe per join (topological order: snowflake
             # parents run before their children)
@@ -736,7 +803,7 @@ class MultiStageEngine:
                         side[a] = attr_array(dcols, jp.dim_table, a)
                     for a in jp.val_attrs:
                         side["__val__" + a] = val_array(dcols, jp.dim_table, a)
-                    g = ex.broadcast_rows(side)
+                    g = yield ("broadcast", side)  # every position's build rows, in mesh order
                     if jp.parent is None:
                         pk = jp.probe_key_fn(fcols, params)
                     else:
@@ -782,7 +849,7 @@ class MultiStageEngine:
                 names = [(ship(v), ship(m)) for v, m in inputs]
                 dest = ex.hash_dest(payload["k0"], ndev)
                 cap_f = max(1, int(-(-local_rows // ndev) * slack))
-                recv, rvalid, ovf = ex.hash_repartition(payload, dest, fmask, ndev, cap_f)
+                recv, rvalid, ovf = yield ("shuffle", payload, dest, fmask, ndev, cap_f)
                 overflow = ovf
                 probe_cols = recv
                 probe_mask = rvalid
@@ -794,7 +861,7 @@ class MultiStageEngine:
                 for a in jp.attrs:
                     side[a] = attr_array(dcols, jp.dim_table, a)
                 cap_d = max(1, int(-(-dkey.shape[0] // ndev) * slack))
-                drecv, dvalid_r, dovf = ex.hash_repartition(side, ex.hash_dest(dkey, ndev), dmask, ndev, cap_d)
+                drecv, dvalid_r, dovf = yield ("shuffle", side, ex.hash_dest(dkey, ndev), dmask, ndev, cap_d)
                 # dropped rows must never fold into partials: an overflowing
                 # run stops here (no join, no scan) and execute() re-plans
                 overflow = int(overflow + dovf)
@@ -901,7 +968,23 @@ class MultiStageEngine:
             joins_info=[(jp.dim_table, jp.join_type) for jp in join_plans],
             dup_idx=dup_idx,
             slack=slack,
+            position_docs=position_docs,
+            row_sharded=row_sharded,
         )
+
+    def _position_view(self, stacked) -> _ShardView:
+        """Plan-time facade of one mesh position's rows of `stacked` (L
+        shards x D): bitmap words laid out [ndev, L, D // 32], and sorted
+        doc ranges compared against global flat doc ids (the namespace's
+        "__boff__" param)."""
+        ndev = self.num_devices
+        L = stacked.num_shards // ndev
+        rows = L * stacked.docs_per_shard
+
+        def docs_fn(params, dev):
+            return params["__boff__"] + torch.arange(rows, dtype=torch.int32, device=dev)
+
+        return _ShardView(stacked, rows, docs_fn=docs_fn, bitmap_layout=(ndev, L, stacked.docs_per_shard // 32))
 
     # ------------------------------------------------------------------
     def _run(self, ctx, plan: _MsePlan, fact_cols, dim_cols, params, stats: ExecutionStats):
@@ -917,7 +1000,11 @@ class MultiStageEngine:
                 num_entries=len(plan.aggs) if plan.aggs else 1,
             )
         td0 = time.perf_counter()
-        out, overflow = plan.fn(fact_cols, dim_cols, params, self.device)
+        outs = ex.run_lockstep([
+            plan.fn(fact_cols[p], [dc[p] for dc in dim_cols], params[p], dev)
+            for p, dev in enumerate(self.positions)
+        ])
+        overflow = outs[0][1]
         if overflow:
             # execute()'s back-pressure loop catches this, doubles the slack
             # (bounded by shuffleSlackCap) and re-plans
@@ -925,16 +1012,23 @@ class MultiStageEngine:
         stats.kernel_bytes += plan.cost.bytes_accessed
         stats.kernel_flops += plan.cost.flops
         stats.kernel_cost_source = plan.cost.source
+        outs = [o for o, _ in outs]
+        shape = self.mesh.shape
         if plan.kind == "aggregation":
-            host = executor._to_host(out)
+            host = executor._to_host(mesh_mod.fold_partials(plan.aggs, outs, shape))
             stats.device_ms += (time.perf_counter() - td0) * 1000.0
             return AggSegmentResult(partials=[fn.host_partial(p) for fn, p in zip(plan.aggs, host)])
         if plan.kind == "selection":
-            sel = executor._to_host(out)
+            # every position's rows in mesh order: the global fact order
+            # (build-row indices already address the gathered global order)
+            sel = executor._to_host(outs[0] if len(outs) == 1 else {
+                k: torch.cat([mesh_mod.to_home(o[k], self.device) for o in outs]) for k in outs[0]})
             stats.device_ms += (time.perf_counter() - td0) * 1000.0
             stats.bytes_to_host += sum(int(a.nbytes) for a in sel.values())
             return self._gather_join_selection(ctx, plan, sel)
-        presence, partials = executor._to_host(out)
+        presence = mesh_mod.psum_hierarchical([pr for pr, _ in outs], shape)
+        presence, partials = executor._to_host(
+            (presence, mesh_mod.fold_partials(plan.aggs, [q for _, q in outs], shape)))
         stats.device_ms += (time.perf_counter() - td0) * 1000.0
         shim = SimpleNamespace(group_dims=plan.group_dims, aggs=plan.aggs)
         dense = DenseGroupData(

@@ -1,15 +1,22 @@
-"""Distributed query engine at one device: macro-batched launches over a
-StackedTable.
+"""Distributed query engine over a mesh of device positions: macro-batched
+launches over a StackedTable.
 
-Port of pinot_tpu/parallel/engine.py's DistributedEngine for one card.  A
-query plans ONCE over the whole stacked table (plan cache keyed by the
-query's shape fingerprint, the table's signature, the batch width and the
-backend tag "cuda" | "torch"), and its closure runs once per macro-batch:
-each launch covers doc columns [off, off + batch_docs) of the [S, D] column
-arrays.  The JAX package's in-graph psum over the device mesh is the
-identity at one device; the per-launch partials combine on the device
-(dense and scalar tables add / min / max, sparse tables through
+Port of pinot_tpu/parallel/engine.py's DistributedEngine.  A query plans
+ONCE over the whole stacked table (plan cache keyed by the query's shape
+fingerprint, the table's signature, the mesh size, the batch width and the
+backend tag "cuda" | "torch"), and its closure runs once per macro-batch
+and mesh position: each launch covers doc columns [off, off + batch_docs)
+of the position's shards, position p holding shards [p * L, (p + 1) * L)
+of the [S, D] column arrays (parallel/mesh.py; one Python process drives
+every position, and positions may share one device).  The JAX package's
+in-graph psum over the mesh is a fold here: a launch's per-position
+partials fold in global position order on the first position's device
+(float adds by mesh.psum_ordered, integer adds and min / max by the
+hierarchical folds, coupled partials by the function's pairwise merge),
+then the launches fold (dense and scalar tables add / min / max, sparse
+tables, every position's in position order, through
 ops.sparse_merge.merge_sparse_tables), and one copy brings the result home.
+`DistributedEngine(device=...)` is a mesh of one position on that device.
 
 The range-index words of a filter that is one plain bitmap go straight to
 the fused scan (`mask_words`, the word-fused path): no row mask is unpacked.
@@ -69,6 +76,9 @@ PlanCheckError before planning (analysis/plan_check.py); plans are cached
 in the named LRU "compile.dist" and the batched closures in
 "compile.batch.dist" (utils/cache.py).
 
+ReplicatedEngine (below) serves QPS from a 2-D mesh: one engine a replica
+row, each row a full copy of the data under its own residency budget.
+
 Refused with NotImplementedError, each a reference fault (ROADMAP Queue 3):
 set operations and EXPLAIN / EXPLAIN ANALYZE, which the JAX engine ignores
 (it answers the first component, or runs the query), and IN (SELECT ...),
@@ -93,6 +103,7 @@ from pinot_tpu_torch.analysis.plan_check import check_plan_cached
 from pinot_tpu_torch.cluster.admission import current_pressure_level, pipeline_depth_under_pressure
 from pinot_tpu_torch.device import DeviceLike, resolve_device
 from pinot_tpu_torch.ops.sparse_merge import merge_sparse_tables
+from pinot_tpu_torch.parallel import mesh as mesh_mod
 from pinot_tpu_torch.query import executor, planner
 from pinot_tpu_torch.query import reduce as reduce_mod
 from pinot_tpu_torch.query.filter import FilterCompiler
@@ -190,14 +201,21 @@ class _DistPlan:
     # the filter's words go straight to the fused scan (mask_words)
     word_fused: bool = False
     select_columns: Tuple[str, ...] = ()
+    # flat docs one mesh position holds (L shards x D): a launch's global
+    # doc base is position * position_docs + off
+    position_docs: int = 0
 
 
 class DistributedEngine:
-    """Executes queries over StackedTables on one device.
+    """Executes queries over StackedTables on a mesh of device positions.
 
-    device: None means CUDA and raises without it; "cpu" runs the plain
-    PyTorch path.  launch_bytes: the bytes of table one launch may cover
-    (macro-batching threshold, default PINOT_TPU_LAUNCH_BYTES or 2 GiB).
+    mesh: a parallel.mesh.Mesh (1-D, or 2-D in capacity mode: rows shard
+    over both axes); None is one position on `device`, where None means
+    CUDA and raises without it and "cpu" runs the plain PyTorch path
+    (mesh.default_mesh() is every visible card).  A table's num_shards must
+    divide by the mesh size.  launch_bytes: the bytes of table one launch
+    may cover on one position (macro-batching threshold, default
+    PINOT_TPU_LAUNCH_BYTES or 2 GiB).
     pipeline_depth: launches in flight before the first drain, and batches
     staged ahead; None reads the autopilot's `pipeline_depth` knob at each
     query (PINOT_TPU_PIPELINE_DEPTH, default 2), a value pins it.
@@ -213,8 +231,17 @@ class DistributedEngine:
         pipeline_depth: Optional[int] = None,
         hbm_cache_bytes: Optional[int] = None,
         residency=None,
+        mesh: Optional[mesh_mod.Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = mesh_mod.Mesh([resolve_device(device)], (mesh_mod.SEG_AXIS,))
+        elif device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        self.mesh = mesh
+        # every position's device in global order; the first is home: the
+        # folds and the copies home run there
+        self.positions: List[torch.device] = mesh.positions
+        self.device = self.positions[0]
         self.tables: Dict[str, Any] = {}
         # plan-cache bytes charge the process host ledger the admission
         # controller tracks (cluster/admission.py)
@@ -247,8 +274,9 @@ class DistributedEngine:
             self.residency = None
         else:
             self.residency = default_residency()
-        # the tiered path's CUDA copy stream and pinned ring (made at first use)
-        self._copy_stream = None
+        # the tiered path's CUDA copy stream and pinned ring of each card
+        # (made at first use), keyed by str(device)
+        self._copy_streams: Dict[str, Any] = {}
         self._mse_engine = None
 
     @property
@@ -267,9 +295,11 @@ class DistributedEngine:
 
     @property
     def num_devices(self) -> int:
-        return 1
+        return self.mesh.size
 
     def register_table(self, name: str, stacked) -> None:
+        if stacked.num_shards % self.num_devices:
+            raise ValueError(f"num_shards={stacked.num_shards} not divisible by mesh size {self.num_devices}")
         self.tables[name] = stacked
         # drop stale self-join facades of a re-registered table (mse/plan.py
         # resolve registers them as '{name}@{alias}')
@@ -278,11 +308,11 @@ class DistributedEngine:
 
     def _mse(self):
         """The multi-stage engine join queries go to, over the same table
-        registry, device and residency manager (built at first use)."""
+        registry, mesh and residency manager (built at first use)."""
         if self._mse_engine is None:
             from pinot_tpu_torch.mse.engine import MultiStageEngine
 
-            self._mse_engine = MultiStageEngine(self.device, tables=self.tables, residency=self.residency)
+            self._mse_engine = MultiStageEngine(mesh=self.mesh, tables=self.tables, residency=self.residency)
         return self._mse_engine
 
     # ------------------------------------------------------------------
@@ -389,7 +419,6 @@ class DistributedEngine:
         table = ctxs[0].table
         stacked = self.tables[table]
         n = len(ctxs)
-        dev = self.device
         t0 = time.perf_counter()
         try:
             for ctx in ctxs:
@@ -404,15 +433,15 @@ class DistributedEngine:
                 return None
             if n > executor.batch_width():
                 return None
-            cols, params = self._await_staged(*self._stage_batch(base, stacked, 0, {}))
-            axes = {}
-            for k in base.params:
-                if k in _SCHEDULE_PARAMS:
-                    axes[k] = None  # launch-schedule ints: one schedule for every member
-                else:
-                    params[k] = torch.from_numpy(
-                        np.stack([executor.param_array(p.params[k]) for p in plans])).to(dev)
-                    axes[k] = 0
+            if self.num_devices > 1 and any(fn.pairwise_merge for fn in base.aggs):
+                return None  # coupled partials of W members do not fold across positions
+            staged = [self._await_staged(*item, dev)
+                      for item, dev in zip(self._stage_batch(base, stacked, 0, {}), self.positions)]
+            # launch-schedule ints: one schedule for every member
+            axes = {k: None if k in _SCHEDULE_PARAMS else 0 for k in base.params}
+            members = {k: np.stack([executor.param_array(p.params[k]) for p in plans])
+                       for k, ax in axes.items() if ax == 0}
+            on_device: Dict[str, Dict[str, torch.Tensor]] = {}
             fnb = self._batch_fn_cache.get(base.fn)
             first_batched = fnb is None
             if first_batched:
@@ -422,7 +451,12 @@ class DistributedEngine:
             else:
                 executor.BATCH_AUDIT.record_hit()
             td0 = time.perf_counter()
-            host = executor._to_host(fnb(cols, params, dev))
+            outs = []
+            for (cols, params), dev in zip(staged, self.positions):
+                if str(dev) not in on_device:
+                    on_device[str(dev)] = {k: torch.from_numpy(v).to(dev) for k, v in members.items()}
+                outs.append(fnb(cols, {**params, **on_device[str(dev)]}, dev))
+            host = executor._to_host(self._fold_launch(base, outs))
             run_ms = (time.perf_counter() - td0) * 1000.0
         except Exception:  # noqa: BLE001 — a failed attempt runs the members one by one
             METRICS.counter("dist.batchFallbacks").inc()
@@ -735,6 +769,7 @@ class DistributedEngine:
         # selection's launches read only the filter's columns
         keep = fc.used_columns if kind == "selection" else planner._non_filter_columns(ctx, view) | fc.used_columns
         return _DistPlan(
+            position_docs=L * D_full,
             kind=kind,
             fn=cached.fn if cached is not None else kernel,
             params=fc.params,
@@ -752,68 +787,85 @@ class DistributedEngine:
         )
 
     # ------------------------------------------------------------------
-    def batch_params(self, plan: _DistPlan, off: int, fresh: int) -> Dict[str, Any]:
-        """Host params of the launch covering docs [off, off + batch_docs):
-        schedule scalars set, row-sharded bitmap words sliced on the doc axis."""
+    def batch_params(self, plan: _DistPlan, off: int, fresh: int, pos: int = 0) -> Dict[str, Any]:
+        """Host params of mesh position `pos`'s launch covering docs [off,
+        off + batch_docs) of its shards: schedule scalars set (`__boff__` is
+        the launch's global doc base), row-sharded bitmap words cut to the
+        position's row and sliced on the doc axis."""
         p = dict(plan.params)
-        p["__boff__"] = np.int32(off)
+        p["__boff__"] = np.int32(pos * plan.position_docs + off)
         p["__fresh__"] = np.int32(fresh)
         wlo, whi = off // 32, (off + plan.batch_docs) // 32
         for k in plan.row_sharded_params:
             w = plan.params[k]  # [ndev, L, D // 32]
-            p[k] = np.ascontiguousarray(w[:, :, wlo:whi]).reshape(w.shape[0], -1)
+            p[k] = np.ascontiguousarray(w[pos: pos + 1, :, wlo:whi]).reshape(1, -1)
         return p
 
-    def _shared_params(self, plan: _DistPlan) -> Dict[str, torch.Tensor]:
-        """Batch-invariant params, on the device once per query."""
-        return {
-            k: executor._param_tensor(v, self.device)
-            for k, v in plan.params.items()
-            if k not in plan.row_sharded_params and k not in _SCHEDULE_PARAMS
-        }
+    def _shared_params(self, plan: _DistPlan) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Batch-invariant params, on each device of the mesh once per
+        query, keyed by str(device)."""
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for dev in self.positions:
+            if str(dev) not in out:
+                out[str(dev)] = {
+                    k: executor._param_tensor(v, dev)
+                    for k, v in plan.params.items()
+                    if k not in plan.row_sharded_params and k not in _SCHEDULE_PARAMS
+                }
+        return out
 
-    def _copier(self):
+    def _copier(self, dev: torch.device):
         """The tiered path's host-to-device copy: on CUDA through the
-        engine's copy stream (parallel/staging.py), on the CPU None (the
+        card's copy stream (parallel/staging.py), on the CPU None (the
         table's plain copy)."""
-        if self.device.type != "cuda":
+        if dev.type != "cuda":
             return None
-        if self._copy_stream is None:
+        cs = self._copy_streams.get(str(dev))
+        if cs is None:
             from pinot_tpu_torch.parallel.staging import CopyStream
 
-            self._copy_stream = CopyStream(self.device, self.launch_bytes)
-        return self._copy_stream.copy
+            cs = self._copy_streams[str(dev)] = CopyStream(dev, self.launch_bytes)
+        return cs.copy
 
     def _stage_batch(self, plan: _DistPlan, stacked, j: int, shared, prefetch: bool = False):
-        """Macro-batch j's device inputs: (cols, params, ready).  The table's
-        doc slice comes from the table's cache; with residency it rides the
-        budgeted cache and, on CUDA, the copy stream, and `ready` is the
-        event after its copies (None otherwise).  Runs on the residency
-        staging thread when the pipeline prefetches."""
+        """Macro-batch j's device inputs, one (cols, params, ready) a mesh
+        position: position p's doc slice of its shards comes from the
+        table's cache; with residency it rides the budgeted cache and, on
+        CUDA, the card's copy stream, and `ready` is the event after its
+        copies (None otherwise).  Runs on the residency staging thread when
+        the pipeline prefetches."""
         off, fresh = plan.batch_offsets[j]
-        copy = self._copier() if self.residency is not None else None
-        cols, _ = stacked.to_device(
-            self.device, plan.needed_columns, doc_slice=(off, off + plan.batch_docs),
-            with_valid=False, packed_codes=True, residency=self.residency, prefetch=prefetch, copy=copy,
-        )
-        params = dict(shared)
-        for k, v in self.batch_params(plan, off, fresh).items():
-            if k in _SCHEDULE_PARAMS:
-                params[k] = int(v)
-            elif k in shared:
-                continue
-            elif copy is not None:
-                params[k] = copy(np.ascontiguousarray(executor.param_array(v)))
-            else:
-                params[k] = executor._param_tensor(v, self.device)
-        ready = self._copy_stream.record() if copy is not None else None
-        return cols, params, ready
+        L = stacked.num_shards // self.num_devices
+        out = []
+        for p, (dev, pid) in enumerate(zip(self.positions, self.mesh.position_ids)):
+            copy = self._copier(dev) if self.residency is not None else None
+            cols, _ = stacked.to_device(
+                dev, plan.needed_columns, doc_slice=(off, off + plan.batch_docs),
+                with_valid=False, packed_codes=True, residency=self.residency, prefetch=prefetch, copy=copy,
+                shards=(p * L, (p + 1) * L), position=pid,
+            )
+            on_dev = shared.get(str(dev), {})
+            params = dict(on_dev)
+            for k, v in self.batch_params(plan, off, fresh, p).items():
+                if k in _SCHEDULE_PARAMS:
+                    params[k] = int(v)
+                elif k in on_dev:
+                    continue
+                elif copy is not None:
+                    params[k] = copy(np.ascontiguousarray(executor.param_array(v)))
+                else:
+                    params[k] = executor._param_tensor(v, dev)
+            ready = self._copy_streams[str(dev)].record() if copy is not None else None
+            out.append((cols, params, ready))
+        return out
 
-    def _await_staged(self, cols, params, ready):
-        """A staged batch made usable on the compute stream: it waits on the
-        batch's copy event, and the copied tensors are marked in use there."""
+    @staticmethod
+    def _await_staged(cols, params, ready, dev: torch.device):
+        """A staged position made usable on its device's compute stream: it
+        waits on the batch's copy event, and the copied tensors are marked
+        in use there."""
         if ready is not None:
-            compute = torch.cuda.current_stream(self.device)
+            compute = torch.cuda.current_stream(dev)
             compute.wait_event(ready)
             # the caching allocator must not hand a block of a slice
             # evicted mid-scan to the next copy before this scan is done
@@ -838,26 +890,45 @@ class DistributedEngine:
             ]
         return out
 
+    def _fold_launch(self, plan: _DistPlan, outs: List[Any]) -> Any:
+        """One launch's per-position outputs as the launch's output: scalar
+        and dense tables fold across positions on the home device (the JAX
+        engine's in-graph psum: parallel/mesh.fold_partials), sparse tables
+        and selection masks stay a list in position order."""
+        if plan.kind not in ("aggregation", "groupby_dense"):
+            return outs
+        if len(outs) == 1:
+            return outs[0]
+        shape = self.mesh.shape
+        if plan.kind == "aggregation":
+            return mesh_mod.fold_partials(plan.aggs, outs, shape)
+        presence = mesh_mod.psum_hierarchical([p for p, _ in outs], shape)
+        return presence, mesh_mod.fold_partials(plan.aggs, [q for _, q in outs], shape)
+
     def _completion(self):
-        """A marker of the work queued so far on the device, or None on the CPU."""
-        if self.device.type != "cuda":
+        """Markers of the work queued so far on each card of the mesh, or
+        None on the CPU."""
+        cards = {str(d): d for d in self.positions if d.type == "cuda"}
+        if not cards:
             return None
-        ev = torch.cuda.Event()
-        ev.record()
-        return ev
+        events = []
+        for dev in cards.values():
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append(ev)
+        return events
 
     @staticmethod
     def _drain(pending) -> Any:
         """Completion fence for one in-flight launch: waits for that launch's
-        own completion event (not the whole stream); its outputs stay on the
+        own completion events (not the whole stream); its outputs stay on the
         device for the combine."""
-        out, ev = pending
-        if ev is not None:
+        out, events = pending
+        for ev in events or ():
             ev.synchronize()
         return out
 
     def _run(self, ctx, plan: _DistPlan, stacked, stats: ExecutionStats, trace: Optional[Trace] = None):
-        dev = self.device
         depth = max(1, int(self.pipeline_depth))
         # graceful degradation: under process-wide memory pressure
         # (cluster/admission.py) the pipeline sheds in-flight launches, one
@@ -871,7 +942,7 @@ class DistributedEngine:
         shared = self._shared_params(plan)
         # Staging pipeline.  With residency, batch j+1's copies run on the
         # residency manager's staging thread while batch j scans (on CUDA
-        # on the engine's copy stream; the launch waits on the batch's copy
+        # on the card's copy stream; the launch waits on the batch's copy
         # event).  The single staging worker keeps stages FIFO, so consuming
         # j never waits behind a stage issued for j+1.  Without residency
         # every batch stages before the first launch: a pageable copy on
@@ -901,7 +972,7 @@ class DistributedEngine:
                     item = item.result()
                     METRICS.counter("engine.stagingStalls").inc()
                     METRICS.histogram("residency.stagingStallMs").update((time.perf_counter() - tw0) * 1000.0)
-            return self._await_staged(*item)
+            return [self._await_staged(*pos_item, dev) for pos_item, dev in zip(item, self.positions)]
 
         batch_outs: List[Any] = []
         pending: List[Any] = []
@@ -911,8 +982,10 @@ class DistributedEngine:
             for i in range(n_batches):
                 for j in range(i + 1, min(i + 1 + depth, n_batches)):
                     _ensure(j, True)
-                cols, params = _consume(i)
-                pending.append((plan.fn(cols, params, dev), self._completion()))
+                # one launch a position (in turns where positions share a
+                # device), then the positions' fold
+                outs = [plan.fn(cols, params, dev) for (cols, params), dev in zip(_consume(i), self.positions)]
+                pending.append((self._fold_launch(plan, outs), self._completion()))
                 if len(pending) >= depth:
                     batch_outs.append(self._drain(pending.pop(0)))
             while pending:
@@ -936,14 +1009,16 @@ class DistributedEngine:
             return AggSegmentResult(partials=[fn.host_partial(p) for fn, p in zip(plan.aggs, host)])
 
         if plan.kind == "selection":
-            # each launch's mask -> global flat doc ids on the device (the
+            # each launch's masks -> global flat doc ids on the device (the
             # kernel masked padding and a tail window's re-covered columns);
             # one sorted id vector comes home
             D, Db = stacked.docs_per_shard, plan.batch_docs
+            L = stacked.num_shards // self.num_devices
             ids = []
-            for (off, _fresh), m in zip(plan.batch_offsets, batch_outs):
-                local = torch.nonzero(m).reshape(-1)
-                ids.append((local // Db) * D + off + local % Db)
+            for (off, _fresh), masks in zip(plan.batch_offsets, batch_outs):
+                for p, m in enumerate(masks):
+                    local = torch.nonzero(m).reshape(-1)
+                    ids.append(((p * L + local // Db) * D + off + local % Db).to(self.device))
             docids = torch.sort(torch.cat(ids)).values.cpu().numpy()
             stats.bytes_to_host += int(docids.nbytes)
             return self._gather_selection(ctx, plan, stacked, docids)
@@ -965,9 +1040,12 @@ class DistributedEngine:
             stats.num_groups = len(keys[0]) if keys else 0
             return GroupBySegmentResult(keys=keys, partials=sliced, dense=dense)
 
-        # groupby_sparse
+        # groupby_sparse: every launch's tables, position by position, in
+        # order (the JAX engine's [B * ndev * K] stack)
+        batch_outs = [out for outs in batch_outs for out in outs]
         if plan.sparse_merge_fn is not None:
             # device merge: only the final [num_slots] tables come home
+            batch_outs = mesh_mod.to_home(batch_outs, self.device)
             uniq, partials = executor._to_host(
                 plan.sparse_merge_fn([u for u, _ in batch_outs], [p for _, p in batch_outs])
             )
@@ -1027,3 +1105,111 @@ class DistributedEngine:
             arrays[f"__ord{i}"] = _decoded(ob.expr.op)
         cols_out = list(plan.select_columns) + [f"__ord{i}" for i in range(len(ctx.order_by))]
         return SelectionSegmentResult(columns=cols_out, arrays=arrays)
+
+
+class ReplicatedEngine:
+    """QPS deployment of a 2-D mesh: one 1-D DistributedEngine a replica
+    row, each holding a FULL copy of every registered table on its own
+    positions (replica-group serving).
+
+    Routing, as in the JAX package: whole same-shape batches go to one
+    replica row and rows rotate round-robin, so concurrent load spreads
+    across rows while each row's plan and device caches stay hot.  With a
+    coordinator attached, `mesh_placement(R)` maps replica groups onto mesh
+    rows, and a row whose replica group has no live server leaves the
+    rotation until it recovers.  Each row gets its OWN residency manager
+    with an even share of the device cache budget
+    (segment/residency.row_residency), so one row's working set never
+    evicts another's, and its own lock: a row runs one query at a time.
+
+    mesh: a 2-D mesh (parallel/mesh.make_mesh2d); None is
+    make_mesh2d(num_replicas, device=device)."""
+
+    def __init__(
+        self,
+        mesh: Optional[mesh_mod.Mesh] = None,
+        num_replicas: int = 2,
+        hbm_cache_bytes: Optional[int] = None,
+        coordinator=None,
+        device: DeviceLike = None,
+        **engine_kwargs,
+    ):
+        import threading
+
+        from pinot_tpu_torch.segment.residency import row_residency
+
+        if mesh is None:
+            mesh = mesh_mod.make_mesh2d(num_replicas, device=device)
+        self.mesh = mesh
+        rows = mesh_mod.replica_rows(mesh)
+        self.engines: List[DistributedEngine] = []
+        for r, row_mesh in enumerate(rows):
+            res = row_residency(len(rows), r, total_bytes=hbm_cache_bytes)
+            self.engines.append(DistributedEngine(
+                mesh=row_mesh, residency=res, hbm_cache_bytes=0 if res is None else None, **engine_kwargs))
+        self.coordinator = coordinator
+        self._rr = 0
+        self._rr_lock = threading.Lock()
+        self._row_locks = [threading.Lock() for _ in self.engines]
+
+    @property
+    def num_replicas(self) -> int:
+        return len(self.engines)
+
+    def register_table(self, name: str, stacked) -> None:
+        for eng in self.engines:
+            eng.register_table(name, stacked)
+
+    def _live_rows(self) -> List[int]:
+        """Rows eligible for routing: all of them standalone; with a
+        coordinator, the rows whose replica group still has a live server
+        (every row when none has)."""
+        all_rows = list(range(len(self.engines)))
+        if self.coordinator is None:
+            return all_rows
+        placement = self.coordinator.mesh_placement(len(self.engines))
+        live = [r for r in all_rows if placement.get(r)]
+        return live or all_rows
+
+    def _next_row(self) -> int:
+        rows = self._live_rows()
+        with self._rr_lock:
+            self._rr += 1
+            return rows[self._rr % len(rows)]
+
+    def query(self, sql: str) -> ResultTable:
+        row = self._next_row()
+        with self._row_locks[row]:
+            return self.engines[row].query(sql)
+
+    def execute(self, ctx: QueryContext) -> ResultTable:
+        row = self._next_row()
+        with self._row_locks[row]:
+            return self.engines[row].execute(ctx)
+
+    def execute_many(self, ctxs: List[QueryContext]) -> List[ResultTable]:
+        """Batch routing: members group by shape fingerprint and every
+        group lands WHOLE on one replica row (a member-axis launch never
+        splits across rows), rows rotating a group."""
+        results: List[Optional[ResultTable]] = [None] * len(ctxs)
+        groups: Dict[Any, List[int]] = {}
+        for i, ctx in enumerate(ctxs):
+            stacked = self.engines[0].tables.get(ctx.table)
+            if ctx.joins or ctx.set_ops or stacked is None:
+                results[i] = self.execute(ctx)
+                continue
+            key = (ctx.table, shape_digest(ctx.shape_fingerprint(column_info_from(stacked))))
+            groups.setdefault(key, []).append(i)
+        for idxs in groups.values():
+            row = self._next_row()
+            with self._row_locks[row]:
+                outs = self.engines[row].execute_many([ctxs[i] for i in idxs])
+            for i, out in zip(idxs, outs):
+                results[i] = out
+        return results
+
+    def shutdown(self) -> None:
+        """Stop every row's residency staging thread."""
+        for eng in self.engines:
+            if eng.residency is not None:
+                eng.residency.shutdown()

@@ -318,21 +318,31 @@ class StackedTable:
         )
 
     @staticmethod
-    def _col_key(c: StackedColumn, sl, use_packed: bool):
+    def _col_key(c: StackedColumn, sl, use_packed: bool, place: Tuple[int, int, int]):
         # cache by BACKING-ARRAY identity, not name, as the JAX package does
         arr_id = id(c.codes if c.codes is not None else c.values)
-        return (arr_id, sl, "#packed") if use_packed else (arr_id, sl)
+        return (arr_id, sl, place, "#packed") if use_packed else (arr_id, sl, place)
 
-    def device_group(self, device: DeviceLike, sl) -> Tuple:
-        """Residency cache-group key: ONE doc slice of this table on one
-        device.  Slices evict independently (a working set over budget
-        rotates through the cache), but all flavours of a slice drop as a
-        unit."""
-        return ("stacked", id(self), str(resolve_device(device)), sl)
+    def _place(self, shards: Optional[Tuple[int, int]], position: int) -> Tuple[int, int, int]:
+        """(mesh position, first shard, end shard): where a slice lives on
+        its device.  Positions of a mesh may share one device, so the cache
+        and its groups key on the position and its shard range as well as
+        the device (the JAX package keys them on the mesh)."""
+        s0, s1 = shards if shards is not None else (0, self.num_shards)
+        return (int(position), int(s0), int(s1))
 
-    def _plan_missing(self, dev: torch.device, cols, sl, packed_codes: bool, with_valid: bool):
+    def device_group(self, device: DeviceLike, sl, shards: Optional[Tuple[int, int]] = None,
+                     position: int = 0) -> Tuple:
+        """Residency cache-group key: ONE doc slice of one mesh position's
+        shards (default: every shard, position 0) on one device.  Slices
+        evict independently (a working set over budget rotates through the
+        cache), but all flavours of a slice drop as a unit."""
+        return ("stacked", id(self), str(resolve_device(device)), self._place(shards, position), sl)
+
+    def _plan_missing(self, dev: torch.device, cols, sl, packed_codes: bool, with_valid: bool, place):
         """(missing column specs, valid missing?, bytes to charge)."""
         span = sl[1] - sl[0]
+        _, s0, s1 = place
         need = []
         nbytes = 0
         need_valid = False
@@ -341,7 +351,7 @@ class StackedTable:
             for cname in cols:
                 c = self.column(cname)
                 use_packed = self._use_packed(c, sl, packed_codes)
-                ck = self._col_key(c, sl, use_packed)
+                ck = self._col_key(c, sl, use_packed, place)
                 if ck in cache:
                     continue
                 dkey = cached_dict = None
@@ -356,25 +366,28 @@ class StackedTable:
                             dkey = None  # already staged (and charged) once
                 if use_packed:
                     f = 32 // c.code_bits
-                    nbytes += c.packed[:, sl[0] // f: sl[1] // f].nbytes
+                    nbytes += c.packed[s0:s1, sl[0] // f: sl[1] // f].nbytes
                 elif c.codes is not None:
-                    nbytes += c.codes[:, sl[0]: sl[1]].nbytes
+                    nbytes += c.codes[s0:s1, sl[0]: sl[1]].nbytes
                 for arr in (c.values, c.nulls, c.mv_lengths):
                     if arr is not None:
-                        nbytes += arr.itemsize * arr.shape[0] * span
+                        nbytes += arr.itemsize * (s1 - s0) * span
                 need.append((cname, ck, use_packed, dkey, cached_dict))
             if with_valid:
-                vk = (id(self.valid), sl)
+                vk = (id(self.valid), sl, place)
                 if vk not in cache:
                     need_valid = True
-                    nbytes += self.valid[:, sl[0]: sl[1]].nbytes
+                    nbytes += self.valid[s0:s1, sl[0]: sl[1]].nbytes
         return need, need_valid, nbytes
 
-    def _stage_slice(self, need, need_valid: bool, sl, copy: CopyFn) -> Dict[Any, Any]:
+    def _stage_slice(self, need, need_valid: bool, sl, copy: CopyFn, place) -> Dict[Any, Any]:
         """Host->device copies of one slice's missing entries, each host
         array through `copy` (NO locks held: the staging-stream body)."""
+        _, s0, s1 = place
+        whole = (s0, s1) == (0, self.num_shards)
 
         def rows(a: np.ndarray) -> np.ndarray:
+            a = a if whole else a[s0:s1]
             return tensor_source(a if sl == (0, self.docs_per_shard) else a[:, sl[0]: sl[1]])
 
         staged: Dict[Any, Any] = {}
@@ -383,7 +396,7 @@ class StackedTable:
             entry: Dict[str, torch.Tensor] = {}
             if use_packed:
                 f = 32 // c.code_bits
-                entry["codes_packed"] = copy(packing.word_view(c.packed[:, sl[0] // f: sl[1] // f]))
+                entry["codes_packed"] = copy(packing.word_view(c.packed[s0:s1, sl[0] // f: sl[1] // f]))
             elif c.codes is not None:
                 entry["codes"] = copy(rows(c.codes))
             if dkey is not None:
@@ -398,7 +411,7 @@ class StackedTable:
                 entry["lengths"] = copy(rows(c.mv_lengths))
             staged[ck] = entry
         if need_valid:
-            staged[(id(self.valid), sl)] = copy(rows(self.valid))
+            staged[(id(self.valid), sl, place)] = copy(rows(self.valid))
         return staged
 
     def _publish(self, dev: torch.device, group: Tuple, staged: Dict[Any, Any]) -> None:
@@ -410,7 +423,7 @@ class StackedTable:
                 cache.setdefault(k, v)
             self._group_keys.setdefault(group, set()).update(staged.keys())
 
-    def _assemble(self, dev: torch.device, cols, sl, packed_codes: bool, with_valid: bool):
+    def _assemble(self, dev: torch.device, cols, sl, packed_codes: bool, with_valid: bool, place):
         """(cols, valid) read out of the cache in ONE critical section; None
         if a racing eviction removed any needed entry (the caller re-stages
         the whole group, never observing a half-evicted slice)."""
@@ -419,7 +432,7 @@ class StackedTable:
             out: Dict[str, Dict[str, torch.Tensor]] = {}
             for cname in cols:
                 c = self.column(cname)
-                ck = self._col_key(c, sl, self._use_packed(c, sl, packed_codes))
+                ck = self._col_key(c, sl, self._use_packed(c, sl, packed_codes), place)
                 if ck not in cache:
                     return None
                 out[cname] = cache[ck]
@@ -427,17 +440,18 @@ class StackedTable:
                 # the distributed engine masks padding from num_docs in the
                 # launch: the [S, D] bool array never ships
                 return out, None
-            vk = (id(self.valid), sl)
+            vk = (id(self.valid), sl, place)
             if vk not in cache:
                 return None
             return out, cache[vk]
 
-    def evict_slice(self, device: DeviceLike, sl) -> None:
+    def evict_slice(self, device: DeviceLike, sl, shards: Optional[Tuple[int, int]] = None,
+                    position: int = 0) -> None:
         """Atomic flavour invalidation of one slice group: every cache key
         the group staged — raw, #packed, valid, the dictionaries it staged —
         drops in one critical section (the residency eviction callback)."""
         dev = resolve_device(device)
-        group = self.device_group(dev, sl)
+        group = self.device_group(dev, sl, shards, position)
         with self._device_lock:
             keys = self._group_keys.pop(group, set())
             cache = self._device_cache.get(str(dev), {})
@@ -455,14 +469,18 @@ class StackedTable:
         prefetch: bool = False,
         query_id: Optional[str] = None,
         copy: Optional[CopyFn] = None,
+        shards: Optional[Tuple[int, int]] = None,
+        position: int = 0,
     ):
-        """Ship the doc slice [:, lo:hi] (default: all docs) of `columns` to
-        `device` (None: CUDA, raising without it).  Returns (cols, valid):
-        cols maps each column to its entry of [S, hi - lo] row tensors (or
-        [S, (hi - lo) * bits / 32] lane words under "codes_packed" when
-        packed_codes and the slice is lane-aligned); valid is the [S, hi -
-        lo] bool tensor, or None when with_valid is False.  Entries are
-        cached per device, keyed by the backing array, the slice and the
+        """Ship the doc slice [s0:s1, lo:hi] (default: every shard, all
+        docs) of `columns` to `device` (None: CUDA, raising without it).
+        Returns (cols, valid): cols maps each column to its entry of [s1 -
+        s0, hi - lo] row tensors (or [s1 - s0, (hi - lo) * bits / 32] lane
+        words under "codes_packed" when packed_codes and the slice is
+        lane-aligned); valid is the [s1 - s0, hi - lo] bool tensor, or None
+        when with_valid is False.  Entries are cached per device, keyed by
+        the backing array, the slice, the mesh position and its shard range
+        `shards` (a mesh engine stages position p's shards there), and the
         packed flavour: the table is immutable.
 
         With `residency` the device cache is a byte-budgeted tier over the
@@ -479,29 +497,30 @@ class StackedTable:
         copy = copy or functools.partial(pageable_copy, device=dev)
         cols = columns or list(self.columns)
         sl = doc_slice if doc_slice is not None else (0, self.docs_per_shard)
-        group = self.device_group(dev, sl)
+        place = self._place(shards, position)
+        group = self.device_group(dev, sl, shards, position)
 
         if residency is None:
             # the plain cache: no budget, no eviction
             while True:
-                need, need_valid, _ = self._plan_missing(dev, cols, sl, packed_codes, with_valid)
+                need, need_valid, _ = self._plan_missing(dev, cols, sl, packed_codes, with_valid, place)
                 if need or need_valid:
-                    self._publish(dev, group, self._stage_slice(need, need_valid, sl, copy))
-                out = self._assemble(dev, cols, sl, packed_codes, with_valid)
+                    self._publish(dev, group, self._stage_slice(need, need_valid, sl, copy, place))
+                out = self._assemble(dev, cols, sl, packed_codes, with_valid, place)
                 if out is not None:
                     return out
 
         while True:
-            need, need_valid, _ = self._plan_missing(dev, cols, sl, packed_codes, with_valid)
+            need, need_valid, _ = self._plan_missing(dev, cols, sl, packed_codes, with_valid, place)
             st, entry = residency.begin_stage(
-                group, self.schema.name, lambda: self.evict_slice(dev, sl), prefetch=prefetch
+                group, self.schema.name, lambda: self.evict_slice(dev, sl, shards, position), prefetch=prefetch
             )
             if st == res_mod.WAIT:
                 residency.wait(entry)
                 continue
             if st == res_mod.HIT:
                 if not need and not need_valid:
-                    out = self._assemble(dev, cols, sl, packed_codes, with_valid)
+                    out = self._assemble(dev, cols, sl, packed_codes, with_valid, place)
                     if out is not None:
                         return out
                     continue  # evicted between plan and read: re-stage
@@ -513,17 +532,17 @@ class StackedTable:
                     continue
             # OWN: charge, copy (no locks held), publish, commit
             try:
-                need, need_valid, nbytes = self._plan_missing(dev, cols, sl, packed_codes, with_valid)
+                need, need_valid, nbytes = self._plan_missing(dev, cols, sl, packed_codes, with_valid, place)
                 residency.charge(group, nbytes, query_id=query_id)
                 crash_point("segment.stage.after_charge")
-                staged = self._stage_slice(need, need_valid, sl, copy)
+                staged = self._stage_slice(need, need_valid, sl, copy, place)
                 crash_point("segment.stage.after_copy")
                 self._publish(dev, group, staged)
             except BaseException:
                 residency.abort_stage(group)
                 raise
             residency.finish_stage(group)
-            out = self._assemble(dev, cols, sl, packed_codes, with_valid)
+            out = self._assemble(dev, cols, sl, packed_codes, with_valid, place)
             if out is not None:
                 return out
 
@@ -533,6 +552,26 @@ class StackedTable:
         with self._device_lock:
             self._device_cache.clear()
             self._group_keys.clear()
+
+    def resharded(self, num_shards: int) -> "StackedTable":
+        """The same flat doc space cut into `num_shards` shards: shard s
+        holds flat docs [s * D', (s + 1) * D'), D' = S * D / num_shards.
+        The arrays are views of this table's (nothing is copied) and the
+        indexes, which cover the flat padded doc space, are shared; padding
+        stays at the tail.  A table built with one shard gives a mesh of
+        several positions its shards this way.  Needs S * D divisible by
+        num_shards * 32 (every shard 32-aligned)."""
+        total = self.num_shards * self.docs_per_shard
+        if total % (num_shards * 32):
+            raise ValueError(f"{total} padded docs do not cut into {num_shards} shards of a multiple of 32")
+
+        def cut(a: Optional[np.ndarray]) -> Optional[np.ndarray]:
+            return None if a is None else a.reshape((num_shards, -1) + a.shape[2:])
+
+        cols = {name: dataclasses.replace(c, codes=cut(c.codes), values=cut(c.values), nulls=cut(c.nulls),
+                                          mv_lengths=cut(c.mv_lengths), packed=cut(c.packed))
+                for name, c in self.columns.items()}
+        return StackedTable(self.schema, cols, cut(self.valid), self.num_docs, indexes=self.indexes)
 
     # -- self-join facades ----------------------------------------------
     def aliased_view(self, alias: str) -> "StackedTable":
