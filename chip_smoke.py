@@ -308,6 +308,25 @@ Phases, in order; any failure raises and the process exits non-zero:
                 warm median in turns with the one-position engine (5 runs
                 each) and its device busy and idle share (one profile
                 session an item, run with the other phases' profiles).
+ 4n. analysis_path (after 4m) - the port's analysis tools: (n1) `python -m
+                pinot_tpu_torch.tools.cli lint --json` in a subprocess
+                (started first, beside (n2) and (n3)): exit 0, no finding,
+                the baseline live with no stale entry, the model-check sweep
+                ok, its wall time; (n2) `cli mc --mutations --json` at the
+                tier-1 budget (25 schedules): every model clean, every
+                mutation caught, one caught trace saved and replayed bit for
+                bit; (n3) config 2 warm, twice each through phase 4's
+                QueryEngine, phase 4b's DistributedEngine and phase 4j's
+                ServerInstance.execute (trace off) under
+                torch.cuda.set_sync_debug_mode("warn"), each exact: one
+                analysis_path line a synchronizing call site of the port
+                (file:line, syncs a query by engine) with the static
+                auditor's verdict (a finding, a baseline entry, an inline
+                suppression, the allowlisted fence, the sanitizer: an
+                explicit .cpu() drain, or nothing: a gap).
+                Fails on an inexact result, a gate, or a sync debug mode
+                that cannot be set; the fused-scan launches of (n3) count
+                as analysis_path.
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
@@ -322,7 +341,7 @@ Phases, in order; any failure raises and the process exits non-zero:
                 under half of 8 x the distributed main path's launch.
   6. summary  - one {"kernels": [...]} JSON line (fused_scan, funnel_scan; launches_by_path
                 includes front_door, join_path, realtime_path, batch_path,
-                cluster_path, serving_path and mesh_path; the
+                cluster_path, serving_path, mesh_path and analysis_path; the
                 member-axis launches by instantiation and by layout, and each
                 member-axis shape with its Wg; flush_ms names
                 member_phases.py, which measures it), the card's
@@ -5973,6 +5992,166 @@ def phase_mesh_path(dist, join):
             "mesh_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 4n: analysis_path — the port's lint gate and model checker on the
+# card's machine, and the syncs torch reports on config 2's warm path held
+# against the static auditor's verdicts
+ANALYSIS_QUERIES = 2  # warm config-2 queries an engine under the sync debug mode
+ANALYSIS_SCHEDULES = 25  # the tier-1 test's model-check budget
+
+
+def _sync_sites(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): its result and
+    {(relpath, line): syncs} — each warning attributed to the innermost
+    frame of the port (the port's call into torch that synchronized).
+    Raises if the mode cannot be set or a probe sync does not warn."""
+    import traceback
+    import warnings
+
+    sites, seen = {}, []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        seen.append(1)
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            norm = fr.filename.replace(os.sep, "/")
+            if "/pinot_tpu_torch/" in norm:
+                rel = "pinot_tpu_torch/" + norm.rsplit("/pinot_tpu_torch/", 1)[1]
+                sites[(rel, fr.lineno)] = sites.get((rel, fr.lineno), 0) + 1
+                return
+        sites[("<outside the port>", 0)] = sites.get(("<outside the port>", 0), 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            if torch.cuda.get_sync_debug_mode() != 1:
+                raise AssertionError("analysis_path: the CUDA sync debug mode could not be set to warn")
+            torch.ones(1, device="cuda").item()  # the probe: a sync that must warn
+            if not seen:
+                raise AssertionError("analysis_path: a probe .item() under the sync debug mode did not warn")
+            sites.clear()
+            out = fn()
+            torch.cuda.synchronize()  # settle the work; its own warning is outside the port
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites.pop(("<outside the port>", 0), None)
+    return out, sites
+
+
+def phase_analysis_path(seg, dist, batch):
+    """Phase 4n: (n1) `cli lint --json` in a subprocess (started first, run
+    beside (n2) and (n3)): exit 0, no finding, a live baseline with no
+    stale entry, the model-check sweep ok; (n2) `cli mc --mutations --json`
+    at the tier-1 budget, every model clean and every mutation caught, one
+    caught trace saved and replayed bit for bit; (n3) config 2 warm,
+    ANALYSIS_QUERIES times each through phase 4's QueryEngine, phase 4b's
+    DistributedEngine and phase 4j's ServerInstance.execute (trace off)
+    under torch.cuda.set_sync_debug_mode("warn"): each result exact, each
+    synchronizing call site of the port with its count a query, beside the
+    static auditor's verdict on it (device_sync.audit_sites).  Sites the
+    auditor does not see are recorded as gaps; the phase fails on an inexact
+    result, a lint or model-check gate, or a sync debug mode that cannot be
+    set."""
+    from pinot_tpu_torch.analysis.device_sync import NOTHING, audit_sites
+    from pinot_tpu_torch.query.reduce import reduce_results
+    from pinot_tpu_torch.sql.parser import parse_query
+
+    t0 = time.perf_counter()
+    lint_t0 = time.perf_counter()
+    lint = subprocess.Popen([sys.executable, "-m", "pinot_tpu_torch.tools.cli", "lint", "--json"], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # (n2) the model checker over the port's five protocol classes
+        mc_t0 = time.perf_counter()
+        trace_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_mc_"), "trace.json")
+        rc, out, err = _cli(["mc", "--mutations", "--json", "--schedules", str(ANALYSIS_SCHEDULES),
+                             "--save-trace", trace_path])
+        report = json.loads(out)
+        missed = [f"{p}[{m}]" for p, e in report["protocols"].items()
+                  for m, r in e.get("mutations", {}).items() if not r["caught"]]
+        dirty = [p for p, e in report["protocols"].items() if e["failure"] is not None]
+        if rc != 0 or not report["ok"] or missed or dirty or len(report["protocols"]) != 5:
+            raise AssertionError(f"analysis_path (n2): rc {rc}, missed {missed}, failing {dirty}")
+        with open(trace_path) as f:
+            saved = json.load(f)
+        rc_r, out_r, _ = _cli(["mc", "--replay", trace_path, "--json"])
+        replayed = json.loads(out_r)
+        if rc_r != 0 or not replayed["identical"] or any(
+                replayed["reproduced"][k] != saved["failure"][k] for k in ("kind", "detail", "step", "schedule")):
+            raise AssertionError(f"analysis_path (n2): the saved trace did not replay bit for bit: {replayed}")
+        shutil.rmtree(os.path.dirname(trace_path), ignore_errors=True)
+        mc = {"ok": True, "schedules_a_model": ANALYSIS_SCHEDULES, "wall_s": time.perf_counter() - mc_t0,
+              "protocols": {p: {"clean_schedules": e["schedulesExplored"],
+                                "mutations": {m: {"caught": r["caught"], "kind": r["failure"]["kind"],
+                                                  "step": r["failure"]["step"],
+                                                  "schedules": r["schedulesExplored"]}
+                                              for m, r in e["mutations"].items()}}
+                            for p, e in sorted(report["protocols"].items())},
+              "trace": f"{saved['protocol']}[{saved['mutation']}]", "replay_identical": True,
+              "replay_step": replayed["reproduced"]["step"]}
+        log("analysis_mc", **mc)
+
+        # (n3) config 2 warm through three engines under the sync debug mode
+        server = batch["server"]
+        names = server.segment_names("lineorder")
+        want_seg, want_dist = seg["golden"]["a_config2"], _config2_golden(dist["data"])
+
+        def server_query():
+            ctx = parse_query(CONFIG2)
+            res, st = server.execute(ctx, names)
+            return reduce_results(ctx, res, st)
+
+        runs = {"segment_engine": (lambda: seg["engine"].query(CONFIG2), want_seg),
+                "distributed_engine": (lambda: dist["engines"]["one_batch"].query(CONFIG2), want_dist),
+                "server_execute": (server_query, want_seg)}
+        counted, per_engine = [], {}
+        for name, (run, want) in runs.items():
+            run()  # warm (each engine has run config 2 in its own phase)
+            results, sites = _sync_sites(lambda: _counted(
+                counted, lambda: [run() for _ in range(ANALYSIS_QUERIES)])[0])
+            if any(sorted(r.rows) != want for r in results):
+                raise AssertionError(f"analysis_path (n3): {name}'s config 2 under the sync debug mode is not exact")
+            per_engine[name] = {site: n / ANALYSIS_QUERIES for site, n in sites.items()}
+        all_sites = sorted({s for by in per_engine.values() for s in by})
+        verdicts = audit_sites(all_sites)
+        gaps = 0
+        for rel, line in all_sites:
+            v = verdicts[(rel, line)]
+            gaps += v["verdict"] == NOTHING
+            with open(os.path.join(REPO, rel)) as f:
+                text = f.read().splitlines()[line - 1].strip()
+            log("analysis_path", site=f"{rel}:{line}", symbol=v["symbol"], auditor=v["verdict"], rule=v["rule"],
+                syncs_a_query={e: by.get((rel, line), 0) for e, by in per_engine.items()}, code=text)
+    finally:
+        lint_out, lint_err = lint.communicate(timeout=600)
+    lint_s = time.perf_counter() - lint_t0
+    payload = json.loads(lint_out) if lint_out.strip().startswith("{") else {}
+    lint_rec = {"rc": lint.returncode, "wall_s": lint_s, "count": payload.get("count"),
+                "baselined": payload.get("baselined"), "stale_baseline": len(payload.get("staleBaseline", [None])),
+                "model_check_ok": payload.get("modelCheck", {}).get("ok"),
+                "rules_of_findings": sorted(payload.get("rules", {}))}
+    log("analysis_lint", **lint_rec)
+    if not (lint.returncode == 0 and payload.get("count") == 0 and (payload.get("baselined") or 0) > 0
+            and payload.get("staleBaseline") == [] and payload.get("modelCheck", {}).get("ok") is True):
+        raise AssertionError(f"analysis_path (n1): cli lint --json failed: {lint_rec} {lint_err[-2000:]}")
+    launches = sum(c["launches"] for c in counted)
+    variants = {}
+    for c in counted:
+        for k, v in c["instantiations"].items():
+            variants[k] = variants.get(k, 0) + v
+    by_verdict = {}
+    for v in verdicts.values():
+        by_verdict[v["verdict"]] = by_verdict.get(v["verdict"], 0) + 1
+    analysis_s = time.perf_counter() - t0
+    log("analysis_check", exact=True, launches=launches, instantiations=variants, sync_sites=len(all_sites),
+        auditor_gaps=gaps, sites_by_verdict=by_verdict,
+        syncs_a_query={e: sum(by.values()) for e, by in per_engine.items()}, phase_4n_s=analysis_s)
+    return {"launches": launches, "variants": variants, "lint": lint_rec, "mc": mc, "analysis_s": analysis_s}
+
+
 def phase_storage(seg, dist, transform, dev) -> dict:
     t0 = time.perf_counter()
     log("storage_copy_rates", unit="GB/s", torch_threads=torch.get_num_threads(), **_copy_rates(dev))
@@ -6061,15 +6240,17 @@ def main() -> int:
     cluster = phase_cluster_path(seg, front, batch)
     serving = phase_serving_path(seg, cluster, batch, args.seed + 7)
     mesh = phase_mesh_path(dist, join)
+    analysis = phase_analysis_path(seg, dist, batch)
     main_variants = dict(seg["variants"])
-    for part in (dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving, mesh):
+    for part in (dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving, mesh,
+                 analysis):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
     storage_launches, sketch_launches, index_launches = storage["launches"], sketch["launches"], index["launches"]
     front_launches, join_launches, realtime_launches = front["launches"], join["launches"], realtime["launches"]
     batch_launches, cluster_launches, serving_launches = batch["launches"], cluster["launches"], serving["launches"]
-    mesh_launches = mesh["launches"]
+    mesh_launches, analysis_launches = mesh["launches"], analysis["launches"]
     member_axis_launches, member_axis_layouts = {}, {}
     for part in (batch, cluster, serving):
         for src, dst in ((part["member_axis_launches"], member_axis_launches),
@@ -6078,7 +6259,7 @@ def main() -> int:
                 dst[k] = dst.get(k, 0) + v
     main_launches = (sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
                      + index_launches + front_launches + join_launches + realtime_launches + batch_launches
-                     + cluster_launches + serving_launches + mesh_launches)
+                     + cluster_launches + serving_launches + mesh_launches + analysis_launches)
     profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"]
                             + index["profiles"] + front["profiles"] + join["profiles"] + realtime["profiles"]
                             + batch["profiles"] + cluster["profiles"] + mesh["profiles"])
@@ -6157,6 +6338,7 @@ def main() -> int:
             profiled_wall_ms=prof.get("profiled_wall_ms", "not run"),
             top_device_ops=prof.get("top_device_ops", "not run"))
     log("mesh_seconds", phase_4m_s=mesh["mesh_s"])
+    log("analysis_seconds", phase_4n_s=analysis["analysis_s"])
     for srv in cluster["servers"]:  # the residency managers' staging threads
         if srv.residency is not None:
             srv.residency.shutdown()
@@ -6196,7 +6378,7 @@ def main() -> int:
                              "front_door": front_launches, "join_path": join_launches,
                              "realtime_path": realtime_launches, "batch_path": batch_launches,
                              "cluster_path": cluster_launches, "serving_path": serving_launches,
-                             "mesh_path": mesh_launches},
+                             "mesh_path": mesh_launches, "analysis_path": analysis_launches},
         "member_axis_launches_on_main_path": member_axis_launches,
         "member_axis_layouts_on_main_path": member_axis_layouts,
         "max_abs_err": worst,

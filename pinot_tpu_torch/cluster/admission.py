@@ -420,7 +420,7 @@ class ResourceBudget:
         # callers hold self._lock (the _locked suffix contract)
         ticket = next(self._ticket_seq)
         self._by_ticket[ticket] = n
-        self._in_use += n
+        self._in_use += n  # pinot-lint: disable=W004
         self._peak = max(self._peak, self._in_use)
         self._publish_locked()
         return ticket

@@ -1562,7 +1562,7 @@ class Broker:
                     out, ok = run(name, lost[name]), True
                 # not swallowed: the captured exception is triaged by the
                 # consumer (winner path raises it, loser path accounts it)
-                except Exception as e:
+                except Exception as e:  # pinot-lint: disable=W006
                     out, ok = e, False
                 ms = (time.perf_counter() - st0) * 1000
                 self.server_stats.end(name, ms)

@@ -139,7 +139,7 @@ class FaultPlan:
         """Raise ServerFaultError on the server's Nth..N+times-1th execute."""
         # test-harness plan builder, not a serving path: rules are bounded by
         # the test script that authors them
-        self._rules.append(
+        self._rules.append(  # pinot-lint: disable=W015
             _Rule("fail", server, server, calls=set(range(on_call, on_call + times)), message=message)
         )
         return self
@@ -162,7 +162,7 @@ class FaultPlan:
         across runs AND independent of thread interleaving — call N always
         draws the same delay no matter which worker reaches it first."""
         # plan builder (test-authored, bounded), not a serving path
-        self._rules.append(
+        self._rules.append(  # pinot-lint: disable=W015
             _Rule("jitter", server, server, ms=base_ms, sigma=sigma, cap_ms=cap_ms)
         )
         return self
@@ -172,7 +172,7 @@ class FaultPlan:
         ``min(cap_ms, ms_per_call * calls_since_start)`` — modeling a server
         that is slowly dying (GC spiral, disk filling) without ever erroring."""
         # plan builder (test-authored, bounded), not a serving path
-        self._rules.append(
+        self._rules.append(  # pinot-lint: disable=W015
             _Rule("slow_ramp", server, server, ms=ms_per_call, cap_ms=cap_ms, start_call=from_call)
         )
         return self
@@ -183,7 +183,7 @@ class FaultPlan:
         breakers (never errors) and for naive outlier detection (recovers
         just long enough to look healthy)."""
         # plan builder (test-authored, bounded), not a serving path
-        self._rules.append(
+        self._rules.append(  # pinot-lint: disable=W015
             _Rule("gray_flap", server, server, ms=slow_ms, period=max(1, period))
         )
         return self
@@ -195,7 +195,7 @@ class FaultPlan:
         broker's scatter path identifies itself as source="broker"."""
         calls = None if on_call is None else {on_call}
         # plan builder (test-authored, bounded), not a serving path
-        self._rules.append(
+        self._rules.append(  # pinot-lint: disable=W015
             _Rule("partition", dst, dst, calls=calls, source=src)
         )
         return self
@@ -222,7 +222,7 @@ class FaultPlan:
         call.  Unlike fail_server, recovery requires restart_server — the
         coordinator reconciles the rebooted server from the deep store."""
         # plan builder (test-authored, bounded), not a serving path
-        self._rules.append(_Rule("crash", of or server, server, calls={on_call}))
+        self._rules.append(_Rule("crash", of or server, server, calls={on_call}))  # pinot-lint: disable=W015
         return self
 
     def restart_server(self, server: str, on_call: int, of: Optional[str] = None) -> "FaultPlan":
@@ -230,7 +230,7 @@ class FaultPlan:
         coordinator reboots it empty, reconciles from deep store / live
         peers, and mark_up heals broker breakers mid-workload."""
         # plan builder (test-authored, bounded), not a serving path
-        self._rules.append(_Rule("restart", of or server, server, calls={on_call}))
+        self._rules.append(_Rule("restart", of or server, server, calls={on_call}))  # pinot-lint: disable=W015
         return self
 
     # -- control-plane rules (coordinator HA) ------------------------------
@@ -242,7 +242,7 @@ class FaultPlan:
         its next journal append is what the epoch fence exists to stop."""
         with self._lock:
             self._paused_leaders.add(node_id)
-            self.log.append((node_id, 0, "pause_leader", node_id))
+            self.log.append((node_id, 0, "pause_leader", node_id))  # pinot-lint: disable=W015
         coord = self._coordinators.get(node_id)
         if coord is not None:
             coord.pause()
@@ -251,7 +251,7 @@ class FaultPlan:
     def resume_leader(self, node_id: str) -> "FaultPlan":
         with self._lock:
             self._paused_leaders.discard(node_id)
-            self.log.append((node_id, 0, "resume_leader", node_id))
+            self.log.append((node_id, 0, "resume_leader", node_id))  # pinot-lint: disable=W015
         coord = self._coordinators.get(node_id)
         if coord is not None:
             coord.resume()
@@ -264,7 +264,7 @@ class FaultPlan:
         keeps the journal single-writer."""
         with self._lock:
             self._lease_skew_ms[node_id] = float(ms)
-            self.log.append((node_id, 0, "lease_clock_skew", ms))
+            self.log.append((node_id, 0, "lease_clock_skew", ms))  # pinot-lint: disable=W015
         return self
 
     def journal_append_latency(self, node_id: str, ms: float) -> "FaultPlan":
@@ -274,7 +274,7 @@ class FaultPlan:
         safe."""
         with self._lock:
             self._journal_latency_ms[node_id] = float(ms)
-            self.log.append((node_id, 0, "journal_append_latency", ms))
+            self.log.append((node_id, 0, "journal_append_latency", ms))  # pinot-lint: disable=W015
         return self
 
     # control-plane hooks (called from LeaseManager / MetaJournal)
@@ -282,7 +282,7 @@ class FaultPlan:
         with self._lock:
             paused = node_id in self._paused_leaders
             if paused:
-                self.log.append((node_id, 0, "renew_suppressed", node_id))
+                self.log.append((node_id, 0, "renew_suppressed", node_id))  # pinot-lint: disable=W015
         return not paused
 
     def lease_skew_ms(self, node_id: str) -> float:
@@ -295,7 +295,7 @@ class FaultPlan:
             n = self._journal_appends[node_id]
             ms = self._journal_latency_ms.get(node_id, 0.0)
             if ms > 0:
-                self.log.append((node_id, n, "journal_append_latency", ms))
+                self.log.append((node_id, n, "journal_append_latency", ms))  # pinot-lint: disable=W015
         if ms > 0:
             self.sleep(ms / 1000.0)
 
@@ -369,7 +369,7 @@ class FaultPlan:
             # the fault ledger IS the harness product (tests slice it by
             # index); a deque can't slice, and plans live one test long
             with self._lock:
-                self.log.append((server_name, n, r.kind, detail))
+                self.log.append((server_name, n, r.kind, detail))  # pinot-lint: disable=W015
             if r.kind == "latency":
                 self.sleep(r.ms / 1000.0)
             elif r.kind in ("jitter", "slow_ramp", "gray_flap"):

@@ -456,8 +456,9 @@ class DistributedEngine:
                 if str(dev) not in on_device:
                     on_device[str(dev)] = {k: torch.from_numpy(v).to(dev) for k, v in members.items()}
                 outs.append(fnb(cols, {**params, **on_device[str(dev)]}, dev))
+            # _to_host copies the folded tables home: the fence before the stop
             host = executor._to_host(self._fold_launch(base, outs))
-            run_ms = (time.perf_counter() - td0) * 1000.0
+            run_ms = (time.perf_counter() - td0) * 1000.0  # pinot-lint: disable=W017
         except Exception:  # noqa: BLE001 — a failed attempt runs the members one by one
             METRICS.counter("dist.batchFallbacks").inc()
             return None
@@ -497,7 +498,7 @@ class DistributedEngine:
                     ),
                 )
             out = reduce_mod.reduce_results(ctx, [result], stats)
-            out.stats.time_ms = (time.perf_counter() - t0) * 1000
+            out.stats.time_ms = (time.perf_counter() - t0) * 1000  # pinot-lint: disable=W017
             out.stats.query_id = f"dist_{next(self._qid_seq)}"
             METRICS.counter("dist.queries").inc()
             METRICS.histogram("dist.queryLatency").update(out.stats.time_ms)
@@ -925,7 +926,8 @@ class DistributedEngine:
         device for the combine."""
         out, events = pending
         for ev in events or ():
-            ev.synchronize()
+            # one launch's own events: later launches stay in flight
+            ev.synchronize()  # pinot-lint: disable=W002
         return out
 
     def _run(self, ctx, plan: _DistPlan, stacked, stats: ExecutionStats, trace: Optional[Trace] = None):

@@ -84,7 +84,7 @@ class CopyStream:
                 i = self._next
                 self._next = (i + 1) % RING_SLOTS
                 if self._done[i] is not None:
-                    self._done[i].synchronize()  # the slot's last copy has read it
+                    self._done[i].synchronize()  # the slot's last copy has read it  # pinot-lint: disable=W002
                 if m >= PARALLEL_COPY_BYTES:
                     self._pinned[i][:m].copy_(src_t[off: off + m])
                 else:

@@ -349,7 +349,7 @@ def launch_segment_batch(ctxs: List[QueryContext], segment: ImmutableSegment, de
         out = fnb(cols, params, device)
     except Exception as exc:  # noqa: BLE001 — any vmap refusal means "run the members one by one"
         raise BatchShapeError(f"the planned closure does not run under torch.func.vmap: {exc}") from exc
-    compile_ms = (time.perf_counter() - t0) * 1000.0 if first_batched else 0.0
+    compile_ms = (time.perf_counter() - t0) * 1000.0 if first_batched else 0.0  # pinot-lint: disable=W017
 
     docs = segment.num_docs
     share, rem = divmod(docs, n)

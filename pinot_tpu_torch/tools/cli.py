@@ -10,9 +10,12 @@ PostQuery, StartServiceManager/quickstart commands).
   python -m pinot_tpu_torch.tools.cli perf --check --history h.jsonl --baseline b.json
   python -m pinot_tpu_torch.tools.cli slow-queries --url http://127.0.0.1:8099
   python -m pinot_tpu_torch.tools.cli admission --url http://127.0.0.1:8099
+  python -m pinot_tpu_torch.tools.cli lint [paths] [--json] [--explain]
+  python -m pinot_tpu_torch.tools.cli mc --mutations [--replay trace.json] [--save-trace t.json]
 
-Port of pinot_tpu/tools/cli.py: the same subcommands, flags and output,
-less `lint` and `mc` (they drive the JAX package's analysis tools).  Two
+Port of pinot_tpu/tools/cli.py: the same subcommands, flags and output.
+`lint` and `mc` run the port's analysis tools (analysis/) over the
+pinot_tpu_torch tree and its protocol classes; neither takes a device.  Two
 differences: `query`, `serve` and `quickstart` take `--device`, whose
 default is the card (`resolve_device(None)`, which raises without CUDA;
 `--device cpu` runs the plain PyTorch path), and `perf --check` needs
@@ -365,6 +368,126 @@ def cmd_perf(args) -> int:
     return 0
 
 
+def cmd_lint(args) -> int:
+    """Static lint: per-file rules (analysis/repo_lint.py) plus the
+    interprocedural passes (analysis/engine.py — race detector, sync
+    auditor and lifecycle passes with baseline.json) over the
+    pinot_tpu_torch tree; explicit paths run the per-file rules only.
+    Exit 1 when findings exist so CI gates on it."""
+    from pinot_tpu_torch.analysis.repo_lint import RULES, lint_paths
+
+    stale = []
+    baselined = 0
+    if args.paths:
+        findings = lint_paths(args.paths)
+    else:
+        from pinot_tpu_torch.analysis.engine import run_project
+
+        report = run_project()
+        findings = report.findings
+        stale = report.stale_baseline
+        baselined = report.baselined
+    if args.json:
+        payload = {
+            "findings": [f.to_dict() for f in findings],
+            "count": len(findings),
+            "baselined": baselined,
+            "staleBaseline": stale,
+            "rules": {r: RULES[r] for r in sorted({f.rule for f in findings})},
+        }
+        mc_ok = True
+        if not args.paths:
+            # one machine-readable gate: fold a small-budget model-check
+            # sweep (clean models only — the mutation matrix lives under
+            # `cli mc`) into the lint report
+            from pinot_tpu_torch.analysis.model_check import check_all
+
+            mc = check_all(seed=0, max_schedules=8, mutations=False)
+            mc_ok = mc["ok"]
+            payload["modelCheck"] = mc
+        print(json.dumps(payload, indent=2))
+        return 1 if findings or stale or not mc_ok else 0
+    for f in findings:
+        print(f)
+    for e in stale:
+        print(f"stale baseline entry (fixed? delete it): {json.dumps(e)}")
+    if findings and args.explain:
+        print("\nrules:", file=sys.stderr)
+        hit = {f.rule for f in findings}
+        for rule in sorted(hit):
+            print(f"  {rule}: {RULES.get(rule, '?')}", file=sys.stderr)
+    suffix = f" ({baselined} baselined)" if baselined else ""
+    print(f"{len(findings)} finding(s){suffix}", file=sys.stderr)
+    return 1 if findings or stale else 0
+
+
+def cmd_mc(args) -> int:
+    """Deterministic-schedule concurrency model checker (analysis/
+    model_check.py) over the registered protocol models.  Default run
+    explores a seeded schedule budget per protocol; `--mutations` also
+    requires every broken twin to be CAUGHT within the budget; `--replay
+    trace.json` re-runs a captured failing schedule and verifies the
+    failure reproduces bit-identically.  Exit 1 on any gate miss."""
+    from pinot_tpu_torch.analysis.model_check import check_all, load_trace, replay, save_trace
+
+    if args.replay:
+        trace = load_trace(args.replay)
+        want = trace["failure"]
+        got = replay(trace)
+        identical = got is not None and all(
+            got[k] == want[k] for k in ("kind", "detail", "step", "schedule")
+        )
+        if args.json:
+            print(json.dumps({"trace": trace, "reproduced": got, "identical": identical}, indent=2))
+        elif identical:
+            print(
+                f"reproduced {trace['protocol']}"
+                + (f"[{trace['mutation']}]" if trace.get("mutation") else "")
+                + f": {got['kind']} at step {got['step']} — {got['detail']}"
+            )
+        else:
+            print(f"trace did NOT reproduce: wanted {want!r}, got {got!r}", file=sys.stderr)
+        return 0 if identical else 1
+
+    protocols = args.protocols.split(",") if args.protocols else None
+    report = check_all(
+        seed=args.seed,
+        max_schedules=args.schedules,
+        mutations=args.mutations,
+        protocols=protocols,
+    )
+    failing = []  # (protocol, mutation, failure) — clean failures first
+    for name, entry in sorted(report["protocols"].items()):
+        if entry["failure"] is not None:
+            failing.insert(0, (name, None, entry["failure"]))
+        for mut, res in sorted(entry.get("mutations", {}).items()):
+            if res["failure"] is not None:
+                failing.append((name, mut, res["failure"]))
+    if args.save_trace and failing:
+        name, mut, failure = failing[0]
+        save_trace({"protocol": name, "mutation": mut, "failure": failure}, args.save_trace)
+        print(f"trace saved: {args.save_trace} ({name}{f'[{mut}]' if mut else ''})", file=sys.stderr)
+    if args.json:
+        print(json.dumps(report, indent=2))
+        return 0 if report["ok"] else 1
+    for name, entry in sorted(report["protocols"].items()):
+        status = "FAIL" if entry["failure"] else "ok"
+        line = f"{name:10s} {status:4s} {entry['schedulesExplored']} schedule(s)"
+        if entry["failure"]:
+            f = entry["failure"]
+            line += f" — {f['kind']} at step {f['step']}: {f['detail']}"
+        print(line)
+        for mut, res in sorted(entry.get("mutations", {}).items()):
+            verdict = "caught" if res["caught"] else "MISSED"
+            line = f"  twin {mut}: {verdict} ({res['schedulesExplored']} schedule(s))"
+            if res["failure"]:
+                f = res["failure"]
+                line += f" — {f['kind']}: {f['detail']}"
+            print(line)
+    print(("all gates green" if report["ok"] else "GATE FAILED"), file=sys.stderr)
+    return 0 if report["ok"] else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pinot_tpu_torch", description="pinot_tpu_torch admin CLI")
     sub = p.add_subparsers(dest="command", required=True)
@@ -424,6 +547,22 @@ def main(argv=None) -> int:
     pf.add_argument("--baseline", help="pinned baseline record (required with --check)")
     pf.add_argument("--threshold", type=float, default=None, help="override allowed fractional drop (--check)")
     pf.set_defaults(fn=cmd_perf)
+
+    lt = sub.add_parser("lint", help="torch-aware static lint over the pinot_tpu_torch tree")
+    lt.add_argument("paths", nargs="*", help="python files to lint (default: the installed package)")
+    lt.add_argument("--explain", action="store_true", help="print rule descriptions for findings")
+    lt.add_argument("--json", action="store_true", help="machine-readable findings report")
+    lt.set_defaults(fn=cmd_lint)
+
+    mc = sub.add_parser("mc", help="deterministic-schedule concurrency model checker over the serving protocols")
+    mc.add_argument("--seed", type=int, default=0, help="base RNG seed (schedule i uses seed+i)")
+    mc.add_argument("--schedules", type=int, default=25, help="schedules explored per protocol/twin")
+    mc.add_argument("--mutations", action="store_true", help="also require every broken twin to be caught")
+    mc.add_argument("--protocols", default="", help="comma-separated protocol subset (default: all)")
+    mc.add_argument("--replay", default="", metavar="TRACE_JSON", help="replay a captured failing trace; exit 0 iff it reproduces bit-identically")
+    mc.add_argument("--save-trace", default="", metavar="PATH", help="write the first failing clean-model trace as replayable JSON")
+    mc.add_argument("--json", action="store_true", help="machine-readable report")
+    mc.set_defaults(fn=cmd_mc)
 
     args = p.parse_args(argv)
     if args.command == "perf" and args.check and not (args.history and args.baseline):

@@ -1,8 +1,9 @@
 """Threading-primitive injection seam for the serving-tier protocols.
 
 Copy of pinot_tpu/utils/threads.py.  The hand-rolled lock/condition-variable
-protocols of the port (ResidencyManager, ResourceBudget) construct their
-primitives through THIS module instead of `threading` directly:
+protocols of the port (ResidencyManager, ResourceBudget, MicroBatcher,
+LeaseManager, KnobRegistry) construct their primitives through THIS module
+instead of `threading` directly:
 
     from pinot_tpu_torch.utils import threads
     ...
@@ -11,12 +12,12 @@ primitives through THIS module instead of `threading` directly:
 
 Under the default provider every call delegates 1:1 to the stdlib
 (`threading.Lock`, `concurrent.futures.Future`, `time.monotonic`) — zero
-behavior change, nothing to configure.  A model checker can install a
-deterministic provider for the duration of one explored schedule, so every
-primitive the protocol touches becomes a cooperative yield point and the
-interleaving is chosen by a seeded, replayable scheduler instead of the OS
-(the JAX package's analysis/scheduler.py; not ported yet, so only the real
-provider is used).
+behavior change, nothing to configure.  The model checker
+(analysis/model_check.py) installs a `SchedulerProvider` over a
+`DeterministicScheduler` (analysis/scheduler.py) for the duration of one
+explored schedule, so every primitive the protocol touches becomes a
+cooperative yield point and the interleaving is chosen by a seeded,
+replayable scheduler instead of the OS.
 
 `checkpoint()` marks a "real work happens here" point (a device copy, an
 fsync window): a no-op in production, a scheduling point under a checker.
