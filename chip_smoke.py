@@ -71,8 +71,8 @@ Phases, in order; any failure raises and the process exits non-zero:
                 from the counters around one counted run per engine; the
                 20-literal sweep plans once; warm medians of 5 ((d): one
                 run, cut from two for the script's limit), the host ms of
-                the words and their copy, then a profile of each query
-                ((d) at one launch only, cut from both batchings).
+                the words and their copy, then a profile of each query but
+                (d) (cut from both batchings for the script's limit).
  4c. transform_path - on the tables of phases 4 and 4b (no second build):
                 (e) a FILTER (WHERE ...) group-by, (f) SSB Q1.1's
                 SUM(lo_revenue * lo_discount), (g) a GROUP BY MOD(...) key
@@ -100,7 +100,8 @@ Phases, in order; any failure raises and the process exits non-zero:
                 on the distributed engine; each counted once and held
                 against a numpy golden (sketch fields equal, float
                 statistics to rtol 1e-9), then warm medians (of 5; (m) of
-                3 and (o) one run, cut for the script's limit) and a profile;
+                3 and (o) one run, cut for the script's limit) and a profile
+                (but (o): cut for the limit);
                 then the funnel kernel at four shapes (the 2^20-row check's,
                 one segment's rows: the segment engine's launch, (n)'s on
                 the stacked table, and skewed keys at the kernel's tile
@@ -327,6 +328,22 @@ Phases, in order; any failure raises and the process exits non-zero:
                 Fails on an inexact result, a gate, or a sync debug mode
                 that cannot be set; the fused-scan launches of (n3) count
                 as analysis_path.
+ 4o. surface (after 4n) - the port's public surface on the tables of
+                phases 4 and 4b (no new table): (o1) a device UDF
+                registered through query/scalar.register_device_function
+                (a torch clamp of lo_revenue) in SUM(CLAMPREV(lo_revenue))
+                of a config-2 shaped group-by on phase 4b's
+                DistributedEngine and phase 4's QueryEngine, exact against
+                numpy, launching the fused scan; (o2) a dict UDF registered
+                with string_result_fn=True in a GROUP BY and a WHERE on
+                both engines, exact; (o3) `cli create-segment` from a
+                schema file Schema.to_json wrote and a 2^16-row CSV, then
+                `cli query --device cuda` (config 2), exact in 1 launch;
+                (o4) DistributedEngine.device_batches over config 2's plan
+                at one macro-batch and at three: as many batches as the
+                plan has, on the card, each position's column and param
+                shapes those _run staged for the same query.  One
+                surface_path line an item; launches counted an item.
   5. profile  - after the main paths (a profiler session leaves tracing set
                 up in the process): each timed shape's kernel device time
                 (scan_ms, torch.profiler); at the segment main path's and
@@ -341,7 +358,8 @@ Phases, in order; any failure raises and the process exits non-zero:
                 under half of 8 x the distributed main path's launch.
   6. summary  - one {"kernels": [...]} JSON line (fused_scan, funnel_scan; launches_by_path
                 includes front_door, join_path, realtime_path, batch_path,
-                cluster_path, serving_path, mesh_path and analysis_path; the
+                cluster_path, serving_path, mesh_path, analysis_path and
+                surface; the
                 member-axis launches by instantiation and by layout, and each
                 member-axis shape with its Wg; flush_ms names
                 member_phases.py, which measures it), the card's
@@ -1853,10 +1871,11 @@ def phase_dist_main_path(args, dev):
             timings[f"{label}/{name}"] = {"median_ms": med, "rows_per_s": n / (med / 1e3), "runs_ms": ms}
     log("dist_timing", rows=n, max_memory_allocated=torch.cuda.max_memory_allocated(), **timings)
     log("dist_host_costs", **_dist_host_costs(engines["one_batch"], stacked, dev))
-    # (d) is profiled at one launch only: a session runs it twice, ~14 s
+    # (d) is not profiled: a session runs it twice, ~16 s (cut for the
+    # script's limit; PERF.md keeps an earlier run's device busy)
     profiles = [("dist_profile", {"engine": label, "query": name}, e, sql)
                 for label, e in engines.items() for name, sql in DIST_QUERIES.items()
-                if not (label == "three_batches" and name == "d_sparse_groupby")]
+                if name != "d_sparse_groupby"]
     return {"launches": launches, "variants": variants, "engines": engines, "stacked": stacked, "data": data,
             "golden": want,
             "profiles": profiles}
@@ -2705,7 +2724,8 @@ def phase_sketch_path(seg, dist, dev, seed):
     for label, e, names, _g, _n in runs:
         for name in names:
             records[f"{label}/{name}"].update(_wall_ms(e, SKETCH_QUERIES[name], runs=SKETCH_WALL_RUNS.get(name, 5)))
-            profiles.append(("sketch_profile", {"engine": label, "query": name}, e, SKETCH_QUERIES[name]))
+            if name != "o_sparse_hll":  # ~18 s a session: cut for the script's limit
+                profiles.append(("sketch_profile", {"engine": label, "query": name}, e, SKETCH_QUERIES[name]))
     timing = _funnel_timing(datas[0], d, dev, small, seed + 1)
     timing["max_abs_err"] = max(worst, timing["max_abs_err"])
     log("sketch_check", exact=True, fused_scan_launches=fused, funnel_scan_launches=funnel, instantiations=variants,
@@ -6152,6 +6172,173 @@ def phase_analysis_path(seg, dist, batch):
     return {"launches": launches, "variants": variants, "lint": lint_rec, "mc": mc, "analysis_s": analysis_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 4o: the public surface (user scalar functions, schema JSON, the CLI,
+# device_batches) on phases 4 and 4b's tables
+# ---------------------------------------------------------------------------
+SURFACE_CLAMP = (1000, 500_000)
+SURFACE_UDF_SQL = ("SELECT lo_orderdate, SUM(CLAMPREV(lo_revenue)), COUNT(*) FROM lineorder "
+                   "WHERE lo_quantity < 25 GROUP BY lo_orderdate LIMIT 2500")
+SURFACE_DICT_SQL = ("SELECT WEEKDAYTAG(lo_orderdate), COUNT(*), SUM(lo_revenue) FROM lineorder "
+                    "WHERE WEEKDAYTAG(lo_orderdate) <> 'd3' AND lo_quantity < 25 "
+                    "GROUP BY WEEKDAYTAG(lo_orderdate) LIMIT 10")
+SURFACE_CSV_ROWS = 1 << 16  # the CSV parse runs at ~270k rows/s on the card's host
+
+
+def _weekday_tag(values):
+    """The dict UDF of (o2): a string a day value, "d0" .. "d6"."""
+    return np.array([f"d{int(v) % 7}" for v in values], dtype=object)
+
+
+def _surface_goldens(datas):
+    """(o1) and (o2)'s exact rows over the row sets `datas`, from per-day
+    tables of the rows with lo_quantity < 25 (count, clamped and plain
+    revenue sums: float64 bincount sums of integers below 2^53); (o2)'s tag
+    is a function of the day, so its groups fold the day tables."""
+    cnt, clamped, rev = np.zeros(2406, np.int64), np.zeros(2406), np.zeros(2406)
+    for d in datas:
+        m = d["lo_quantity"] < 25
+        od, rm = d["lo_orderdate"][m] - 19920101, d["lo_revenue"][m]
+        cnt += np.bincount(od, minlength=2406)
+        clamped += np.bincount(od, weights=np.clip(rm, *SURFACE_CLAMP), minlength=2406)
+        rev += np.bincount(od, weights=rm, minlength=2406)
+    days = np.nonzero(cnt)[0]
+    udf = sorted((19920101 + int(i), float(clamped[i]), int(cnt[i])) for i in days)
+    tag = (19920101 + np.arange(2406)) % 7
+    keep = tag != 3
+    tc = np.bincount(tag[keep], weights=cnt[keep], minlength=7)
+    ts = np.bincount(tag[keep], weights=rev[keep], minlength=7)
+    dict_rows = sorted((f"d{k}", int(tc[k]), float(ts[k])) for k in range(7) if tc[k])
+    return udf, dict_rows
+
+
+def _staged_shapes(item):
+    """A staged macro-batch (one (cols, params[, ready]) a position) as
+    shapes: each column part's, each tensor param's, each int param's value."""
+    return [({c: {k: tuple(t.shape) for k, t in e.items()} for c, e in pos[0].items()},
+             {k: tuple(v.shape) if isinstance(v, torch.Tensor) else int(v) for k, v in pos[1].items()})
+            for pos in item]
+
+
+def _device_batches_check(engine, stacked):
+    """(o4): device_batches over config 2's plan against what _run stages
+    for the same plan (the staging recorded while the query runs)."""
+    from pinot_tpu_torch.sql.parser import parse_query
+
+    staged = {}
+    real = engine._stage_batch
+
+    def recorder(plan, stacked_, j, shared, prefetch=False):
+        out = real(plan, stacked_, j, shared, prefetch)
+        staged[j] = _staged_shapes(out)
+        return out
+
+    engine._stage_batch = recorder
+    try:
+        engine.query(CONFIG2)
+    finally:
+        del engine._stage_batch
+    plan = engine._plan(parse_query(CONFIG2), stacked)
+    batches = engine.device_batches(plan, stacked)
+    torch.cuda.synchronize()
+    got = [_staged_shapes(b) for b in batches]
+    on_card = all(t.is_cuda for b in batches for cols, _ in b for e in cols.values() for t in e.values())
+    want = [staged[j] for j in sorted(staged)]
+    if len(batches) != len(plan.batch_offsets) or got != want or not on_card:
+        raise AssertionError(f"surface (o4): device_batches {len(batches)} batches {got[:1]} against _run's "
+                             f"{len(want)} {want[:1]} (on the card: {on_card})")
+    del batches
+    return {"batches": len(got), "positions": len(got[0]), "columns": got[0][0][0], "params": got[0][0][1]}
+
+
+def phase_surface_path(seg, dist):
+    """Phase 4o: (o1) a device UDF registered through
+    register_device_function (a torch clamp of lo_revenue) in a config-2
+    shaped group-by on phase 4b's DistributedEngine and phase 4's
+    QueryEngine, exact against numpy, launching the fused scan; (o2) a dict
+    UDF registered with string_result_fn=True in a GROUP BY and a WHERE on
+    both engines, exact; (o3) `cli create-segment` from a schema file
+    Schema.to_json wrote and a 2^16-row CSV, then `cli query --device
+    cuda`, exact; (o4) DistributedEngine.device_batches over config 2's plan
+    at one macro-batch and at three, its batches and shapes those _run
+    stages.  Launches counted an item."""
+    from pinot_tpu_torch.query import scalar
+    from pinot_tpu_torch.spi.schema import Schema
+
+    t0 = time.perf_counter()
+    scalar.register_device_function("clampRev", lambda v: torch.clamp(v, *SURFACE_CLAMP))
+    scalar.register_dict_function("weekdaytag", _weekday_tag, string_result_fn=True)
+    seg_engine, dist_engines = seg["engine"], dist["engines"]
+    goldens = {"segment_engine": _surface_goldens(seg["datas"]), "distributed_engine": _surface_goldens([dist["data"]])}
+    golden_s = time.perf_counter() - t0
+    engines = {"segment_engine": seg_engine, "distributed_engine": dist_engines["one_batch"]}
+    counted, records = [], {}
+
+    # (o1), (o2) on both engines
+    for item, sql, pos in (("o1_device_udf", SURFACE_UDF_SQL, 0), ("o2_dict_udf", SURFACE_DICT_SQL, 1)):
+        for name, engine in engines.items():
+            t = time.perf_counter()
+            res, d = _counted(counted, lambda e=engine, q=sql: e.query(q))
+            wall_ms = (time.perf_counter() - t) * 1e3
+            if sorted(res.rows) != goldens[name][pos]:
+                raise AssertionError(f"surface ({item}) on the {name}: {sorted(res.rows)[:3]} against numpy "
+                                     f"{goldens[name][pos][:3]}")
+            if item == "o1_device_udf" and d["launches"] < 1:
+                raise AssertionError(f"surface (o1): the registered UDF's SUM did not launch the fused scan: {d}")
+            records[f"{item}/{name}"] = {**d, "exact": True, "groups": len(res.rows), "first_run_ms": wall_ms}
+
+    # (o3) create-segment from Schema.to_json's file, then query on the card
+    t3 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_surface_", dir=os.path.join(REPO, "build"))
+    try:
+        schema = seg_engine.table("lineorder").schema
+        text = schema.to_json()
+        if Schema.from_json(text).to_dict() != schema.to_dict():
+            raise AssertionError("surface (o3): Schema.from_json(to_json()) differs from the schema")
+        d = lineorder_segment(np.random.default_rng(SURFACE_CSV_ROWS), SURFACE_CSV_ROWS)
+        paths = {k: os.path.join(root, k) for k in ("schema.json", "lineorder.csv", "seg")}
+        with open(paths["schema.json"], "w", encoding="utf-8") as f:
+            f.write(text)
+        _write_csv(paths["lineorder.csv"], d)
+        t = time.perf_counter()
+        rc, out, err = _cli(["create-segment", "--schema", paths["schema.json"], "--csv", paths["lineorder.csv"],
+                             "--out", paths["seg"], "--name", "surface_0"])
+        create_s = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"surface (o3): create-segment rc {rc}: {err[-500:]}")
+        (rc, out, err), dq = _counted(counted, lambda: _cli(
+            ["query", "--segments", paths["seg"], "--sql", CONFIG2, "--device", "cuda"]))
+        want = _config2_rows(*_config2_tables(d))
+        if rc != 0 or _cli_rows(out) != want or dq["launches"] != 1:
+            raise AssertionError(f"surface (o3): cli query rc {rc}, exact {rc == 0 and _cli_rows(out) == want}, {dq}")
+        records["o3_cli"] = {**dq, "exact": True, "rows": SURFACE_CSV_ROWS, "groups": len(want),
+                             "create_segment_s": create_s, "schema_json_bytes": len(text),
+                             "item_s": time.perf_counter() - t3}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (o4) device_batches against _run's staging
+    for label in ("one_batch", "three_batches"):
+        t4 = time.perf_counter()
+        (rec, d) = _counted(counted, lambda e=dist_engines[label]: _device_batches_check(e, dist["stacked"]))
+        records[f"o4_device_batches/{label}"] = {**rec, "query_launches": d["launches"],
+                                                 "item_s": time.perf_counter() - t4}
+    torch.cuda.empty_cache()
+
+    launches = sum(c["launches"] for c in counted)
+    variants = {}
+    for c in counted:
+        for k, v in c["instantiations"].items():
+            variants[k] = variants.get(k, 0) + v
+    for item, rec in records.items():
+        log("surface_path", item=item, **rec)
+    surface_s = time.perf_counter() - t0
+    log("surface_check", exact=True, launches=launches, instantiations=variants,
+        launches_by_item={k: r.get("launches", r.get("query_launches")) for k, r in records.items()},
+        golden_s=golden_s, phase_4o_s=surface_s)
+    return {"launches": launches, "variants": variants, "surface_s": surface_s}
+
+
 def phase_storage(seg, dist, transform, dev) -> dict:
     t0 = time.perf_counter()
     log("storage_copy_rates", unit="GB/s", torch_threads=torch.get_num_threads(), **_copy_rates(dev))
@@ -6241,16 +6428,17 @@ def main() -> int:
     serving = phase_serving_path(seg, cluster, batch, args.seed + 7)
     mesh = phase_mesh_path(dist, join)
     analysis = phase_analysis_path(seg, dist, batch)
+    surface = phase_surface_path(seg, dist)
     main_variants = dict(seg["variants"])
     for part in (dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving, mesh,
-                 analysis):
+                 analysis, surface):
         for k, v in part["variants"].items():
             main_variants[k] = main_variants.get(k, 0) + v
     sse_launches, dist_launches, transform_launches = seg["launches"], dist["launches"], transform["launches"]
     storage_launches, sketch_launches, index_launches = storage["launches"], sketch["launches"], index["launches"]
     front_launches, join_launches, realtime_launches = front["launches"], join["launches"], realtime["launches"]
     batch_launches, cluster_launches, serving_launches = batch["launches"], cluster["launches"], serving["launches"]
-    mesh_launches, analysis_launches = mesh["launches"], analysis["launches"]
+    mesh_launches, analysis_launches, surface_launches = mesh["launches"], analysis["launches"], surface["launches"]
     member_axis_launches, member_axis_layouts = {}, {}
     for part in (batch, cluster, serving):
         for src, dst in ((part["member_axis_launches"], member_axis_launches),
@@ -6259,7 +6447,7 @@ def main() -> int:
                 dst[k] = dst.get(k, 0) + v
     main_launches = (sse_launches + dist_launches + transform_launches + sketch_launches + storage_launches
                      + index_launches + front_launches + join_launches + realtime_launches + batch_launches
-                     + cluster_launches + serving_launches + mesh_launches + analysis_launches)
+                     + cluster_launches + serving_launches + mesh_launches + analysis_launches + surface_launches)
     profiles = run_profiles(seg["profiles"] + dist["profiles"] + transform["profiles"] + sketch["profiles"]
                             + index["profiles"] + front["profiles"] + join["profiles"] + realtime["profiles"]
                             + batch["profiles"] + cluster["profiles"] + mesh["profiles"])
@@ -6339,6 +6527,7 @@ def main() -> int:
             top_device_ops=prof.get("top_device_ops", "not run"))
     log("mesh_seconds", phase_4m_s=mesh["mesh_s"])
     log("analysis_seconds", phase_4n_s=analysis["analysis_s"])
+    log("surface_seconds", phase_4o_s=surface["surface_s"])
     for srv in cluster["servers"]:  # the residency managers' staging threads
         if srv.residency is not None:
             srv.residency.shutdown()
@@ -6353,7 +6542,7 @@ def main() -> int:
         e.residency.shutdown()
     mesh["replicated"].shutdown()
     vector_timing = index["vector"]
-    del seg, dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving, mesh
+    del seg, dist, transform, sketch, storage, index, front, join, realtime, batch, cluster, serving, mesh, surface
     torch.cuda.empty_cache()
 
     # 5. profile
@@ -6378,7 +6567,8 @@ def main() -> int:
                              "front_door": front_launches, "join_path": join_launches,
                              "realtime_path": realtime_launches, "batch_path": batch_launches,
                              "cluster_path": cluster_launches, "serving_path": serving_launches,
-                             "mesh_path": mesh_launches, "analysis_path": analysis_launches},
+                             "mesh_path": mesh_launches, "analysis_path": analysis_launches,
+                             "surface": surface_launches},
         "member_axis_launches_on_main_path": member_axis_launches,
         "member_axis_layouts_on_main_path": member_axis_layouts,
         "max_abs_err": worst,

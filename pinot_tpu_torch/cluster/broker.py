@@ -1008,9 +1008,7 @@ class Broker:
                 if sse_executor.prune_segment(realtime_ctx, seg):
                     stats.num_segments_pruned += 1
                     continue
-                res, sstats = sse_executor.collect_segment(
-                    sse_executor.launch_segment(realtime_ctx, seg, self._device())
-                )
+                res, sstats = sse_executor.execute_segment(realtime_ctx, seg, self._device())
                 stats.num_segments_processed += 1
                 stats.num_docs_scanned += sstats.num_docs_scanned
                 rt_docs += sstats.num_docs_scanned

@@ -29,6 +29,12 @@ _REGISTRY = {
 }
 
 
+def register_index(kind: str, cls) -> None:
+    """Plug in an index kind: load_index then rebuilds a persisted index
+    whose meta (or slot) names `kind` through cls.from_regions."""
+    _REGISTRY[kind] = cls
+
+
 def load_index(kind: str, meta: Dict[str, Any], regions, prefix: str):
     # an index's meta may name a more specific implementation than its slot
     # (e.g. "cinverted" stored under the "inverted" slot)

@@ -35,6 +35,20 @@ def _bitmaps_from_codes(codes: np.ndarray, cardinality: int, num_docs: int) -> n
     return out
 
 
+def _device_rows(arr: np.ndarray, cache: Dict[str, Any], device):
+    """uint32 word rows as an int32-view tensor on `device` (None: CUDA,
+    raising without it), copied once a device."""
+    import torch
+
+    from pinot_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    t = cache.get(str(dev))
+    if t is None:
+        t = cache[str(dev)] = torch.tensor(np.ascontiguousarray(arr).view(np.int32), device=dev)
+    return t
+
+
 class InvertedIndex:
     """Per-dictId doc bitmaps: shape (cardinality, words)."""
 
@@ -43,6 +57,7 @@ class InvertedIndex:
     def __init__(self, bitmaps: np.ndarray, num_docs: int):
         self.bitmaps = bitmaps
         self.num_docs = num_docs
+        self._device: Dict[str, Any] = {}
 
     @staticmethod
     def build(codes: np.ndarray, cardinality: int, num_docs: int) -> "InvertedIndex":
@@ -55,6 +70,9 @@ class InvertedIndex:
     @property
     def num_words(self) -> int:
         return self.bitmaps.shape[1]
+
+    def device(self, device=None):
+        return _device_rows(self.bitmaps, self._device, device)
 
     def doc_bitmap(self, dict_ids) -> np.ndarray:
         rows = self.bitmaps[np.asarray(dict_ids, dtype=np.int64)]
@@ -145,6 +163,7 @@ class RangeEncodedIndex:
     def __init__(self, prefix: np.ndarray, num_docs: int):
         self.prefix = prefix
         self.num_docs = num_docs
+        self._device: Dict[str, Any] = {}
 
     @staticmethod
     def build(codes: np.ndarray, cardinality: int, num_docs: int) -> "RangeEncodedIndex":
@@ -157,6 +176,9 @@ class RangeEncodedIndex:
     @property
     def cardinality(self) -> int:
         return self.prefix.shape[0] - 1
+
+    def device(self, device=None):
+        return _device_rows(self.prefix, self._device, device)
 
     def range_bitmap(self, lo: int, hi: int) -> np.ndarray:
         """Docs with lo <= code < hi (host side)."""

@@ -878,6 +878,18 @@ class DistributedEngine:
                     t.record_stream(compute)
         return cols, params
 
+    def device_batches(self, plan: _DistPlan, stacked) -> List[List[Tuple[Dict, Dict]]]:
+        """Device-placed (cols, params) of every macro-batch, one pair a mesh
+        position, staged as _run stages them (the marginal-timing hook of a
+        benchmark; _run itself stages lazily, a few batches ahead, instead
+        of materializing the whole list)."""
+        shared = self._shared_params(plan)
+        return [
+            [self._await_staged(*item, dev) for item, dev in zip(self._stage_batch(plan, stacked, j, shared),
+                                                                  self.positions)]
+            for j in range(len(plan.batch_offsets))
+        ]
+
     @staticmethod
     def _combine_partials(aggs, parts_list):
         """Fold per-launch partials (a list over launches of per-agg field

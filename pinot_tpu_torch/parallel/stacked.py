@@ -73,6 +73,10 @@ class StackedColumn:
     def is_multi_value(self) -> bool:
         return self.mv_lengths is not None
 
+    @property
+    def cardinality(self) -> int:
+        return self.dictionary.cardinality if self.dictionary else self.stats.cardinality
+
 
 def _stack_mv_column(f, raw, n: int, num_shards: int, D: int) -> StackedColumn:
     """MV column -> [S, D, max_len] padded code matrix + [S, D] lengths (the

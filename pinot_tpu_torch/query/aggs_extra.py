@@ -299,6 +299,9 @@ class DistinctCountThetaFunction(AggFunction):
             return valid, 1.0  # unsaturated: the COMPLETE distinct hash set
         return valid[:-1], float(valid[-1]) / float(1 << 62)
 
+    def final_dtype(self) -> np.dtype:
+        return np.dtype(np.int64)
+
 
 def _eval_theta_set_expr(expr: str, sets):
     """Evaluate SET_UNION/SET_INTERSECT/SET_DIFF over $i sketch refs; each
@@ -501,6 +504,9 @@ class FrequentLongsFunction(ModeFunction):
             out[g] = [int(lo[g] + o) for o in top]
         return out[0] if np.asarray(p["hist"]).ndim == 1 else out
 
+    def final_dtype(self) -> np.dtype:
+        return np.dtype(object)
+
 
 # ---------------------------------------------------------------------------
 # DISTINCTSUM / DISTINCTAVG: sum/avg over the DISTINCT values
@@ -583,6 +589,9 @@ class MVAggFunction(AggFunction):
 
     def final(self, p):
         return self.base.final(p)
+
+    def final_dtype(self) -> np.dtype:
+        return self.base.final_dtype()
 
 
 for _cls in (

@@ -119,6 +119,9 @@ class HistogramFunction(AggFunction):
             out[g] = [float(c) for c in hist[g]]
         return out[0] if one else out
 
+    def final_dtype(self) -> np.dtype:
+        return np.dtype(object)
+
 
 # ---------------------------------------------------------------------------
 # COVAR_POP / COVAR_SAMP / CORR
@@ -420,6 +423,9 @@ class IntegerTupleSketchFunction(AggFunction):
                 out = np.where(cnt > 0, psum / np.maximum(cnt, 1), np.nan)
         return out[0] if one else out
 
+    def final_dtype(self) -> np.dtype:
+        return np.dtype(np.int64) if self.estimate == "distinct" else np.dtype(np.float64)
+
 
 class SumValuesTupleSketchFunction(IntegerTupleSketchFunction):
     name = "sumvaluesintegersumtuplesketch"
@@ -544,6 +550,9 @@ class FunnelCountFunction(AggFunction):
         else:  # maxstep: deepest step any correlate key completed
             out = prefix.sum(axis=1).max(axis=1).astype(np.int64)
         return out[0] if one else out
+
+    def final_dtype(self) -> np.dtype:
+        return np.dtype(object) if self.mode == "counts" else np.dtype(np.int64)
 
 
 class FunnelCompleteCountFunction(FunnelCountFunction):

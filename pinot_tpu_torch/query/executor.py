@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.query import planner
 from pinot_tpu_torch.query.functions import combine_field
 from pinot_tpu_torch.query.ir import Expr, FilterNode, FilterOp, PredicateType, QueryContext, WindowSpec
@@ -397,6 +398,12 @@ def collect_segment_batch(state):
         _decode_host(ctx, segment, plan, _member(host, i), st)
         for i, (ctx, plan, st) in enumerate(zip(ctxs, plans, stats_list))
     ]
+
+
+def execute_segment(ctx: QueryContext, segment: ImmutableSegment, device=None):
+    """Run one query on one segment on `device` (None: CUDA, raising
+    without it); returns (SegmentResult, ExecutionStats)."""
+    return collect_segment(launch_segment(ctx, segment, resolve_device(device)))
 
 
 def _key_space_id(plan) -> Tuple:

@@ -148,6 +148,9 @@ class AggFunction:
     def final(self, p: Partial):
         raise NotImplementedError
 
+    def final_dtype(self) -> np.dtype:
+        return np.dtype(np.float64)
+
 
 class CountFunction(AggFunction):
     name = "count"
@@ -166,6 +169,9 @@ class CountFunction(AggFunction):
 
     def final(self, p):
         return p["count"]
+
+    def final_dtype(self) -> np.dtype:
+        return np.dtype(np.int64)
 
 
 class SumFunction(AggFunction):

@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.ops import segmented as ops
 from pinot_tpu_torch.ops.sparse_merge import SPARSE_EMPTY_KEY
 from pinot_tpu_torch.query import scalar
@@ -1138,12 +1139,14 @@ def sparse_tables_fn(ctx: QueryContext, aggs, group_dims: List[GroupDim], num_gr
     return tables, num_slots, order_spec
 
 
-def plan_segment(ctx: QueryContext, segment: ImmutableSegment, device: torch.device) -> SegmentPlan:
-    """Plan one query over one segment for `device` (cached by shape).  A
-    malformed query raises PlanCheckError here, before any launch."""
+def plan_segment(ctx: QueryContext, segment: ImmutableSegment, device=None) -> SegmentPlan:
+    """Plan one query over one segment for `device` (None: CUDA, raising
+    without it; cached by shape).  A malformed query raises PlanCheckError
+    here, before any launch."""
     from pinot_tpu_torch.analysis.compile_audit import SSE_AUDIT
     from pinot_tpu_torch.analysis.plan_check import check_plan_cached
 
+    device = resolve_device(device)
     check_plan_cached(ctx)
     needed = _needed_columns(ctx, segment)
     key = (

@@ -65,6 +65,25 @@ class ExecutionStats:
     hedge_cancelled_ms: float = 0.0
     brownout_events: List[str] = field(default_factory=list)
 
+    def merge(self, other: "ExecutionStats") -> None:
+        self.num_segments_queried += other.num_segments_queried
+        self.num_segments_pruned += other.num_segments_pruned
+        self.num_segments_processed += other.num_segments_processed
+        self.num_docs_scanned += other.num_docs_scanned
+        self.total_docs += other.total_docs
+        self.num_groups = max(self.num_groups, other.num_groups)
+        self.num_servers_queried += other.num_servers_queried
+        self.num_servers_responded += other.num_servers_responded
+        self.partial_result = self.partial_result or other.partial_result
+        self.exceptions.extend(other.exceptions)
+        self.add_index_uses(other.filter_index_uses)
+        self.query_id = self.query_id or other.query_id
+        self.hedged += other.hedged
+        self.hedge_winner = other.hedge_winner or self.hedge_winner
+        self.hedge_cancelled_ms += other.hedge_cancelled_ms
+        self.brownout_events.extend(other.brownout_events)
+        self.add_kernel_cost(other)
+
     def add_kernel_cost(self, other: "ExecutionStats") -> None:
         """Accumulate the kernel-cost slice of `other` (one launch's stats)."""
         from pinot_tpu_torch.utils.perf import combine_sources
@@ -123,3 +142,28 @@ class ResultTable:
     columns: List[str]
     rows: List[tuple]
     stats: ExecutionStats = field(default_factory=ExecutionStats)
+
+    def to_dict(self) -> Dict[str, Any]:
+        def _py(v):
+            if isinstance(v, np.generic):
+                return v.item()
+            if isinstance(v, bytes):
+                return v.decode("latin-1")
+            return v
+
+        return {
+            "resultTable": {
+                "dataSchema": {"columnNames": self.columns},
+                "rows": [[_py(v) for v in r] for r in self.rows],
+            },
+            "numSegmentsQueried": self.stats.num_segments_queried,
+            "numSegmentsPruned": self.stats.num_segments_pruned,
+            "numSegmentsProcessed": self.stats.num_segments_processed,
+            "numDocsScanned": self.stats.num_docs_scanned,
+            "totalDocs": self.stats.total_docs,
+            "timeUsedMs": self.stats.time_ms,
+            "numServersQueried": self.stats.num_servers_queried,
+            "numServersResponded": self.stats.num_servers_responded,
+            "partialResult": self.stats.partial_result,
+            "exceptions": list(self.stats.exceptions),
+        }

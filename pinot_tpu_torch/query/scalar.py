@@ -738,6 +738,37 @@ def string_result(expr) -> bool:
     return expr.op in STRING_RESULT_DICT_FNS or expr.op in _EXTRA_STRING_RESULT
 
 
+# ---------------------------------------------------------------------------
+# Registration surface (FunctionRegistry analog: user scalar UDFs)
+# ---------------------------------------------------------------------------
+def register_device_function(name: str, fn) -> None:
+    """Register a numeric device function: fn(tensor, *literal_args) ->
+    tensor, on the input's device.  Usable anywhere expressions evaluate
+    (filters, aggregation inputs and the fused scan's computed values,
+    selection, GROUP BY via interval analysis if bounded)."""
+    DEVICE_FNS[name.lower()] = fn
+
+
+def register_dict_function(name: str, fn, string_result_fn: bool = False) -> None:
+    """Register a dictionary-domain function: fn(np values array,
+    *literal_args) -> derived np array (object for strings, typed for
+    numerics); the engine gathers derived[codes] on the device."""
+    DICT_FNS[name.lower()] = fn
+    if string_result_fn:
+        _EXTRA_STRING_RESULT.add(name.lower())
+
+
+def list_functions() -> dict:
+    """Registered function names by execution domain (plus aggregations)."""
+    from pinot_tpu_torch.query.functions import _REGISTRY
+
+    return {
+        "device": sorted(DEVICE_FNS),
+        "dictionary": sorted(DICT_FNS),
+        "aggregation": sorted(_REGISTRY),
+    }
+
+
 def is_dict_fn_expr(expr) -> bool:
     """CALL of a dictionary-domain function over exactly one column (plus
     literals) — the shape rewritable as derived[codes]."""

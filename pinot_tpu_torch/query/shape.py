@@ -205,6 +205,13 @@ def audit_predicate(p: Predicate, info: Optional[ColumnInfo]) -> Tuple[bool, str
     return False, "unsupported-ptype"
 
 
+def audit_filter(node: Optional[FilterNode], info: Optional[ColumnInfo]) -> List[Tuple[Predicate, bool, str]]:
+    """Full per-predicate audit of a filter tree (test / EXPLAIN surface)."""
+    if node is None:
+        return []
+    return [(p, *audit_predicate(p, info)) for p in node.predicates()]
+
+
 def _slot(p: Predicate) -> str:
     """Canonical literal-free form of a parameterizable predicate: type
     classes + bucket size + bound presence/inclusivity — everything that

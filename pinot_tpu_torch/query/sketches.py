@@ -160,6 +160,9 @@ class DistinctCountFunction(AggFunction):
             return len(p["valueset"])
         return np.asarray(p["present"]).sum(axis=-1)
 
+    def final_dtype(self) -> np.dtype:
+        return np.dtype(np.int64)
+
 
 class DistinctCountValueSetFunction(AggFunction):
     """Exact distinct count across segments with DIFFERENT dictionaries:
@@ -196,6 +199,9 @@ class DistinctCountValueSetFunction(AggFunction):
 
     def final(self, p):
         return len(p["valueset"])
+
+    def final_dtype(self) -> np.dtype:
+        return np.dtype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +396,9 @@ class DistinctCountHLLFunction(AggFunction):
             lc = m * np.log(np.where(zeros > 0, m / np.maximum(zeros, 1), 1.0))
         est = np.where((est <= 2.5 * m) & (zeros > 0), lc, est)
         return np.rint(est).astype(np.int64)
+
+    def final_dtype(self) -> np.dtype:
+        return np.dtype(np.int64)
 
 
 # ---------------------------------------------------------------------------

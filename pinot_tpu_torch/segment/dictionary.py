@@ -57,6 +57,10 @@ class Dictionary:
     # poisoned fingerprint cannot be injected via the constructor
     _fp_cache: Optional[str] = dataclass_field(default=None, init=False, compare=False, repr=False)
 
+    @property
+    def code_dtype(self) -> np.dtype:
+        return min_code_dtype(self.cardinality)
+
     def fingerprint(self) -> str:
         """Content hash of the value set — used to detect segments that share
         a key space (aligned dense group-by merges, reduce.py)."""
@@ -104,6 +108,24 @@ class Dictionary:
         if i < len(self.values) and self.values[i] == self._coerce(value):
             return i
         return NULL_DICT_ID
+
+    def insertion_index_of(self, value) -> int:
+        """Bisect-left index of `value` (Dictionary.insertionIndexOf without
+        the -(pos)-1 encoding: found or not is index_of's answer)."""
+        return int(np.searchsorted(self.values, self._coerce(value)))
+
+    def encode(self, raw_values: np.ndarray) -> np.ndarray:
+        """Vectorized value->code; raises on unknown values."""
+        if self.data_type.is_string_like:
+            arr = np.asarray(raw_values, dtype=object)
+        else:
+            arr = np.asarray(raw_values, dtype=self.data_type.np_dtype)
+        codes = np.searchsorted(self.values, arr)
+        codes = np.clip(codes, 0, len(self.values) - 1)
+        if not (self.values[codes] == arr).all():
+            bad = arr[self.values[codes] != arr]
+            raise ValueError(f"values not in dictionary: {bad[:5]!r}")
+        return codes.astype(np.int32)
 
     def get_values(self, dict_ids: np.ndarray) -> np.ndarray:
         return self.values[np.asarray(dict_ids)]

@@ -9,6 +9,7 @@ onto numpy dtypes; segment/segment.py maps those onto torch dtypes.
 from __future__ import annotations
 
 import enum
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -170,6 +171,18 @@ class Schema:
     def column_names(self) -> List[str]:
         return [f.name for f in self.fields]
 
+    @property
+    def dimension_columns(self) -> List[str]:
+        return [f.name for f in self.fields if f.role is FieldRole.DIMENSION]
+
+    @property
+    def metric_columns(self) -> List[str]:
+        return [f.name for f in self.fields if f.role is FieldRole.METRIC]
+
+    @property
+    def datetime_columns(self) -> List[str]:
+        return [f.name for f in self.fields if f.role is FieldRole.DATE_TIME]
+
     # -- serde -----------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {
@@ -204,3 +217,10 @@ class Schema:
             fields=fields,
             primary_key_columns=list(d.get("primaryKeyColumns", [])),
         )
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "Schema":
+        return Schema.from_dict(json.loads(s))

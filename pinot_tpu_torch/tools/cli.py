@@ -34,7 +34,7 @@ def _load_schema(path: str):
     from pinot_tpu_torch.spi.schema import Schema
 
     with open(path, "r", encoding="utf-8") as f:
-        return Schema.from_dict(json.load(f))
+        return Schema.from_json(f.read())
 
 
 def _load_config(path, name):

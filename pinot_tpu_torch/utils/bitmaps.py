@@ -65,3 +65,28 @@ def decompress_docs(buf: bytes) -> np.ndarray:
     if not out:
         return np.zeros(0, dtype=np.uint32)
     return np.concatenate(out).astype(np.uint32)
+
+
+def decompress_into_words(buf: bytes, words: np.ndarray) -> int:
+    """OR the compressed bitmap into dense uint32 words (bit j of word w is
+    doc 32 w + j); returns its cardinality.  Raises ValueError on a doc past
+    the words."""
+    docs = decompress_docs(buf).astype(np.int64)
+    if len(docs) and int(docs[-1]) >> 5 >= len(words):
+        raise ValueError("corrupt compressed bitmap: docs past buffer")
+    np.bitwise_or.at(words, docs >> 5, np.uint32(1) << (docs & 31).astype(np.uint32))
+    return len(docs)
+
+
+def cardinality(buf: bytes) -> int:
+    """Doc count of compressed container bytes, from the container headers."""
+    mv = memoryview(buf)
+    nc = int(np.frombuffer(mv[:4], dtype=np.uint32)[0])
+    pos = 4
+    total = 0
+    for _ in range(nc):
+        ctype = mv[pos + 4]
+        count = int(np.frombuffer(mv[pos + 5: pos + 9], dtype=np.uint32)[0])
+        pos += 9 + (count * 2 if ctype == 0 else _BITMAP_BYTES)
+        total += count
+    return total

@@ -13,9 +13,10 @@ Trimmed copy of pinot_tpu/utils/perf.py:
   packed-storage model (the JAX package's fallback cost model, which its
   CPU runs use too).  ExecutionStats.kernel_bytes = bytes per row x rows
   scanned.
-- roofline_pct() = achieved bytes/s / the card's peak: 3.35e12 B/s, the
-  H100 SXM's HBM rate (NVIDIA data sheet), in place of the JAX package's
-  TPU table.
+- roofline_pct() = achieved bytes/s / the card's peak HBM rate,
+  peak_hbm_bytes_per_sec(): looked up by the card's name from NVIDIA's data
+  sheets in place of the JAX package's TPU table; 3.35e12 B/s, the H100
+  SXM's, for an unknown card or none.
 - PerfLedger: rolling windows of rows/s, bytes/s, roofline %, compile ms,
   plan-cache outcome and QPS keyed (table, shape digest).  Both engines
   record every query; the residency manager reads a table's bytes/s as its
@@ -38,12 +39,21 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
+from functools import lru_cache
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
 from pinot_tpu_torch.utils.metrics import METRICS
 
 # H100 SXM peak HBM bandwidth (NVIDIA data sheet), bytes/s
 PEAK_HBM_BYTES_PER_SEC = 3.35e12
+# peak HBM bandwidth by card name (NVIDIA data sheets), bytes/s: the first
+# marker found in the lower-cased name wins ("NVIDIA H100 80GB HBM3" is SXM)
+_PEAK_HBM_BY_NAME: Tuple[Tuple[str, float], ...] = (
+    ("h200", 4.8e12),
+    ("h100 nvl", 3.9e12),
+    ("h100 pcie", 2.0e12),
+    ("h100", PEAK_HBM_BYTES_PER_SEC),
+)
 
 
 def analytic_bytes_per_row(columns, bitmap_params: int = 0) -> float:
@@ -76,6 +86,9 @@ class KernelCost:
     flops: float = 0.0
     bytes_accessed: float = 0.0
     source: str = "analytic"
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"flops": self.flops, "bytesAccessed": self.bytes_accessed, "source": self.source}
 
 
 def analytic_cost(
@@ -117,11 +130,33 @@ def combine_sources(a: Optional[str], b: Optional[str]) -> Optional[str]:
     return "mixed"
 
 
+@lru_cache(maxsize=1)
+def peak_hbm_bytes_per_sec() -> float:
+    """Peak memory bandwidth of CUDA device 0 in bytes/s, by the card's name
+    (torch.cuda.get_device_properties).  A positive PINOT_TPU_PEAK_HBM_BPS
+    wins (tests flipping it must cache_clear()); an unknown card, or no
+    card, reads as the H100 SXM the port is built for."""
+    override = os.environ.get("PINOT_TPU_PEAK_HBM_BPS")
+    if override:
+        try:
+            v = float(override)
+            if v > 0:
+                return v
+        except ValueError:
+            pass
+    import torch
+
+    if not torch.cuda.is_available():
+        return PEAK_HBM_BYTES_PER_SEC
+    name = torch.cuda.get_device_properties(0).name.lower()
+    return next((bps for marker, bps in _PEAK_HBM_BY_NAME if marker in name), PEAK_HBM_BYTES_PER_SEC)
+
+
 def roofline_pct(bytes_accessed: float, seconds: float) -> Optional[float]:
     """Achieved HBM bandwidth as % of device peak; None when unmeasurable."""
     if bytes_accessed <= 0 or seconds <= 0:
         return None
-    return 100.0 * (bytes_accessed / seconds) / PEAK_HBM_BYTES_PER_SEC
+    return 100.0 * (bytes_accessed / seconds) / peak_hbm_bytes_per_sec()
 
 
 @dataclass
